@@ -16,14 +16,20 @@ Phases (any failure raises and the script exits non-zero):
      (whose sums cancel) and on a non-cancelling ramp input with a relative
      tolerance (mxu also against a dense operand); the fma chain's depth;
      bit-identical repeat runs; all ``streams`` give the same load_sum; the
-     timed forms against the plain oracles of the ``torch`` backend.
-  3  the main path: ``repro_torch.bench.cli.main(["run", "--backend", "cuda",
-     ...])`` over the working-set ladder 32 KiB .. 2 GiB, float32 then
-     bfloat16; the result JSON is read back and checked; ``compare`` of
-     ``torch`` vs ``cuda``; the launch counters show the run went through the
-     kernels.
+     timed forms against the plain oracles of the ``torch`` backend.  The rw
+     kernel over the R:W ladder (and 1:8, 8:1, 8:8) bit for bit against its
+     plain version, and equal to copy / triad at 1:1 / 2:1; the chase on
+     ``chase_perm`` (exactly 0.0) and on permutations whose walk ends
+     elsewhere (exact equality), the loaded composite, repeat runs, and both
+     timed forms against the ``torch`` oracles.
+  3  the main paths, each with the launch counters set to 0 just before and
+     read just after: ``run --backend cuda`` over the working-set ladder
+     32 KiB .. 2 GiB for the six first mixes, then for the rw ladder, float32
+     then bfloat16; ``latency --backend cuda`` (idle and loaded); the result
+     JSON is read back and checked; ``compare`` of ``torch`` vs ``cuda``.
   4  the measurement is real: doubling ``passes`` doubles the time, no GB/s
-     above the card's memory rate at 2 GiB, mxu below the float32 peak.
+     above the card's memory rate at 2 GiB, mxu below the float32 peak; the
+     chase at least 5 ns per dependent step, loaded latency not below idle.
   5  one JSON line listing every kernel with its time, its plain version's,
      the library call's, and its bound.
 
@@ -53,8 +59,11 @@ if not torch.cuda.is_available():
           "needs one CUDA device", file=sys.stderr)
     sys.exit(2)
 
+import numpy as np  # noqa: E402
+
 from repro_torch.bench import cli  # noqa: E402
-from repro_torch.bench.mixes import get_mix  # noqa: E402
+from repro_torch.bench.mixes import (GEN_SWEEPS_PER_PASS,  # noqa: E402
+                                     get_mix, rw_name)
 from repro_torch.bench.result import BenchResult  # noqa: E402
 from repro_torch.core import instruction_mix as im  # noqa: E402
 from repro_torch.core.buffers import working_set  # noqa: E402
@@ -87,9 +96,19 @@ REPLACES = {
     "mxu": "src/repro/kernels/membench/membench.py:52",
     "copy": "src/repro/kernels/membench/membench.py:73",
     "triad": "src/repro/kernels/membench/membench.py:83",
+    "rw": "src/repro/kernels/membench/membench.py:88",
+    "chase": "src/repro/kernels/membench/membench.py:110",
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FMA_DEPTH = 8
+#: the kernels of the first slice: the generic loops of phases 2, 4 and 5
+#: run them; rw and chase have their own checks
+BANDWIDTH_KERNELS = ("load_sum", "load_only", "fma", "mxu", "copy", "triad")
+#: the registered R:W ladder the main path runs, and the corners phase 2
+#: adds to it
+RW_LADDER = ((1, 2), (1, 1), (2, 1), (3, 1), (4, 1))
+RW_CORNERS = ((1, 8), (8, 1), (8, 8))
+RW_MIXES = ",".join(rw_name(r, w) for r, w in RW_LADDER)
 OUT_DIR = ROOT / "artifacts" / "chip_smoke"      # --out-dir replaces it
 
 
@@ -295,7 +314,7 @@ def phase_kernels(quick: bool) -> None:
                 for block_rows, streams in tilings:
                     if rows % (block_rows * streams):
                         continue
-                    for kernel in mb.KERNEL_NAMES:
+                    for kernel in BANDWIDTH_KERNELS:
                         if w is dense and kernel != "mxu":
                             continue          # the dense operand is mxu's only
                         ks = ((1, 2, 4) if kernel in ("load_sum", "copy")
@@ -341,7 +360,7 @@ def phase_kernels(quick: bool) -> None:
         x = ramp_input(working_set(sizes[-1], dtype=dtype, device=DEV))
         br = mb.default_block_rows(x.shape[0])
         w = dense_w(dtype)
-        for kernel in mb.KERNEL_NAMES:
+        for kernel in BANDWIDTH_KERNELS:
             a, _ = run_pair(kernel, x, x * 0.5, w, br, 1, 4, 1, 1)
             b, _ = run_pair(kernel, x, x * 0.5, w, br, 1, 4, 1, 1)
             sync()
@@ -393,6 +412,221 @@ def phase_kernels(quick: bool) -> None:
     say("  timed forms agree with the torch backend's oracles")
 
 
+def chase_buffer(x: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """The chase path's buffer for x: one ``chase_perm`` cycle per tile."""
+    return torch.tensor(im.chase_perm(x.shape, x.shape[0] // block_rows),
+                        device=DEV)
+
+
+def off_cycle_perm(shape, block_rows: int, seed: int) -> torch.Tensor:
+    """An int32 buffer whose every tile of m entries holds a permutation
+    that is NOT one full cycle: 0 lies on a seeded random cycle of seeded
+    length c, m/2 < c <= 3m/4, and the other indices on a second cycle.  A
+    walk of k steps from 0 ends k mod c entries along 0's cycle, so the
+    walk of m = block_rows * 128 steps ends m - c (m/4 .. m/2) entries
+    along it, and a walk of any k not congruent to m mod c (one load per
+    tile, a skipped or repeated step, 2m - 1, ...) ends elsewhere; on
+    ``chase_perm`` every walk ends at 0, which a kernel doing nothing also
+    returns."""
+    rng = np.random.default_rng(seed)
+    rows, lanes = shape
+    m = block_rows * lanes
+    flat = np.empty(rows * lanes, dtype=np.int32)
+    for t in range(rows // block_rows):
+        c = int(rng.integers(m // 2 + 1, 3 * m // 4 + 1))
+        rest = rng.permutation(np.arange(1, m))
+        seg = np.empty(m, dtype=np.int32)
+        for cyc in (np.concatenate([[0], rest[:c - 1]]), rest[c - 1:]):
+            seg[cyc] = np.roll(cyc, -1)
+        flat[t * m:(t + 1) * m] = seg
+    return torch.tensor(flat.reshape(rows, lanes), device=DEV)
+
+
+def rw_value(x, reads: int) -> torch.Tensor:
+    """The value every output of an rw call on x holds (plain version)."""
+    return mb.plain_rw(x, *im.rw_streams(x, reads)[1:], writes=1)[0]
+
+
+def phase_rw_chase(quick: bool) -> None:
+    say("== phase 2b: rw and chase against their plain versions on the card")
+    sizes = (16 * KiB, 128 * KiB) if quick else (16 * KiB, 128 * KiB, 64 * MiB)
+    n_rw = 0
+    for dname, dtype in DTYPES.items():
+        for nbytes in sizes:
+            cyc = working_set(nbytes, dtype=dtype, device=DEV)
+            rows = cyc.shape[0]
+            tilings = [(8, 1), (32, 2), (16, 4),
+                       (mb.default_block_rows(rows), 1)]
+            for iname, x in (("cycle", cyc), ("ramp", ramp_input(cyc))):
+                for reads, writes in RW_LADDER + RW_CORNERS:
+                    ys = im.rw_streams(x, reads)[1:]
+                    want = mb.plain_rw(x, *ys, writes=1)[0]
+                    for block_rows, streams in tilings:
+                        if rows % (block_rows * streams):
+                            continue
+                        for interleave in (1, 2, 4):
+                            if block_rows % interleave:
+                                continue
+                            for unroll, passes in ((1, 1), (1, 8), (4, 4),
+                                                   (4, 8)):
+                                outs = mb.rw(
+                                    x, *ys, reads=reads, writes=writes,
+                                    block_rows=block_rows, streams=streams,
+                                    passes=passes, unroll=unroll,
+                                    interleave=interleave)
+                                sync()
+                                # tolerance 0: both sides round once per
+                                # operation in the working dtype
+                                if not all(torch.equal(o, want)
+                                           for o in outs):
+                                    raise AssertionError(
+                                        f"rw {reads}:{writes} {dname} "
+                                        f"{nbytes}B {iname} block_rows="
+                                        f"{block_rows} streams={streams} "
+                                        f"interleave={interleave} unroll="
+                                        f"{unroll} passes={passes}: not "
+                                        f"bit-identical to plain_rw")
+                                n_rw += 1
+                    del ys, want
+                # the family generalises copy and triad, bit for bit
+                br = mb.default_block_rows(rows)
+                (one,) = mb.rw(x, reads=1, writes=1, block_rows=br)
+                (two,) = mb.rw(x, x * 0.5, reads=2, writes=1, block_rows=br)
+                if not (torch.equal(one, mb.copy(x, block_rows=br))
+                        and torch.equal(two, mb.triad(x, x * 0.5,
+                                                      block_rows=br))):
+                    raise AssertionError(f"rw_1to1 / rw_2to1 differ from "
+                                         f"copy / triad ({dname} {nbytes}B "
+                                         f"{iname})")
+            del cyc, x
+    say(f"  {n_rw} rw cases bit-identical to plain_rw (max_abs_err 0); "
+        f"rw_1to1 == copy and rw_2to1 == triad bit for bit")
+
+    n_chase = 0
+    for nbytes in (16 * KiB, 128 * KiB, 1 * MiB):
+        x = working_set(nbytes, device=DEV)
+        rows = x.shape[0]
+        for block_rows, streams in ((8, 1), (32, 2), (16, 4),
+                                    (mb.default_block_rows(rows), 1)):
+            if rows % (block_rows * streams):
+                continue
+            full = chase_buffer(x, block_rows)
+            off = off_cycle_perm(x.shape, block_rows, seed=block_rows)
+            for unroll, passes in ((1, 1), (1, 8), (4, 4), (4, 8)):
+                kw = dict(block_rows=block_rows, streams=streams,
+                          passes=passes)
+                got = float(mb.chase(full, unroll=unroll, **kw))
+                if got != 0.0 or float(mb.plain_chase(full, **kw)) != 0.0:
+                    raise AssertionError(f"chase on chase_perm gives {got}, "
+                                         f"not 0.0 ({nbytes}B {kw})")
+                got = float(mb.chase(off, unroll=unroll, **kw))
+                want = float(mb.plain_chase(off, **kw))
+                # exact: integers below 2**24, folded in the same order
+                if got != want or want == 0.0:
+                    raise AssertionError(f"chase on an off-cycle perm: "
+                                         f"{got} vs plain {want} "
+                                         f"({nbytes}B {kw})")
+                n_chase += 2
+    say(f"  {n_chase} chase cases: 0.0 on chase_perm, exactly the plain "
+        f"value (last: {want}) on off-cycle permutations")
+
+    # the wrapper checks its buffer once, and again after it was written to:
+    # an index outside its tile never reaches the kernel
+    perm = chase_buffer(working_set(16 * KiB, device=DEV), 8)
+    mb.chase(perm, block_rows=8)
+    perm[3, 3] = 8 * mb.LANES               # tile 0 now points into tile 1
+    try:
+        mb.chase(perm, block_rows=8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("chase launched on a perm with an index "
+                             "outside its tile")
+    say("  chase refuses a buffer written out of its tile after a first "
+        "clean call")
+
+    # the loaded composite: probe + generator sweeps, against the plain
+    # composition and the torch oracle, on the non-cancelling generator
+    x = working_set(128 * KiB, device=DEV)
+    gen = ramp_input(x)
+    br = mb.default_block_rows(x.shape[0])
+    full, off = chase_buffer(x, br), off_cycle_perm(x.shape, br, seed=7)
+    for load in (1, 4):
+        for passes, unroll in ((2, 1), (4, 2)):
+            case = mb_ops.make_timed_kernel("latency_chase", block_rows=br,
+                                            passes=passes, unroll=unroll,
+                                            load=load)
+            gsum = float(mb.plain_load_sum(gen))
+            sweeps = load * GEN_SWEEPS_PER_PASS
+            for perm in (full, off):
+                got = float(case(perm, gen))
+                want = passes * (float(mb.plain_chase(perm, br))
+                                 + sweeps * gsum)
+                if not abs(got - want) <= SUM_RTOL * abs(want):
+                    raise AssertionError(f"loaded composite load={load} "
+                                         f"passes={passes}: {got} vs {want}")
+            oracle = float(im.k_chase_loaded(
+                torch.tensor(im.chase_perm(x.shape), device=DEV), gen,
+                passes, unroll, load=load))
+            want = passes * sweeps * gsum
+            if not abs(oracle - want) <= SUM_RTOL * want:
+                raise AssertionError(f"k_chase_loaded load={load}: {oracle} "
+                                     f"vs {want}")
+    say("  loaded composite (load 1, 4) agrees with the plain composition "
+        "and k_chase_loaded to SUM_RTOL")
+
+    # determinism: the same launch twice is bit-identical
+    for dname, dtype in DTYPES.items():
+        x = ramp_input(working_set(sizes[-1], dtype=dtype, device=DEV))
+        br = mb.default_block_rows(x.shape[0])
+        ys = im.rw_streams(x, 3)[1:]
+        a = mb.rw(x, *ys, reads=3, writes=2, block_rows=br, passes=2)
+        b = mb.rw(x, *ys, reads=3, writes=2, block_rows=br, passes=2)
+        sync()
+        if not all(torch.equal(p, q) for p, q in zip(a, b)):
+            raise AssertionError(f"rw/{dname}: two runs differ")
+    off = off_cycle_perm(working_set(1 * MiB, device=DEV).shape, 128, seed=3)
+    if not torch.equal(mb.chase(off, block_rows=128, passes=2),
+                       mb.chase(off, block_rows=128, passes=2)):
+        raise AssertionError("chase: two runs differ")
+    say("  two runs of rw and of chase are bit-identical")
+
+    # the timed forms against the torch backend's oracles, each with its own
+    # convention for the rw scalar (cuda = the reference's Pallas kernel:
+    # passes * W * v[0,0] + unroll * W * v[-1,-1]; torch = its xla oracle:
+    # passes * v[0,0] + W * unroll * v[-1,-1])
+    for dname, dtype in DTYPES.items():
+        x = working_set(1 * MiB, dtype=dtype, device=DEV)
+        br = mb.default_block_rows(x.shape[0])
+        for reads, writes in RW_LADDER:
+            mix = rw_name(reads, writes)
+            v = rw_value(x, reads).to(torch.float32)
+            first, last = float(v[0, 0]), float(v[-1, -1])
+            for passes, unroll in ((4, 1), (4, 2)):
+                got = float(mb_ops.make_timed_kernel(
+                    mix, block_rows=br, passes=passes, unroll=unroll)(
+                    x, *im.rw_streams(x, reads)[1:]))
+                oracle = float(im.run_mix(mix, x, passes, unroll=unroll))
+                for name, value, want in (
+                        ("cuda", got, writes * (passes * first
+                                                + unroll * last)),
+                        ("torch", oracle, passes * first
+                         + writes * unroll * last)):
+                    if not abs(value - want) <= SUM_RTOL * abs(want) + 1e-6:
+                        raise AssertionError(
+                            f"timed {mix}/{dname} {name} passes={passes} "
+                            f"unroll={unroll}: {value} vs {want}")
+        if dname == "float32":
+            full = chase_buffer(x, br)
+            got = float(mb_ops.make_timed_kernel(
+                "latency_chase", block_rows=br, passes=4)(full))
+            oracle = float(im.run_mix("latency_chase", x, 4))
+            if got != 0.0 or oracle != 0.0:
+                raise AssertionError(f"timed latency_chase: cuda {got}, "
+                                     f"torch {oracle}, both must be 0.0")
+    say("  timed rw and chase forms agree with the torch backend's oracles")
+
+
 # ---------------------------------------------------------------------------
 # phase 3 — the main path
 # ---------------------------------------------------------------------------
@@ -406,6 +640,18 @@ def _cli(argv: list[str]) -> tuple[int, str]:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     return rc, buf.getvalue()
+
+
+def read_counts(kernels, path: str) -> dict[str, int]:
+    """The launch counters just after a main path ran (they were set to 0
+    just before it); raises unless each of ``kernels`` launched."""
+    counts = dict(mb.launch_counts)
+    say(f"  launches on the main path ({path}): {counts}")
+    for name in kernels:
+        if counts[name] < 1:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 f"main path ({path})")
+    return counts
 
 
 def _check_result(path: Path, mixes: list[str], n_sizes: int, dtype: str
@@ -460,12 +706,7 @@ def phase_main_path(quick: bool) -> dict[str, int]:
             raise AssertionError(f"run exited {rc}:\n{text}")
         say(f"  run {dtype} {sizes}: {time.perf_counter() - t0:.1f} s")
         _check_result(out, mixes, len(sizes.split(",")), dtype)
-    counts = dict(mb.launch_counts)
-    say(f"  launches on the main path: {counts}")
-    for name, n in counts.items():
-        if n < 1:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 f"main path")
+    counts = read_counts(BANDWIDTH_KERNELS, "run " + MAIN_MIXES)
 
     # the same entry point with span tracing on (kept apart from the runs
     # above, whose times are reported)
@@ -488,19 +729,97 @@ def phase_main_path(quick: bool) -> dict[str, int]:
     if "# skipped torch/load_only" not in text:
         raise AssertionError("compare did not report load_only as skipped "
                              "on torch")
-    both = json.loads((OUT_DIR / "compare.json").read_text())
-    tp = {(p["mix"], p["nbytes"]): p for p in both["torch"]["points"]}
+    check_compare(OUT_DIR / "compare.json", skipped_on_torch={"load_only"})
+    return counts
+
+
+def check_compare(path: Path, skipped_on_torch=frozenset()) -> None:
+    """Every point of a ``compare --backends torch,cuda`` result has the same
+    bytes_per_call / flops_per_call / passes on both backends."""
+    both = json.loads(path.read_text())
+    tp = {(p["mix"], p["nbytes"], p["load"]): p
+          for p in both["torch"]["points"]}
     for p in both["cuda"]["points"]:
-        q = tp.get((p["mix"], p["nbytes"]))
+        q = tp.get((p["mix"], p["nbytes"], p["load"]))
         if q is None:
-            if p["mix"] != "load_only":
+            if p["mix"] not in skipped_on_torch:
                 raise AssertionError(f"torch lacks {p['mix']}")
             continue
         for k in ("bytes_per_call", "flops_per_call", "passes"):
             if p[k] != q[k]:
                 raise AssertionError(f"{p['mix']}/{p['nbytes']}: {k} "
                                      f"{p[k]} != {q[k]}")
-    say("  torch and cuda agree on bytes_per_call / flops_per_call / passes")
+    say(f"  torch and cuda agree on bytes_per_call / flops_per_call / passes "
+        f"({len(both['cuda']['points'])} points)")
+
+
+def phase_rw_path(quick: bool) -> dict[str, int]:
+    say("== phase 3b: the rw path (python -m repro_torch.bench run --backend "
+        "cuda --mixes " + RW_MIXES + ")")
+    common = ["--backend", "cuda", "--mixes", RW_MIXES, "--force",
+              "--history-root", str(OUT_DIR / "BENCH_history")]
+    runs = ([("float32", "32K,1M,16M"), ("bfloat16", "16M")] if quick else
+            [("float32", "32K,1M,16M,256M,2G"), ("bfloat16", "16M,2G")])
+    mb.reset_launch_counts()
+    for dtype, sizes in runs:
+        out = OUT_DIR / f"run_rw_{dtype}.json"
+        t0 = time.perf_counter()
+        rc, text = _cli(["run", *common, "--dtype", dtype, "--sizes", sizes,
+                         "--out", str(out)])
+        sync()
+        if rc != 0:
+            raise AssertionError(f"run exited {rc}:\n{text}")
+        say(f"  run {dtype} {sizes}: {time.perf_counter() - t0:.1f} s")
+        _check_result(out, RW_MIXES.split(","), len(sizes.split(",")), dtype)
+    return read_counts(("rw",), "run " + RW_MIXES)
+
+
+def phase_latency_path(quick: bool) -> dict[str, int]:
+    say("== phase 3c: the latency path (python -m repro_torch.bench latency "
+        "--backend cuda)")
+    out = OUT_DIR / "latency.json"
+    mb.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, text = _cli(["latency", "--backend", "cuda", "--out", str(out),
+                     "--force", "--history-root",
+                     str(OUT_DIR / "BENCH_history")]
+                    + (["--smoke"] if quick else []))
+    sync()
+    if rc != 0:
+        raise AssertionError(f"latency exited {rc}:\n{text}")
+    counts = read_counts(("chase", "load_sum"), "latency")
+    say(f"  latency: {time.perf_counter() - t0:.1f} s")
+    say("  " + text.rstrip().replace("\n", "\n  "))
+    res = BenchResult.from_json(out)
+    sizes, loads = ((1,), (0, 1, 2)) if quick else ((2,), (0, 1, 2, 4))
+    if len(res.points) != sizes[0] * len(loads) \
+            or {p.load for p in res.points} != set(loads):
+        raise AssertionError(f"latency result: {len(res.points)} points, "
+                             f"loads {sorted({p.load for p in res.points})}")
+    idle = {p.nbytes: p for p in res.points if p.load == 0}
+    for p in res.points:
+        ok = (p.backend == "cuda" and p.mix == "latency_chase"
+              and p.latency_ns is not None and p.latency_ns > 0
+              and math.isfinite(p.latency_ns)
+              and (p.gen_gbps == 0.0 if p.load == 0 else p.gen_gbps > 0)
+              and p.bytes_per_call == idle[p.nbytes].bytes_per_call
+              * (1 + p.load * GEN_SWEEPS_PER_PASS)
+              and len(p.rep_times_s) == p.reps)
+        if not ok:
+            raise AssertionError(f"bad latency point: {p}")
+    if not res.meta.get("loaded_latency", {}).get("fit"):
+        raise AssertionError("latency result carries no knee fit")
+    say("  latency result: every point has latency_ns > 0, gen_gbps 0 idle "
+        "and > 0 loaded, bytes_per_call = idle x (1 + load x 16)")
+
+    rc, text = _cli(["compare", "--backends", "torch,cuda", "--mixes",
+                     RW_MIXES + ",latency_chase", "--sizes", "1M", "--reps",
+                     "3", "--force", "--out",
+                     str(OUT_DIR / "compare_rw_chase.json")])
+    say("  " + text.rstrip().replace("\n", "\n  "))
+    if rc != 0:
+        raise AssertionError(f"compare exited {rc} (accounting mismatch)")
+    check_compare(OUT_DIR / "compare_rw_chase.json")
     return counts
 
 
@@ -569,7 +888,7 @@ def phase_real(quick: bool) -> None:
         y, out = x * 0.5, torch.empty_like(x)
         w = torch.eye(mb.LANES, dtype=x.dtype, device=DEV)
         n = 5 if nbytes <= 16 * MiB else 3
-        for kernel in mb.KERNEL_NAMES:
+        for kernel in BANDWIDTH_KERNELS:
             # the smallest power-of-two pass count whose call lasts
             # REAL_MIN_MS; at 2 GiB one pass already does
             passes, t1 = 1, time_ms(kernel_fn(kernel, x, y, w, out, 1), n)
@@ -598,6 +917,85 @@ def phase_real(quick: bool) -> None:
                     f"mxu reports {tflops:.1f} TFLOP/s, above the float32 "
                     f"peak: part of the product is not computed")
         del x, y, out
+
+
+def doubled(make_fn, n: int, min_ms: float = REAL_MIN_MS
+            ) -> tuple[int, float, float]:
+    """(passes, ms at passes, ms at 2 x passes) for the smallest power-of-two
+    pass count whose call lasts ``min_ms``; ``make_fn(passes)`` gives the
+    call."""
+    passes, t1 = 1, time_ms(make_fn(1), n)
+    while t1 < min_ms and passes < 2**16:
+        passes *= 2
+        t1 = time_ms(make_fn(passes), n)
+    return passes, t1, time_ms(make_fn(2 * passes), n)
+
+
+def check_ratio(what: str, t1: float, t2: float) -> None:
+    if not 1.7 <= t2 / t1 <= 2.3:
+        raise AssertionError(
+            f"{what}: time at 2x passes is {t2 / t1:.3f}x the time at 1x "
+            f"(expected 1.7..2.3): the pass loop does not do what it is "
+            f"accounted for")
+
+
+def phase_real_rw_chase(quick: bool) -> None:
+    say("== phase 4b: the rw and chase measurements are real")
+    for nbytes in (16 * MiB,) if quick else (16 * MiB, 2 * GiB):
+        x = working_set(nbytes, device=DEV)
+        br = mb.default_block_rows(x.shape[0])
+        n = 5 if nbytes <= 16 * MiB else 3
+        for reads, writes in RW_LADDER:
+            ys = im.rw_streams(x, reads)[1:]
+            outs = tuple(torch.empty_like(x) for _ in range(writes))
+            passes, t1, t2 = doubled(lambda p: lambda: mb.rw(
+                x, *ys, reads=reads, writes=writes, outs=outs,
+                block_rows=br, passes=p), n)
+            nb = (reads + writes) * x.numel() * x.element_size()
+            gbps = nb * 2 * passes / (t2 * 1e-3) / 1e9
+            say(f"  rw_{reads}to{writes} {nbytes:>11d} B  passes {passes}->"
+                f"{2 * passes}: {t1:.4f} -> {t2:.4f} ms  ratio "
+                f"{t2 / t1:.3f}  {gbps:.1f} GB/s")
+            check_ratio(f"rw_{reads}to{writes} at {nbytes} B", t1, t2)
+            if nbytes >= 2 * GiB and gbps > HBM_BYTES_PER_S / 1e9 * 1.02:
+                raise AssertionError(
+                    f"rw_{reads}to{writes} at {nbytes} B reports {gbps:.1f} "
+                    f"GB/s, above the card's memory rate: some traffic is "
+                    f"not executed")
+            del ys, outs
+        del x
+        torch.cuda.empty_cache()
+
+    # the chase: twice the passes take twice the time, and a step takes at
+    # least 5 ns — a dependent load cannot complete faster than an L1 hit
+    # (tens of cycles); less would mean that steps overlap.  Every pass is a
+    # launch of its own and starts from the same (cold) L1.
+    x = working_set(128 * KiB, device=DEV)
+    br = mb.default_block_rows(x.shape[0])
+    perm, steps = chase_buffer(x, br), x.numel()
+    passes, t1, t2 = doubled(lambda p: lambda: mb.chase(
+        perm, block_rows=br, passes=p), 5)
+    ns = t2 * 1e6 / (2 * passes * steps)
+    say(f"  chase {x.numel() * 4:>11d} B  passes {passes}->{2 * passes}: "
+        f"{t1:.4f} -> {t2:.4f} ms  ratio {t2 / t1:.3f}  {ns:.3f} ns/step")
+    check_ratio("chase", t1, t2)
+    if ns < 5.0:
+        raise AssertionError(f"chase: {ns:.3f} ns per dependent step, below "
+                             f"5 ns: the steps overlap")
+
+    # loaded latency: the time-shared composite at load=4 spends every probe
+    # pass's time plus 64 generator sweeps, so per step it is not below idle
+    lat = {}
+    for load in (0, 4):
+        case = mb_ops.make_timed_kernel("latency_chase", block_rows=br,
+                                        passes=passes, load=load)
+        fn = (lambda: case(perm, x)) if load else (lambda: case(perm))
+        lat[load] = time_ms(fn, 5) * 1e6 / (passes * steps)
+    say(f"  latency per step at 128 KiB: idle {lat[0]:.3f} ns, load=4 "
+        f"{lat[4]:.3f} ns")
+    if lat[4] < lat[0]:
+        raise AssertionError(f"loaded latency {lat[4]} ns below idle "
+                             f"{lat[0]} ns")
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +1035,7 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
             "copy": lambda: out.copy_(x),
             "triad": lambda: torch.add(x, y, alpha=1.5, out=out),
         }
-        for kernel in mb.KERNEL_NAMES:
+        for kernel in BANDWIDTH_KERNELS:
             # held on the working set the timed runs use (its sums cancel:
             # absolute bound) and on the ramp input with mxu's dense operand
             # (relative bound; the error and tolerance the line reports)
@@ -677,9 +1075,105 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
                 f"({e['bound_by']})  plain {plain_ms:.4f}  library "
                 f"{'-' if library_ms is None else f'{library_ms:.4f}'}  "
                 f"err {err:.2e} of {mag:.3e} (tolerance {tol:.2e})")
+        entries += rw_entries(x, xr, dname, nbytes, n, counts["rw"])
         del x, y, out, xr, yr
         torch.cuda.empty_cache()
+    for nbytes in (128 * KiB,) if quick else (128 * KiB, 16 * MiB):
+        entries.append(chase_entry(nbytes, counts["chase"]))
     return {"kernels": entries}
+
+
+def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int
+               ) -> list[dict]:
+    """One ``kernels`` entry per member of the rw ladder on x (one sweep at
+    the default tiling), each held bit for bit on the ramp input xr."""
+    br = mb.default_block_rows(x.shape[0])
+    entries = []
+    for reads, writes in RW_LADDER:
+        yrs = im.rw_streams(xr, reads)[1:]
+        want = mb.plain_rw(xr, *yrs, writes=1)[0].to(torch.float32)
+        err = max(float((o.to(torch.float32) - want).abs().max())
+                  for o in mb.rw(xr, *yrs, reads=reads, writes=writes,
+                                 block_rows=br))
+        if err != 0.0:
+            raise AssertionError(f"rw_{reads}to{writes} {dname} {nbytes}B "
+                                 f"ramp: max abs err {err}, tolerance 0")
+        del yrs, want
+        ys = im.rw_streams(x, reads)[1:]
+        outs = tuple(torch.empty_like(x) for _ in range(writes))
+        ms, host_ms = time_both_ms(lambda: mb.rw(
+            x, *ys, reads=reads, writes=writes, outs=outs, block_rows=br), n)
+        plain_ms = time_ms(lambda: mb.plain_rw(x, *ys, writes=writes,
+                                               outs=outs), n)
+        # one PyTorch call computing the same function, where there is one
+        lib = {(1, 1): lambda: outs[0].copy_(x),
+               (2, 1): lambda: torch.add(x, ys[0], alpha=1.5, out=outs[0]),
+               }.get((reads, writes))
+        library_ms = time_ms(lib, n) if lib is not None else None
+        mix = get_mix(rw_name(reads, writes))
+        nb = mix.bytes_per_pass(x.numel() * x.element_size())
+        t_bytes = nb / HBM_BYTES_PER_S
+        t_ops = mix.flops_per_pass(x.numel()) / PEAK_FLOPS["float32"]
+        entries.append({
+            "name": "rw", "mix": mix.name, "route": "cuda",
+            "source": "src/repro_torch/kernels/membench/csrc/rw.cu",
+            "replaces": REPLACES["rw"], "launches": launches,
+            "max_abs_err": err, "tolerance": 0.0,
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "shape": list(x.shape), "dtype": dname, "nbytes": nbytes,
+            "block_rows": br, "passes": 1,
+        })
+        e = entries[-1]
+        say(f"  {mix.name:9s} {dname:8s} {nbytes:>11d} B  ms {ms:.4f}  "
+            f"(host {host_ms:.4f})  bound {e['bound_ms']:.4f} "
+            f"({e['bound_by']})  plain {plain_ms:.4f}  library "
+            f"{'-' if library_ms is None else f'{library_ms:.4f}'}  "
+            f"err {err:.1f}")
+        del ys, outs
+    return entries
+
+
+def chase_entry(nbytes: int, launches: int) -> dict:
+    """The ``kernels`` entry of the idle chase on a float32 working set of
+    ``nbytes`` (one pass at the default tiling), held exactly against its
+    plain version on an off-cycle permutation.  Its bound is the load
+    latency, which no data-sheet rate states: ``bound_ms`` is the bytes rule
+    (the int32 buffer read once at the memory rate), far below it, and
+    ``ns_per_step`` is what the walk measured."""
+    x = working_set(nbytes, device=DEV)
+    br = mb.default_block_rows(x.shape[0])
+    perm = chase_buffer(x, br)
+    off = off_cycle_perm(x.shape, br, seed=11)
+    got, want = float(mb.chase(off, block_rows=br)), \
+        float(mb.plain_chase(off, br))
+    if got != want:
+        raise AssertionError(f"chase {nbytes}B off-cycle: {got} vs {want}")
+    n = 5 if nbytes <= 128 * KiB else 3
+    ms, host_ms = time_both_ms(lambda: mb.chase(perm, block_rows=br), n)
+    plain_ms = time_ms(lambda: mb.plain_chase(perm, br), n)
+    nb = perm.numel() * perm.element_size()
+    e = {
+        "name": "chase", "mix": "latency_chase", "route": "cuda",
+        "source": "src/repro_torch/kernels/membench/csrc/chase.cu",
+        "replaces": REPLACES["chase"], "launches": launches,
+        "max_abs_err": abs(got - want), "tolerance": 0.0, "expected_abs": want,
+        "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+        "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_note": "load latency, one dependent load per step; the bytes "
+                      "rule is far below it",
+        "ns_per_step": ms * 1e6 / perm.numel(),
+        "library_ms": None,
+        "shape": list(perm.shape), "dtype": "int32", "nbytes": nbytes,
+        "block_rows": br, "passes": 1,
+    }
+    say(f"  chase     int32    {nbytes:>11d} B  ms {ms:.4f}  (host "
+        f"{host_ms:.4f})  {e['ns_per_step']:.3f} ns/step  bound "
+        f"{e['bound_ms']:.4f} (bytes)  plain {plain_ms:.4f}  library -  "
+        f"err {e['max_abs_err']:.1f} of {want:.1f}")
+    return e
 
 
 def main(argv=None) -> int:
@@ -698,8 +1192,12 @@ def main(argv=None) -> int:
     (OUT_DIR / "log.txt").unlink(missing_ok=True)
     info = phase_device()
     phase_kernels(args.quick)
+    phase_rw_chase(args.quick)
     counts = phase_main_path(args.quick)
+    counts["rw"] = phase_rw_path(args.quick)["rw"]
+    counts["chase"] = phase_latency_path(args.quick)["chase"]
     phase_real(args.quick)
+    phase_real_rw_chase(args.quick)
     line = phase_kernels_line(counts, args.quick)
     say(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
     say(info["smi"])

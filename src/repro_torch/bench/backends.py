@@ -18,8 +18,9 @@ the first:
     bind_case(case, spec, mix, x)                per-buffer binding —
         closes over the actual working set plus any companion buffers
         (triad's second read stream, the output buffer of copy / triad, the
-        mxu operand), all allocated here, outside the timed call, and
-        dropped with the buffer.
+        mxu operand, the rw family's extra read streams and W outputs, the
+        chase's permutation buffer), all allocated here, outside the timed
+        call, and dropped with the buffer.
 
 Third-party backends only need ``build`` (the original protocol); the Runner
 falls back to it, uncached, when ``make_case`` is absent.
@@ -171,19 +172,39 @@ def _mix_arity(mix: MixDef, load: int = 0) -> int:
     return 1
 
 
-def _mix_operands(mix: MixDef, x) -> tuple:
+def _chase_buffer(x, parts: int) -> torch.Tensor:
+    """The int32 permutation buffer of a chase case, of x's shape, on x's
+    device (``parts`` local cycles)."""
+    from repro_torch.core.instruction_mix import chase_perm
+    return torch.tensor(chase_perm(x.shape, parts), device=x.device)
+
+
+def _mix_operands(mix: MixDef, x, load: int = 0) -> tuple:
     """Every buffer a mix's oracle case consumes, in positional order, built
-    OUTSIDE the timed call.  ``x`` passes through as-is; triad gets its
-    companion streams (a, c)."""
+    OUTSIDE the timed call.  ``x`` passes through as-is; companion streams
+    are triad's (a, c), the rw family's R-1 extra read streams and W write
+    seeds, the chase probe's permutation buffer (one cycle over the whole
+    buffer) plus ``x`` as the generator buffer when ``load`` > 0."""
+    if mix.chase:
+        perm = _chase_buffer(x, 1)
+        return (perm, x) if load else (perm,)
     if mix.name == "triad":
         return (torch.zeros_like(x), x, x * 0.5)
+    if mix.rw is not None:
+        from repro_torch.core.instruction_mix import rw_streams
+        reads, writes = mix.rw
+        # the W write-seed slots only supply their number — k_rw overwrites
+        # every output before reading it — so alias x rather than allocating
+        # W buffers (peak footprint stays one working set + companions)
+        return rw_streams(x, reads) + (x,) * writes
     return (x,)
 
 
 def _oracle_case(spec: BenchSpec, mix: MixDef, rows: int, passes: int,
                  backend_name: str) -> Callable:
     """The per-shape oracle kernel for a mix (pure function of its inputs;
-    triad takes (a, b, c), everything else takes x)."""
+    triad takes (a, b, c), rw_RtoW its R+W stream buffers, latency_chase
+    (perm) or (perm, gen), everything else takes x)."""
     from repro_torch.core import instruction_mix as im
     unroll, interleave = spec.unroll, spec.interleave
     if passes % unroll:
@@ -205,18 +226,33 @@ def _oracle_case(spec: BenchSpec, mix: MixDef, rows: int, passes: int,
             raise BenchSpecError(
                 f"block_rows {brows} does not divide {rows} rows")
         return lambda x: im.k_blocked_sum(x, brows, passes, unroll)
+    if mix.chase:
+        load = spec.load
+        if load:
+            # the single-device composite: probe + generators time-shared in
+            # one timed call
+            return lambda perm, gen: im.k_chase_loaded(perm, gen, passes,
+                                                       unroll, load=load)
+        return lambda perm: im.k_chase(perm, passes, unroll)
     if mix.name == "triad":
         return lambda a, b, c: im.k_triad(a, b, c, passes, unroll)
+    if mix.rw is not None:
+        reads = mix.rw[0]
+        if interleave > 1:
+            return lambda *bufs: im.k_rw_istream(
+                bufs[:reads], bufs[reads:], passes, unroll, interleave)
+        return lambda *bufs: im.k_rw(bufs[:reads], bufs[reads:], passes,
+                                     unroll)
     name = mix.name
     return lambda x: im.run_mix(name, x, passes, unroll=unroll,
                                 interleave=interleave)
 
 
-def _bind_oracle_case(case: Callable, mix: MixDef, x
+def _bind_oracle_case(case: Callable, mix: MixDef, x, load: int = 0
                       ) -> Callable[[], object]:
     """Close an oracle case over its buffers; companion streams are built
     here, outside the timed call."""
-    bufs = _mix_operands(mix, x)
+    bufs = _mix_operands(mix, x, load=load)
     return lambda: case(*bufs)
 
 
@@ -233,7 +269,7 @@ class TorchBackend(_CaseBackend):
         return _oracle_case(spec, mix, shape[0], passes, self.name)
 
     def bind_case(self, case, spec, mix, x):
-        return _bind_oracle_case(case, mix, x)
+        return _bind_oracle_case(case, mix, x, load=spec.load)
 
 
 class CudaBackend(_CaseBackend):
@@ -304,10 +340,27 @@ class CudaBackend(_CaseBackend):
         return mb_ops.make_timed_kernel(
             mix.name, depth=mix.fma_depth or 8, block_rows=rows,
             streams=spec.streams, passes=passes, unroll=spec.unroll,
-            interleave=spec.interleave)
+            interleave=spec.interleave, load=spec.load)
 
     def bind_case(self, case, spec, mix, x):
         # companions and outputs are allocated here, outside the timed call
+        if mix.chase:
+            # one pointer cycle per tile: the kernel walks each tile's
+            # TILE-LOCAL cycle, the tiles one after another
+            from repro_torch.kernels.membench import membench as mb
+            rows = self._resolve(spec, x.shape[0])
+            perm = _chase_buffer(x, x.shape[0] // rows)
+            # the wrapper's one check of this buffer, paid here so that no
+            # timed call pays it (even with warmup 0)
+            mb.check_chase_perm(perm, rows)
+            if spec.load:
+                return lambda: case(perm, x)
+            return lambda: case(perm)
+        if mix.rw is not None:
+            from repro_torch.core.instruction_mix import rw_streams
+            ys = rw_streams(x, mix.rw[0])[1:]
+            outs = tuple(torch.empty_like(x) for _ in range(mix.rw[1]))
+            return lambda: case(x, *ys, outs=outs)
         if mix.name == "triad":
             y, out = x * 0.5, torch.empty_like(x)
             return lambda: case(x, y, out=out)

@@ -1,18 +1,21 @@
-"""``python -m repro_torch.bench`` — run / list-mixes / compare.
+"""``python -m repro_torch.bench`` — run / list-mixes / compare / latency.
 
     run         execute a BenchSpec (flags or --spec JSON), print + save the
                 schema-versioned result JSON
     list-mixes  the shared mix registry with its bytes/flops accounting
     compare     the same spec on several backends, side by side
+    latency     loaded-latency surface: the latency_chase probe across the
+                load axis -> bandwidth-latency curve + knee fit
 
 Every command that measures takes ``--device`` (default ``cuda``; with no
 CUDA device present the default raises — pass ``--device cpu`` to run the
-plain PyTorch versions on the CPU).  ``run`` takes ``--trace PATH`` (span
-tracing -> Perfetto JSON), appends a ledger record unless ``--no-ledger``,
-and refuses to overwrite an existing ``--out`` file unless ``--force``.
+plain PyTorch versions on the CPU).  ``run`` and ``latency`` take ``--trace
+PATH`` (span tracing -> Perfetto JSON), append a ledger record unless
+``--no-ledger``, and refuse to overwrite an existing ``--out`` file unless
+``--force``.
 
 Counterpart of ``repro.bench.cli``; its other sub-commands (characterize,
-istream, audit, latency, launch, history, diff) have none here yet.
+istream, audit, launch, history, diff) have none here yet.
 """
 from __future__ import annotations
 
@@ -157,12 +160,10 @@ def cmd_list_mixes(args) -> int:
     for name in mix_names():     # deterministic: family parameter, then name
         m = reg[name]
         print(f"{name:10s} {m.flops_per_elem:10.1f} {m.reads_per_elem:6.1f} "
-              f"{m.writes_per_elem:6.1f}  {'+'.join(m.backends) or '-':16s} "
+              f"{m.writes_per_elem:6.1f}  {'+'.join(m.backends):16s} "
               f"{m.description}")
     print(f"# open-ended families: fma_k (any k >= 1), rw_RtoW "
           f"(any R, W in 1..{MAX_RW}); the table lists the canonical ladders")
-    print("# backends '-': accounting declared, kernels not in this package "
-          "yet")
     return 0
 
 
@@ -215,6 +216,46 @@ def cmd_compare(args) -> int:
     return 1 if mismatch else 0
 
 
+def cmd_latency(args) -> int:
+    """Loaded-latency surface (see characterize.loaded): sweep the
+    ``latency_chase`` probe across the ``load`` axis at each working-set
+    size, fit the bandwidth–latency knee, print the curve, save the result.
+    ``--smoke`` is the small preset (one 128 KiB size, loads 0,1,2, 3 reps);
+    the reference's smoke also audits the chase's accounting, which comes
+    with the port of the audit."""
+    from repro_torch.characterize.loaded import (fit_loaded,
+                                                 loaded_latency_sweep)
+
+    _check_overwrite(args, "out")
+    runner = Runner(device=args.device)     # raises without a CUDA device
+    _obs_begin(args)
+    sizes = _parse_sizes(args.sizes) if args.sizes else \
+        ((128 * 2**10,) if args.smoke else (128 * 2**10, 16 * 2**20))
+    loads = tuple(int(tok) for tok in args.loads.split(",")) if args.loads \
+        else ((0, 1, 2) if args.smoke else (0, 1, 2, 4))
+    reps = args.reps if args.reps is not None else (3 if args.smoke else 5)
+    res = loaded_latency_sweep(sizes, loads, backend=args.backend,
+                               runner=runner, reps=reps)
+    fit = fit_loaded(res)
+    if fit:
+        res.meta["loaded_latency"]["fit"] = fit
+
+    print(f"{'nbytes':>12s} {'load':>4s} {'latency ns':>10s} {'gen GB/s':>9s}")
+    for p in res.points:
+        print(f"{p.nbytes:12d} {p.load:4d} {p.latency_ns:10.2f} "
+              f"{p.gen_gbps:9.2f}")
+    for name, knee in ((fit or {}).get("levels") or {}).items():
+        print(f"# {name}: idle {knee['idle_latency_ns']:.1f} ns, knee at "
+              f"load={knee['knee_load']} ({knee['knee_gen_gbps']:.2f} GB/s "
+              f"generated), max {knee['max_latency_ns']:.1f} ns")
+    _obs_finish(args, res, "latency")
+    if args.out:
+        res.to_json(args.out)
+        print(f"# saved {len(res.points)} points "
+              f"(schema v{res.schema_version}) -> {args.out}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.bench",
                                  description=__doc__, allow_abbrev=False,
@@ -239,6 +280,36 @@ def main(argv=None) -> int:
     p_cmp.add_argument("--force", action="store_true",
                        help="overwrite an existing --out file")
     p_cmp.set_defaults(fn=cmd_compare)
+
+    p_lat = sub.add_parser(
+        "latency",
+        help="loaded-latency surface: latency_chase across the load axis "
+             "(Mess-style bandwidth-latency curves; see characterize.loaded)",
+        allow_abbrev=False)
+    p_lat.add_argument("--smoke", action="store_true",
+                       help="small preset: one 128K size, loads 0,1,2, 3 "
+                            "reps (the reference's inline chase audit comes "
+                            "with the port of the audit)")
+    p_lat.add_argument("--backend", default="cuda",
+                       help="cuda | torch (both: the single-device "
+                            "time-shared composite; torch walks the chain "
+                            "in a host loop, so its latency_ns is no "
+                            "memory latency)")
+    p_lat.add_argument("--sizes", default=None,
+                       help="comma list, K/M/G ok (default: 128K smoke, "
+                            "128K,16M full)")
+    p_lat.add_argument("--loads", default=None,
+                       help="comma list of generator counts "
+                            "(default: 0,1,2 smoke, 0,1,2,4 full)")
+    p_lat.add_argument("--reps", type=int, default=None)
+    p_lat.add_argument("--device", default=None,
+                       help="torch device (default: cuda; raises when no "
+                            "CUDA device is present — pass 'cpu' to run the "
+                            "plain PyTorch versions on the CPU)")
+    p_lat.add_argument("--out", default=None,
+                       help="write the result JSON here")
+    _add_obs_flags(p_lat)
+    p_lat.set_defaults(fn=cmd_latency)
 
     args = ap.parse_args(argv)
     try:

@@ -44,9 +44,8 @@ Consumers: ``repro_torch.bench.backends`` (kernel dispatch),
 The declared formulas here are *paper-logical* — the traffic the algorithm
 needs, the GB/s denominators.
 
-Mixes whose kernels have no counterpart in this package yet (the ``rw_RtoW``
-family and ``latency_chase``) are declared with ``backends=()``: their
-accounting is known, and ``BenchSpec`` refuses to run them on any backend.
+Every mix runs on both backends except ``load_only`` (``cuda`` only), as in
+the reference.
 """
 from __future__ import annotations
 
@@ -64,8 +63,8 @@ MAX_RW = 8
 _RW_NAME = re.compile(r"rw_([1-9]\d*)to([1-9]\d*)\Z")
 
 #: the coefficient folding each extra read stream into the store value
-#: (v = s0 + c*s1 + ... — triad's scale constant); shared by the triad
-#: oracle and the triad kernel
+#: (v = s0 + c*s1 + ... — triad's scale constant); shared by the triad and
+#: rw oracles and their kernels
 RW_COMBINE_COEF = 1.5
 
 #: full-buffer sweeps each co-scheduled bandwidth generator performs per
@@ -74,8 +73,8 @@ RW_COMBINE_COEF = 1.5
 #: serialized substrate that duration is emulated by a fixed generator:probe
 #: work ratio — one sweep is vectorized and ~100x cheaper than the serial
 #: chase walk, so a single sweep per pass would be invisible in the latency
-#: signal.  Read by the Runner's generator-GB/s accounting — declared ONCE
-#: here so it cannot disagree with the composite kernels.
+#: signal.  Shared by the torch/cuda composites and the Runner's
+#: generator-GB/s accounting — declared ONCE here so they cannot disagree.
 GEN_SWEEPS_PER_PASS = 16
 
 #: backends of a mix that both the oracles and the kernels run
@@ -135,7 +134,7 @@ def rw_ratio(reads: int = 1, writes: int = 1) -> MixDef:
         rw_name(reads, writes),
         flops_per_elem=2.0 * (reads - 1),
         reads_per_elem=float(reads), writes_per_elem=float(writes),
-        rw=(reads, writes), backends=(),
+        rw=(reads, writes),
         description=f"{reads} read : {writes} write streams "
                     f"(store-path attribution, R:W = {reads}:{writes})")
 
@@ -159,7 +158,7 @@ def _build_registry() -> dict[str, MixDef]:
             description="one (rows,128)@(128,128) matmul per tile"),
         "latency_chase": MixDef(
             "latency_chase", 0.0, reads_per_elem=1.0, writes_per_elem=0.0,
-            chase=True, backends=(),
+            chase=True,
             description="dependent-chain pointer walk (latency probe): each "
                         "load's address is the previous load's value, so no "
                         "two loads overlap — time/step IS access latency; "

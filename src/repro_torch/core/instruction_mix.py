@@ -11,6 +11,11 @@ LOAD+NOP mixes; the throughput *gap* between mixes attributes the bottleneck
     ``fma_k``      2k flops      FADD loop with k-deep dependent FMA chain —
                                  the NOP-substitution ladder
     ``mxu``        2*128 flops   one 128x128 matmul per tile
+    ``rw_RtoW``    2(R-1) flops  R read streams folded triad-style, stored to
+                                 W write streams (store-path attribution)
+    ``latency_chase``  0         dependent pointer walk ``j = flat[j]`` (the
+                                 latency probe; ``k_chase_loaded`` adds
+                                 bandwidth generators, time-shared)
 
 These are the *oracles* — the ``torch`` backend, counterpart of the
 reference's ``xla`` backend (``repro.core.instruction_mix``): the semantic
@@ -33,14 +38,21 @@ In place: ``_perturb`` adds to element ``[0, 0]`` of the caller's buffer
 ``acc * 1e-30`` rounded to the buffer's dtype, which a buffer built by
 ``core.buffers.working_set`` absorbs without changing a bit.
 
-The ``rw_RtoW`` family and ``latency_chase`` (``k_rw*``, ``k_chase*``,
-``chase_perm``, ``rw_streams``) have no counterpart here yet.
+The chase walk is a chain of dependent scalar loads.  As one tensor index
+per step it would be one device operation per step (2**17 per timed call),
+so ``k_chase*`` walk a host ``tolist()`` view of the permutation buffer: on
+this backend a ``latency_chase`` point times a Python walk, not any
+memory's latency (the ``cuda`` backend's kernel walks on the card).
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
-from repro_torch.bench.mixes import RW_COMBINE_COEF
+from repro_torch.bench.mixes import (GEN_SWEEPS_PER_PASS, RW_COMBINE_COEF,
+                                     get_mix)
 
 _FMA_A = 1.0000001
 _FMA_B = 1e-9
@@ -101,9 +113,11 @@ def _rotating_pass_loop(sweep, passes: int, unroll: int, state, out0):
 
 
 def _consume_slots(acc: torch.Tensor, slots) -> torch.Tensor:
-    """Fold the last element of every rotating output slot into ``acc``."""
+    """Fold the last element of every rotating output slot into ``acc`` (a
+    slot is one tensor, or a tuple of them for the rw family)."""
     for out in slots:
-        acc = acc + out.reshape(-1)[-1].to(torch.float32)
+        for o in (out if isinstance(out, tuple) else (out,)):
+            acc = acc + o.reshape(-1)[-1].to(torch.float32)
     return acc
 
 
@@ -244,6 +258,144 @@ def k_triad(a, b, c, passes: int, unroll: int = 1):
     return _consume_slots(acc, slots)
 
 
+def k_rw(streams, outs, passes: int, unroll: int = 1):
+    """The R:W ratio family: R read streams combined triad-style
+    (``v = s0 + 1.5*s1 + ...`` in the working dtype, one rounding per
+    operation), the result stored to W write streams, every pass.
+
+    ``outs``: W write buffers carried through the pass loop; their values
+    are never read, only their number, so callers may alias one buffer for
+    all W seeds.  As in the reference, the ``acc * 1e-30`` terms ride on the
+    coefficient and on each store (value-neutral at working-set
+    magnitudes), and the returned scalar is ``passes * v[0,0] + W * unroll
+    * v[-1,-1]``.  rw_1to1 is ``copy``'s stream pattern, rw_2to1
+    ``triad``'s."""
+    def sweep(_, acc, outs):
+        eps = (acc * 1e-30).to(streams[0].dtype)
+        coef = torch.tensor(RW_COMBINE_COEF, dtype=eps.dtype,
+                            device=eps.device) + eps
+        v = streams[0] + eps
+        for s in streams[1:]:
+            v = v + coef * s
+        outs = tuple(v + w * eps for w in range(len(outs)))
+        return acc + v.reshape(-1)[0].to(torch.float32), outs
+    acc, slots = _rotating_pass_loop(sweep, passes, unroll,
+                                     _zero(streams[0]), tuple(outs))
+    return _consume_slots(acc, slots)
+
+
+def k_rw_istream(streams, outs, passes: int, unroll: int = 1,
+                 interleave: int = 2):
+    """k_rw with the R-stream combine split into ``interleave`` independent
+    row-chunk folds, concatenated before the W stores — identical values and
+    accounting to k_rw."""
+    def sweep(_, acc, outs):
+        eps = (acc * 1e-30).to(streams[0].dtype)
+        coef = torch.tensor(RW_COMBINE_COEF, dtype=eps.dtype,
+                            device=eps.device) + eps
+        chunked = [_row_chunks(s, interleave) for s in streams]
+        vs = []
+        for j in range(interleave):             # independent fold chains
+            v = chunked[0][j] + eps
+            for s in chunked[1:]:
+                v = v + coef * s[j]
+            vs.append(v)
+        v = torch.cat(vs, dim=0)                # combined before the stores
+        outs = tuple(v + w * eps for w in range(len(outs)))
+        return acc + v.reshape(-1)[0].to(torch.float32), outs
+    acc, slots = _rotating_pass_loop(sweep, passes, unroll,
+                                     _zero(streams[0]), tuple(outs))
+    return _consume_slots(acc, slots)
+
+
+def rw_streams(x, reads: int) -> tuple:
+    """The R read streams of an rw mix: x plus R-1 scaled companions (each a
+    distinct buffer, so the kernel really issues R loads per element)."""
+    return (x,) + tuple(x * (0.5 ** r) for r in range(1, reads))
+
+
+@lru_cache(maxsize=64)
+def _chase_perm_np(rows: int, lanes: int, parts: int):
+    if parts < 1 or rows % parts:
+        raise ValueError(
+            f"chase_perm: parts={parts} must divide rows={rows} (each part "
+            f"is a row-contiguous segment with its own pointer cycle)")
+    n = rows * lanes
+    m = n // parts
+    rng = np.random.default_rng(0)          # deterministic walk order
+    out = np.empty(n, dtype=np.int32)
+    for s in range(parts):
+        order = rng.permutation(m)
+        seg = np.empty(m, dtype=np.int32)
+        seg[order] = np.roll(order, -1)     # order[i] -> order[i+1]: 1 cycle
+        out[s * m:(s + 1) * m] = seg
+    out.flags.writeable = False             # cached: shared by every caller
+    return out.reshape(rows, lanes)
+
+
+def chase_perm(shape, parts: int = 1):
+    """The pointer-chase buffer for ``latency_chase``: an int32 (rows, lanes)
+    numpy array whose flat view is split into ``parts`` row-contiguous
+    segments, each holding one full permutation cycle of PART-LOCAL flat
+    indices 0..m-1 (``flat[j]`` is the successor of ``j``); ``parts =
+    rows / block_rows`` gives every kernel tile its own cycle.  Bit for bit
+    the reference's buffer (the same seeded ``np.random.default_rng(0)``
+    sequence).  Cached and read-only: place a copy with
+    ``torch.tensor(chase_perm(...), device=...)``."""
+    rows, lanes = shape
+    return _chase_perm_np(int(rows), int(lanes), int(parts))
+
+
+def _walker(perm: torch.Tensor):
+    """``walk(j)``: n dependent steps ``j = flat[j]`` over a host list view
+    of the whole buffer (one cycle of n when built by ``chase_perm``)."""
+    flat = perm.reshape(-1).tolist()
+    n = len(flat)
+
+    def walk(j: int) -> int:
+        for _ in range(n):
+            j = flat[j]
+        return j
+    return walk
+
+
+def k_chase(perm, passes: int, unroll: int = 1):
+    """The latency probe: one pass = n dependent loads ``j = flat[j]``
+    walking the buffer's cycle, ``j`` carried from pass to pass; returns the
+    float32 sum of ``j`` after every pass, plus the final ``j`` (0.0 on a
+    ``chase_perm`` buffer, whose walk always returns to 0)."""
+    walk = _walker(perm)
+
+    def body(_, carry):
+        j, acc = carry
+        j = walk(j)
+        return (j, acc + j)
+
+    j, acc = _pass_loop(body, passes, unroll, (0, _zero(perm)))
+    return acc + j
+
+
+def k_chase_loaded(perm, gen, passes: int, unroll: int = 1, load: int = 1):
+    """The single-device loaded-latency composite, time-shared: each probe
+    pass of ``k_chase`` is followed by ``load * GEN_SWEEPS_PER_PASS``
+    load_sum sweeps of ``gen`` (the bandwidth generators), chained through
+    the accumulator and ``_perturb`` (in place on ``gen``) as
+    ``k_load_sum``'s are."""
+    walk = _walker(perm)
+
+    def body(_, carry):
+        gen, j, acc = carry
+        j = walk(j)
+        acc = acc + j
+        for _ in range(load * GEN_SWEEPS_PER_PASS):
+            acc = acc + gen.sum(dtype=torch.float32)
+            gen = _perturb(gen, acc)
+        return (gen, j, acc)
+
+    _, j, acc = _pass_loop(body, passes, unroll, (gen, 0, _zero(gen)))
+    return acc + j
+
+
 def run_mix(mix_name: str, x, passes: int, w=None, unroll: int = 1,
             interleave: int = 1):
     if interleave > 1:
@@ -253,6 +405,10 @@ def run_mix(mix_name: str, x, passes: int, w=None, unroll: int = 1,
             return k_load_sum_istream(x, passes, unroll, interleave)
         if mix_name == "copy":
             return k_copy_istream(x, passes, unroll, interleave)
+        if mix_name.startswith("rw_"):
+            reads, writes = get_mix(mix_name).rw
+            return k_rw_istream(rw_streams(x, reads), (x,) * writes, passes,
+                                unroll, interleave)
         raise KeyError(
             f"mix {mix_name!r} has no interleaved (interleave > 1) variant; "
             f"interleavable mixes: load_sum, copy, rw_RtoW")
@@ -266,6 +422,17 @@ def run_mix(mix_name: str, x, passes: int, w=None, unroll: int = 1,
         return k_mxu(x, w, passes, unroll)
     if mix_name == "triad":
         return k_triad(torch.zeros_like(x), x, x * 0.5, passes, unroll)
+    if mix_name == "latency_chase":
+        # convenience path: x supplies only the shape and device — the probe
+        # walks a permutation buffer built here (the bench backends bind
+        # theirs outside the timed call)
+        perm = torch.tensor(chase_perm(x.shape), device=x.device)
+        return k_chase(perm, passes, unroll)
     if mix_name.startswith("fma_"):
         return k_fma(x, passes, int(mix_name.split("_")[1]), unroll)
+    if mix_name.startswith("rw_"):
+        # convenience path: companions built here, INSIDE any timing — the
+        # bench backends bind their own streams outside the timed call
+        reads, writes = get_mix(mix_name).rw
+        return k_rw(rw_streams(x, reads), (x,) * writes, passes, unroll)
     raise KeyError(mix_name)

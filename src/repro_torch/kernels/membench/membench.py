@@ -4,7 +4,8 @@ their build, their wrappers and their plain PyTorch versions.
 Counterpart of ``repro.kernels.membench.membench`` (the Pallas kernels of the
 JAX reference).  Knobs (mapping to the paper):
 
-  mix         load_only | load_sum | copy | triad | fma_k | mxu   (C2)
+  mix         load_only | load_sum | copy | triad | fma_k | mxu | rw_RtoW |
+              latency_chase                                      (C2)
   block_rows  rows per (block_rows, 128) tile                    (C4)
   streams     1 = sequential tile walk; S > 1 = S interleaved address
               streams: walk step i visits tile (i % S)*(n_tiles/S) + i // S  (C3)
@@ -25,7 +26,10 @@ wrapper adds one to ``launch_counts[name]`` where it launches its kernel, and
 nowhere else.
 
 Grid: ``G = min(n_tiles, CTAS_PER_SM * SM count)`` CTAs of 256 threads; CTA
-``c`` owns walk steps ``c, c+G, ...`` in every pass.
+``c`` owns walk steps ``c, c+G, ...`` in every pass.  The chase is the
+exception: one thread walks every tile, so that one dependent chain runs at
+a time, and each pass is a launch of its own, so that every pass starts
+from the same cache state (``csrc/chase.cu``).
 """
 from __future__ import annotations
 
@@ -34,11 +38,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from repro_torch.bench.mixes import RW_COMBINE_COEF
+from repro_torch.bench.mixes import (MAX_RW, RW_COMBINE_COEF, get_mix,
+                                     interleavable)
 
 LANES = 128
 #: resident CTAs asked for per SM (256 threads each)
@@ -50,12 +57,14 @@ FMA_B = 1e-9
 
 #: launches per kernel since the last ``reset_launch_counts`` (row 1 of the
 #: kernel table counts its three bodies separately)
-KERNEL_NAMES = ("load_sum", "load_only", "fma", "mxu", "copy", "triad")
+KERNEL_NAMES = ("load_sum", "load_only", "fma", "mxu", "copy", "triad", "rw",
+                "chase")
 launch_counts: dict[str, int] = {k: 0 for k in KERNEL_NAMES}
 
 #: kernel name -> source file (relative to this package's csrc/)
 SOURCES = {"load_sum": "acc.cu", "load_only": "acc.cu", "fma": "acc.cu",
-           "mxu": "mxu.cu", "copy": "copy.cu", "triad": "triad.cu"}
+           "mxu": "mxu.cu", "copy": "copy.cu", "triad": "triad.cu",
+           "rw": "rw.cu", "chase": "chase.cu"}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACC_MIX_CODE = {"load_sum": 0, "load_only": 1, "fma": 2}
@@ -154,9 +163,15 @@ _ARGTYPES = {
     "membench_copy": [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _P],
     # dtype b c out n_tiles block_rows streams passes unroll grid stream
     "membench_triad": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dtype ins reads outs writes n_tiles block_rows streams passes unroll
+    # interleave grid stream
+    "membench_rw": [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # perm out n_tiles tile_elems streams accumulate stream
+    "membench_chase": [_P, _P, _I, _I, _I, _I, _P],
 }
 _ENTRY = {"acc.cu": "membench_acc", "mxu.cu": "membench_mxu",
-          "copy.cu": "membench_copy", "triad.cu": "membench_triad"}
+          "copy.cu": "membench_copy", "triad.cu": "membench_triad",
+          "rw.cu": "membench_rw", "chase.cu": "membench_chase"}
 
 
 def _entry(source: str):
@@ -182,16 +197,18 @@ def _raise_on(err: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _check(x: torch.Tensor, block_rows: int, streams: int, passes: int,
-           unroll: int, interleave: int = 1, name: str = "x") -> int:
+           unroll: int, interleave: int = 1, name: str = "x",
+           dtypes: tuple = tuple(_DTYPE_CODE)) -> int:
     """Validate one (rows, 128) operand and the knobs; returns n_tiles."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(x)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} lies on {x.device}: need a cpu or cuda "
                          f"tensor")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name} has dtype {x.dtype}: the membench kernels "
-                        f"take float32 or bfloat16")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name} has dtype {x.dtype}: this membench kernel "
+                        f"takes {names}")
     if x.ndim != 2 or x.shape[1] != LANES or x.shape[0] % 8:
         raise ValueError(f"{name} must have shape (rows, {LANES}) with rows a "
                          f"multiple of 8, got {tuple(x.shape)}")
@@ -224,6 +241,34 @@ def _check_like(y: torch.Tensor, x: torch.Tensor, name: str) -> None:
             or not y.is_contiguous():
         raise ValueError(f"{name} must be a contiguous tensor like x "
                          f"(shape {tuple(x.shape)}, {x.dtype}, {x.device})")
+
+
+#: id(perm) -> (weak reference, version, tile size) of every buffer that
+#: passed check_chase_perm and has not been written to since
+_checked_perms: dict[int, tuple] = {}
+
+
+def check_chase_perm(perm: torch.Tensor, block_rows: int) -> None:
+    """Raise unless every entry of ``perm`` lies in ``[0, block_rows *
+    128)``: the chase kernel trusts its buffer (a check inside the walk
+    would lengthen every step).  One device reduction and one
+    synchronisation, paid once per buffer: the result is remembered until
+    the buffer is written to (its version counter moves) or freed, so the
+    ``chase`` wrapper, which runs this before every launch, pays nothing
+    after the first."""
+    m = block_rows * LANES
+    key = id(perm)
+    seen = _checked_perms.get(key)
+    if seen is not None and seen[0]() is perm \
+            and seen[1:] == (perm._version, m):
+        return
+    if bool(((perm < 0) | (perm >= m)).any()):
+        raise ValueError(f"perm holds an index outside [0, {m}): every "
+                         f"entry must point inside its {block_rows}-row "
+                         f"tile")
+    _checked_perms[key] = (
+        weakref.ref(perm, lambda _, k=key: _checked_perms.pop(k, None)),
+        perm._version, m)
 
 
 def default_block_rows(rows: int) -> int:
@@ -315,6 +360,44 @@ def plain_triad(b, c, out=None, passes: int = 1) -> torch.Tensor:
     for _ in range(passes):
         torch.add(b, c * RW_COMBINE_COEF, out=out)
     return out
+
+
+def plain_rw(x, *ys, writes: int, outs=None, passes: int = 1) -> tuple:
+    """``v = x + 1.5*ys[0] + 1.5*ys[1] + ...`` in the working dtype, one
+    rounding per operation, written to each of ``writes`` outputs,
+    ``passes`` times over; returns the outputs."""
+    if outs is None:
+        outs = tuple(torch.empty_like(x) for _ in range(writes))
+    for _ in range(passes):
+        v = x
+        for y in ys:
+            v = v + y * RW_COMBINE_COEF
+        for o in outs:
+            o.copy_(v)
+    return tuple(outs)
+
+
+def plain_chase(perm, block_rows: int, streams: int = 1,
+                passes: int = 1) -> torch.Tensor:
+    """0-dim float32: per pass, the sum over tiles in walk order of the
+    index reached after ``block_rows * 128`` steps ``j = tile[j]`` from
+    ``j = 0``.  The tiles walk side by side (one gather per step, for all
+    of them), and the float32 fold runs in the kernel's order."""
+    n_tiles, m = perm.shape[0] // block_rows, block_rows * LANES
+    tiles = perm.reshape(n_tiles, m).to(torch.int64)
+    j = torch.zeros(n_tiles, 1, dtype=torch.int64, device=perm.device)
+    for _ in range(m):
+        j = tiles.gather(1, j)
+    finals = j[:, 0].tolist()
+    seg = n_tiles // streams
+    one = np.float32(0.0)
+    for i in range(n_tiles):                  # walk step i visits this tile
+        one = np.float32(one + np.float32(finals[(i % streams) * seg
+                                                 + i // streams]))
+    acc = np.float32(0.0)
+    for _ in range(passes):
+        acc = np.float32(acc + one)
+    return torch.tensor(acc, dtype=torch.float32, device=perm.device)
 
 
 # ---------------------------------------------------------------------------
@@ -436,19 +519,96 @@ def triad(b, c, out=None, *, block_rows: int, streams: int = 1,
     return out
 
 
+def rw(x, *ys, reads: int, writes: int, outs=None, block_rows: int,
+       streams: int = 1, passes: int = 1, unroll: int = 1,
+       interleave: int = 1) -> tuple:
+    """The R:W ratio kernel: ``v = x + 1.5*ys[0] + ...`` per tile (``reads``
+    = 1 + len(ys) read streams) stored to each of ``writes`` outputs,
+    ``passes`` times over; returns the W outputs (allocated when ``outs`` is
+    not given, written in place when it is; an output may not alias an input
+    or another output)."""
+    n_tiles = _check(x, block_rows, streams, passes, unroll, interleave)
+    if not (1 <= reads <= MAX_RW and 1 <= writes <= MAX_RW) \
+            or len(ys) != reads - 1:
+        raise ValueError(f"rw needs 1 <= reads, writes <= {MAX_RW} and "
+                         f"reads - 1 extra read streams: reads={reads}, "
+                         f"writes={writes}, {len(ys)} given")
+    for i, y in enumerate(ys):
+        _check_like(y, x, f"ys[{i}]")
+    if outs is not None:
+        if len(outs) != writes:
+            raise ValueError(f"outs holds {len(outs)} tensors, "
+                             f"writes={writes}")
+        for i, o in enumerate(outs):
+            _check_like(o, x, f"outs[{i}]")
+        read_ptrs = {t.data_ptr() for t in (x, *ys)}
+        write_ptrs = {o.data_ptr() for o in outs}
+        if len(write_ptrs) != writes or write_ptrs & read_ptrs:
+            raise ValueError("an output of rw aliases an input or another "
+                             "output")
+    if x.device.type == "cpu":
+        return plain_rw(x, *ys, writes=writes, outs=outs, passes=passes)
+    if outs is None:
+        outs = tuple(torch.empty_like(x) for _ in range(writes))
+    ins = (ctypes.c_void_p * reads)(*(t.data_ptr() for t in (x, *ys)))
+    dst = (ctypes.c_void_p * writes)(*(o.data_ptr() for o in outs))
+    err = _launch(_entry(SOURCES["rw"]), x, _DTYPE_CODE[x.dtype], ins, reads,
+                  dst, writes, n_tiles, block_rows, streams, passes, unroll,
+                  interleave, grid_size(n_tiles, x.device))
+    launch_counts["rw"] += 1
+    _raise_on(err, "rw")
+    return tuple(outs)
+
+
+def chase(perm, *, block_rows: int, streams: int = 1, passes: int = 1,
+          unroll: int = 1) -> torch.Tensor:
+    """0-dim float32: per pass, the sum over tiles (in walk order) of the
+    index a walk ``j = tile[j]`` of ``block_rows * 128`` dependent steps
+    from ``j = 0`` reaches, over ``passes`` passes.  ``perm`` is an int32
+    (rows, 128) buffer whose every entry lies inside its own tile
+    (``core.instruction_mix.chase_perm(shape, rows // block_rows)``;
+    ``check_chase_perm`` checks it, once per buffer).  On the card one
+    thread walks every tile: one dependent chain at a time, one launch per
+    pass, so that every pass starts from the same cache state.  ``unroll``
+    is checked as for the other kernels and changes nothing here."""
+    n_tiles = _check(perm, block_rows, streams, passes, unroll, name="perm",
+                     dtypes=(torch.int32,))
+    if perm.device.type == "cpu":
+        return plain_chase(perm, block_rows, streams, passes)
+    check_chase_perm(perm, block_rows)
+    out = torch.empty((), dtype=torch.float32, device=perm.device)
+    fn = _entry(SOURCES["chase"])
+    for p in range(passes):
+        err = _launch(fn, perm, perm.data_ptr(), out.data_ptr(), n_tiles,
+                      block_rows * LANES, streams, int(p > 0))
+        launch_counts["chase"] += 1
+        _raise_on(err, "chase")
+    return out
+
+
 def membench_call(x, *, mix: str = "load_sum", depth: int = 8,
-                  block_rows: int = 128, streams: int = 1, y=None,
+                  block_rows: int = 128, streams: int = 1, y=None, ys=(),
                   interleave: int = 1, passes: int = 1, unroll: int = 1,
                   out=None):
     """The dispatcher, as ``repro.kernels.membench.membench.membench_call``:
-    x is (rows, 128) float32/bfloat16; returns a 0-dim float32 tensor
-    (load family, fma, mxu) or an array (copy / triad).  ``triad`` needs a
-    second same-shape operand ``y``.  ``passes``/``unroll`` run the
+    x is (rows, 128) float32/bfloat16 (int32 for ``latency_chase``: the
+    permutation buffer); returns a 0-dim float32 tensor (load family, fma,
+    mxu, latency_chase), an array (copy / triad) or a tuple of W arrays
+    (``rw_RtoW``).  ``triad`` needs a second same-shape operand ``y``,
+    ``rw_RtoW`` its R-1 extra read streams as ``ys``; ``out`` is the output
+    (copy / triad) or the W outputs (rw).  ``passes``/``unroll`` run the
     measurement loop inside the call."""
     kw = dict(block_rows=block_rows, streams=streams, passes=passes,
               unroll=unroll)
-    if interleave > 1 and mix not in ("load_sum", "copy"):
+    if interleave > 1 and not interleavable(
+            get_mix(f"fma_{depth}" if mix == "fma" else mix)):
         raise ValueError(f"mix {mix!r} has no interleaved variant")
+    if mix.startswith("rw_"):
+        reads, writes = get_mix(mix).rw
+        return rw(x, *ys, reads=reads, writes=writes, outs=out,
+                  interleave=interleave, **kw)
+    if mix == "latency_chase":
+        return chase(x, **kw)
     if mix == "load_sum":
         return load_sum(x, interleave=interleave, **kw)
     if mix == "load_only":

@@ -23,6 +23,28 @@ def ref_triad(x, y):
     return x + RW_COMBINE_COEF * y
 
 
+def ref_rw(x, *ys):
+    """The value every one of the W outputs of an rw tile holds."""
+    v = x
+    for y in ys:
+        v = v + RW_COMBINE_COEF * y
+    return v
+
+
+def ref_chase(perm, block_rows: int):
+    """Sum over tiles of the index a ``block_rows * 128``-step walk
+    ``j = tile[j]`` from 0 reaches, walked tile by tile on the host."""
+    m = block_rows * perm.shape[1]
+    flat = perm.reshape(-1).tolist()
+    total = torch.zeros((), dtype=torch.float32)
+    for start in range(0, len(flat), m):
+        j = 0
+        for _ in range(m):
+            j = flat[start + j]
+        total = total + j
+    return total.to(perm.device)
+
+
 def ref_fma(x, depth: int):
     v = x.to(torch.float32)
     for _ in range(depth):
@@ -41,7 +63,12 @@ def ref_mxu(x, block_rows: int):
     return total
 
 
-def reference(mix: str, x, depth: int = 8, block_rows: int = 128, y=None):
+def reference(mix: str, x, depth: int = 8, block_rows: int = 128, y=None,
+              ys=()):
+    if mix.startswith("rw_"):
+        return ref_rw(x, *ys)
+    if mix == "latency_chase":
+        return ref_chase(x, block_rows)
     if mix == "load_only":
         # accumulated over blocks: one lane per block
         return x.to(torch.float32)[::block_rows, 0].sum()

@@ -37,11 +37,11 @@ def test_the_port_has_the_slice_modules():
                  "core/instruction_mix.py", "obs/trace.py", "obs/metrics.py",
                  "obs/ledger.py", "kernels/membench/membench.py",
                  "kernels/membench/ops.py", "kernels/membench/ref.py",
-                 "convert.py"):
+                 "characterize/loaded.py", "convert.py"):
         assert want in have, want
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "membench" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == \
-        {"acc.cu", "mxu.cu", "copy.cu", "triad.cu"}
+        {"acc.cu", "mxu.cu", "copy.cu", "triad.cu", "rw.cu", "chase.cu"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -60,10 +60,14 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.bench.runner, repro_torch.bench.backends\n"
         "import repro_torch.kernels.membench.ops, repro_torch.convert\n"
         "import repro_torch.obs, repro_torch.core.instruction_mix\n"
+        "import repro_torch.characterize\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
         "r = Runner(device='cpu').run(BenchSpec(mixes=('load_sum',),\n"
         "    sizes=(4096,), backend='cuda', reps=1, warmup=0))\n"
         "assert len(r.points) == 1\n"
+        "r = Runner(device='cpu').run(BenchSpec(mixes=('latency_chase',),\n"
+        "    sizes=(4096,), backend='cuda', reps=1, warmup=0, load=1))\n"
+        "assert r.points[0].latency_ns > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -8,8 +8,6 @@ from repro.bench import mixes as ref
 from repro_torch.bench import mixes as port
 
 BACKEND = {"xla": "torch", "pallas": "cuda"}
-#: mixes whose kernels the port does not hold yet: declared, not runnable
-NOT_PORTED = {n for n, m in ref.registry().items() if m.rw or m.chase}
 
 
 def _same_accounting(a, b):
@@ -27,18 +25,14 @@ def test_registered_mix_matches_reference(name):
     a, b = ref.get_mix(name), port.get_mix(name)
     assert b.name == name
     _same_accounting(a, b)
-    if name in NOT_PORTED:
-        assert b.backends == ()          # refused, not pretended
-    else:
-        assert b.backends == tuple(BACKEND[x] for x in a.backends)
+    assert b.backends == tuple(BACKEND[x] for x in a.backends)
 
 
 def test_registry_names_and_order():
     assert list(port.registry()) == list(ref.registry())
     assert port.mix_names() == ref.mix_names()
     for rb, pb in BACKEND.items():
-        ported = [n for n in ref.mix_names(rb) if n not in NOT_PORTED]
-        assert port.mix_names(pb) == ported
+        assert port.mix_names(pb) == ref.mix_names(rb)
     assert "load_only" not in port.mix_names("torch")
     assert "load_only" in port.mix_names("cuda")
 
@@ -51,6 +45,8 @@ def test_open_families_match_reference():
     for name in names:
         _same_accounting(ref.get_mix(name), port.get_mix(name))
         assert port.get_mix(name).name == name
+        assert port.get_mix(name).backends == tuple(
+            BACKEND[x] for x in ref.get_mix(name).backends)
     assert port.rw_ratio(3, 2).bytes_per_pass(100) == \
         ref.rw_ratio(3, 2).bytes_per_pass(100)
 

@@ -147,7 +147,8 @@ def test_errors_match_the_reference():
     for mod, x in ((ref, xj), (port, xt)):
         with pytest.raises(KeyError):
             mod.run_mix("nope", x, 1)
-    # the mixes whose kernels are not in the port yet are refused by name
-    for name in ("rw_2to1", "latency_chase"):
-        with pytest.raises(KeyError):
-            port.run_mix(name, xt, 1)
+    # family members outside the registry's bounds are refused by name
+    for name in ("rw_9to1", "rw_0to1", "rw_1to01"):
+        for mod, x in ((ref, xj), (port, xt)):
+            with pytest.raises(KeyError):
+                mod.run_mix(name, x, 1)
