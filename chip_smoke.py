@@ -10,7 +10,8 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
 Phases (any failure raises and the script exits non-zero):
 
   1  device: card name and power limit, torch / CUDA / nvcc versions, and the
-     build of the kernels from ``src/repro_torch/kernels/membench/csrc``.
+     build of the kernels from ``src/repro_torch/kernels/*/csrc`` (membench,
+     flash_attention, ssd_scan), one ``nvcc`` per source, all together.
   2  every kernel against its plain version on the card, over dtypes, sizes,
      tilings, interleave, unroll and passes, on the benchmark's working set
      (whose sums cancel) and on a non-cancelling ramp input with a relative
@@ -21,17 +22,26 @@ Phases (any failure raises and the script exits non-zero):
      plain version, and equal to copy / triad at 1:1 / 2:1; the chase on
      ``chase_perm`` (exactly 0.0) and on permutations whose walk ends
      elsewhere (exact equality), the loaded composite, repeat runs, and both
-     timed forms against the ``torch`` oracles.
+     timed forms against the ``torch`` oracles.  2c: flash attention
+     against ``plain_flash`` (the reference test's shapes, head dims 80 and
+     128, causal and not, float32 and bfloat16, block-shape invariance) and
+     the SSD against ``plain_ssd`` (the reference test's shapes, chunk
+     invariance, stride-0 B/C views), both also at the serving shapes.
   3  the main paths, each with the launch counters set to 0 just before and
      read just after: ``run --backend cuda`` over the working-set ladder
      32 KiB .. 2 GiB for the six first mixes, then for the rw ladder, float32
      then bfloat16; ``latency --backend cuda`` (idle and loaded); the result
      JSON is read back and checked; ``compare`` of ``torch`` vs ``cuda``.
+     3d: ``python -m repro_torch.launch.serve --arch zamba2-2.7b --batch 4
+     --prompt-len 512 --gen 16`` at full width (9 flash and 54 SSD launches
+     in its one prefill, no membench launch), then in process the kernel
+     route's prefill against the plain route's, and two decode steps.
   4  the measurement is real: doubling ``passes`` doubles the time, no GB/s
      above the card's memory rate at 2 GiB, mxu below the float32 peak; the
      chase at least 5 ns per dependent step, loaded latency not below idle.
   5  one JSON line listing every kernel with its time, its plain version's,
-     the library call's, and its bound.
+     the library call's, and its bound (flash_attn and ssd_scan at the
+     serving shapes).
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -47,6 +57,7 @@ import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -65,10 +76,23 @@ from repro_torch.bench import cli  # noqa: E402
 from repro_torch.bench.mixes import (GEN_SWEEPS_PER_PASS,  # noqa: E402
                                      get_mix, rw_name)
 from repro_torch.bench.result import BenchResult  # noqa: E402
+from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.core import instruction_mix as im  # noqa: E402
 from repro_torch.core.buffers import working_set  # noqa: E402
+from repro_torch.kernels.build import build_libraries, find_nvcc  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.membench import membench as mb  # noqa: E402
 from repro_torch.kernels.membench import ops as mb_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan as sk  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+from repro_torch.models.common import (apply_mlp, apply_norm,  # noqa: E402
+                                       embed_tokens, init_params)
+from repro_torch.models.hybrid import _index as layer_params  # noqa: E402
+from repro_torch.models.registry import build, make_batch  # noqa: E402
+from repro_torch.models.variant import BASELINE  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 # the plain mxu version must multiply in exact float32, as the kernel does
@@ -98,7 +122,11 @@ REPLACES = {
     "triad": "src/repro/kernels/membench/membench.py:83",
     "rw": "src/repro/kernels/membench/membench.py:88",
     "chase": "src/repro/kernels/membench/membench.py:110",
+    "flash_attn": "src/repro/kernels/flash_attention/flash_attention.py:21",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:22",
 }
+#: every kernel package of the port, built together in phase 1
+LIBRARIES = (mb.LIBRARY, fa.LIBRARY, sk.LIBRARY)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FMA_DEPTH = 8
 #: the kernels of the first slice: the generic loops of phases 2, 4 and 5
@@ -246,12 +274,16 @@ def phase_device() -> dict:
     say(smi.splitlines()[0])
     say(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}")
-    nvcc = subprocess.run([mb.find_nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     say("nvcc: " + nvcc[-2].strip() + " / " + nvcc[-1].strip())
-    paths = mb.build_all()
+    # one nvcc per source of every kernel package, all started together
+    built = build_libraries(LIBRARIES)
+    paths = {f"{pkg}/{src}": path for pkg, by_src in built.items()
+             for src, path in by_src.items()}
     say(f"built {len(paths)} kernel libraries in "
-        f"{mb.last_build_seconds:.1f} s -> {mb.build_dir()}")
+        f"{max(lib.last_build_seconds for lib in LIBRARIES):.1f} s -> "
+        f"{mb.LIBRARY.build_dir.parent}")
     for src, path in paths.items():
         log = path.with_suffix(".log")
         regs, spills = [], 0
@@ -628,6 +660,165 @@ def phase_rw_chase(quick: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2c — the model kernels (flash attention, SSD) against their plain
+# versions
+# ---------------------------------------------------------------------------
+
+#: the serving path: zamba2-2.7b at full width, 4 prompts of 512 tokens, 16
+#: generated
+SERVE_B, SERVE_P, SERVE_G = 4, 512, 16
+SERVE_ARGV = ["--arch", "zamba2-2.7b", "--batch", str(SERVE_B),
+              "--prompt-len", str(SERVE_P), "--gen", str(SERVE_G)]
+#: the kernels' shapes on that path: flash (B, S, H, KV, D), bf16, causal;
+#: SSD (B, H, S, P, N, chunk), bf16 x/B/C, B and C shared by a row's heads
+FLASH_SERVE = (SERVE_B, SERVE_P, 32, 32, 80)
+SSD_SERVE = (SERVE_B, 80, SERVE_P, 64, 64, 256)
+#: tests/test_kernels.py's flash shapes, plus the serving head dim 80 (G 1
+#: and G 4) and 128
+FLASH_SHAPES = [(2, 128, 8, 4, 64), (1, 256, 4, 4, 32), (2, 128, 8, 2, 64),
+                (1, 128, 16, 16, 32), (1, 128, 4, 4, 80), (2, 64, 8, 2, 80),
+                (1, 128, 4, 2, 128)]
+#: the reference's flash tolerances (rtol = atol, test_flash_vs_ref)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: tests/test_kernels.py's SSD shapes (BH, S, P, N, chunk), and its
+#: tolerance (rtol = atol): the chunked kernel and the token recurrence sum
+#: in another order, in float32
+SSD_SHAPES = [(4, 128, 32, 16, 32), (2, 256, 64, 32, 64), (1, 64, 16, 8, 16)]
+SSD_TOL = 2e-4
+
+
+def _randn(shape, dtype, gen, scale=1.0) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+
+def flash_inputs(B, S, H, KV, D, dtype, seed) -> tuple:
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return (_randn((B, S, H, D), dtype, g), _randn((B, S, KV, D), dtype, g),
+            _randn((B, S, KV, D), dtype, g))
+
+
+def hold_flash(q, k, v, causal: bool, label: str) -> float:
+    """The kernel against plain_flash on the card; raises unless every
+    element is within the reference's tolerance.  Returns the max abs
+    error."""
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.plain_flash(q, k, v, causal=causal).float()
+    sync()
+    tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+    diff = (got.float() - want).abs()
+    if not bool((diff <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"flash {label} causal={causal}: max abs err "
+                             f"{float(diff.max())} beyond rtol=atol={tol}")
+    return float(diff.max())
+
+
+def ssd_inputs(BH, S, P, N, dtype, seed) -> tuple:
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return (_randn((BH, S, P), dtype, g, 0.5),
+            -_randn((BH, S), torch.float32, g, 0.3).abs(),
+            _randn((BH, S, N), dtype, g, 0.5), _randn((BH, S, N), dtype, g, 0.5))
+
+
+def hold_ssd(xdt, dA, Bm, Cm, chunk: int, label: str) -> float:
+    """The kernel against plain_ssd on the card (B/C may be (B, H, S, N)
+    views; the plain version gets them materialised per head).  y within
+    SSD_TOL, plus 2**-8 of |y| (the unit roundoff) when y comes back in bf16;
+    the float32 state within SSD_TOL.  Returns the max abs error of y."""
+    BH, S, P = xdt.shape
+    y, st = sk.ssd_scan(xdt, dA, Bm, Cm, chunk=chunk)
+    wy, wst = sk.plain_ssd(xdt, dA, Bm.reshape(BH, S, -1),
+                           Cm.reshape(BH, S, -1))
+    sync()
+    rounding = 2.0**-8 if y.dtype == torch.bfloat16 else 0.0
+    dy, ds = (y.float() - wy).abs(), (st - wst).abs()
+    if not (bool((dy <= SSD_TOL + (SSD_TOL + rounding) * wy.abs()).all())
+            and bool((ds <= SSD_TOL + SSD_TOL * wst.abs()).all())):
+        raise AssertionError(f"ssd {label} chunk={chunk}: max abs err y "
+                             f"{float(dy.max())}, state {float(ds.max())}")
+    return float(dy.max())
+
+
+def serve_ssd_inputs(seed: int = 64) -> tuple:
+    """The SSD's inputs at the serving shape, laid out as the model's kernel
+    route lays them out: x and dA per head (B*H, S, ·), B and C one (S, N)
+    matrix per batch row expanded over its H heads with stride 0."""
+    B, H, S, P, N, _ = SSD_SERVE
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    xdt = _randn((B * H, S, P), torch.bfloat16, g, 0.5)
+    dA = -_randn((B * H, S), torch.float32, g, 0.3).abs()
+    Bm = _randn((B, S, N), torch.bfloat16, g, 0.5)
+    Cm = _randn((B, S, N), torch.bfloat16, g, 0.5)
+    return (xdt, dA, Bm.unsqueeze(1).expand(B, H, S, N),
+            Cm.unsqueeze(1).expand(B, H, S, N))
+
+
+def phase_model_kernels(quick: bool) -> dict[str, float]:
+    """Returns the max abs error of each kernel at the serving shape."""
+    say("== phase 2c: flash attention and SSD against their plain versions "
+        "on the card")
+    worst: dict[str, float] = {}
+    n = 0
+    for shape in FLASH_SHAPES[:5] if quick else FLASH_SHAPES:
+        for dname, dtype in DTYPES.items():
+            q, k, v = flash_inputs(*shape, dtype, seed=sum(shape))
+            for causal in (True, False):
+                err = hold_flash(q, k, v, causal, f"{dname} {shape}")
+                key = f"flash/{dname}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                n += 1
+    # the reference's block-shape invariance: the wrapper's q_block /
+    # kv_block keep its checks and change nothing in the kernel's tiling
+    q, k, v = flash_inputs(1, 256, 4, 4, 32, torch.float32, seed=9)
+    a = fa_ops.flash(q, k, v, causal=True, q_block=256, kv_block=256)
+    b = fa_ops.flash(q, k, v, causal=True, q_block=32, kv_block=64)
+    if not torch.equal(a, b):
+        raise AssertionError("flash: q_block/kv_block changed the output")
+    # the serving shape
+    q, k, v = flash_inputs(*FLASH_SERVE, torch.bfloat16, seed=80)
+    serve_flash = hold_flash(q, k, v, True, f"serve {FLASH_SERVE}")
+    if not torch.equal(fa.flash_attention(q, k, v),
+                       fa.flash_attention(q, k, v)):
+        raise AssertionError("flash: two runs differ")
+    del q, k, v
+    say(f"  {n} flash cases within the reference's tolerances; worst max "
+        f"abs err {worst}; serving shape {FLASH_SERVE} bf16 causal: "
+        f"{serve_flash:.3e} (tolerance {FLASH_TOL['bfloat16']} + "
+        f"{FLASH_TOL['bfloat16']}|value|); block-shape invariant, "
+        f"repeatable")
+
+    n = 0
+    for BH, S, P, N, Q in SSD_SHAPES:
+        for dname, dtype in DTYPES.items():
+            err = hold_ssd(*ssd_inputs(BH, S, P, N, dtype, seed=BH + S), Q,
+                           f"{dname} {(BH, S, P, N)}")
+            worst[f"ssd/{dname}"] = max(worst.get(f"ssd/{dname}", 0.0), err)
+            n += 1
+    # chunk invariance (the reference's test): chunks of 32 and 128 agree
+    args = ssd_inputs(2, 128, 16, 8, torch.float32, seed=5)
+    y1, _ = sk.ssd_scan(*args, chunk=32)
+    y2, _ = sk.ssd_scan(*args, chunk=128)
+    if not bool(((y1 - y2).abs() <= SSD_TOL + SSD_TOL * y2.abs()).all()):
+        raise AssertionError("ssd: chunks 32 and 128 disagree")
+    # stride-0 B/C views give what materialised per-head copies give
+    xdt, dA, Bv, Cv = serve_ssd_inputs()
+    BH, S = dA.shape
+    ya, sa = sk.ssd_scan(xdt, dA, Bv, Cv, chunk=SSD_SERVE[-1])
+    yb, sb = sk.ssd_scan(xdt, dA, Bv.reshape(BH, S, -1).contiguous(),
+                         Cv.reshape(BH, S, -1).contiguous(),
+                         chunk=SSD_SERVE[-1])
+    if not (torch.equal(ya, yb) and torch.equal(sa, sb)):
+        raise AssertionError("ssd: stride-0 B/C views differ from copies")
+    serve_ssd = hold_ssd(xdt, dA, Bv, Cv, SSD_SERVE[-1],
+                         f"serve {SSD_SERVE}")
+    del xdt, dA, Bv, Cv, ya, yb
+    say(f"  {n} ssd cases within the reference's tolerance; worst max abs "
+        f"err {({k: e for k, e in worst.items() if k.startswith('ssd')})}; "
+        f"chunk-invariant; stride-0 B/C views bit-identical to "
+        f"copies; serving shape {SSD_SERVE} bf16: {serve_ssd:.3e}")
+    return {"flash_attn": serve_flash, "ssd_scan": serve_ssd}
+
+
+# ---------------------------------------------------------------------------
 # phase 3 — the main path
 # ---------------------------------------------------------------------------
 
@@ -820,6 +1011,193 @@ def phase_latency_path(quick: bool) -> dict[str, int]:
     if rc != 0:
         raise AssertionError(f"compare exited {rc} (accounting mismatch)")
     check_compare(OUT_DIR / "compare_rw_chase.json")
+    return counts
+
+
+#: the kernel route against the plain route, at full width.  The routes
+#: round at different places by design (the kernels keep the SSD's CB*L,
+#: decays and carried state and the attention probabilities in float32, the
+#: plain route rounds them to bf16, ROADMAP Queue C).  LAYER_TOL holds each
+#: site's attention output and each Mamba layer's update and state, both
+#: routes fed the SAME input (the reference's bf16 attention tolerance, on
+#: the relative RMS); SERVE_LOGITS_RMS_TOL holds the prefill logits after 54
+#: layers, where each layer's difference feeds the next (relative RMS
+#: 0.0852 measured at these seeds on an H100 80GB HBM3, 700 W).
+LAYER_TOL = 2e-2
+SERVE_LOGITS_RMS_TOL = 0.15
+
+
+def _rms_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float(((a - b) ** 2).mean().sqrt() / (b ** 2).mean().sqrt())
+
+
+def layerwise_routes(model, params, tokens) -> dict[str, float]:
+    """Both routes from the same input at every attention site and Mamba
+    layer, following the plain route's activations: the worst relative RMS
+    difference of the site attention outputs, of the Mamba layers' updates
+    (output minus input) and of their final states."""
+    cfg = model.cfg
+    S = tokens.shape[1]
+    kern = replace(BASELINE, use_pallas=True)
+    shared = params["shared"]
+    pos = torch.arange(S, device=DEV)
+    inv_freq = attention.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
+                                    cfg.rope_theta, device=DEV)
+    worst = {"attention": 0.0, "mamba update": 0.0, "mamba state": 0.0}
+    x = embed_tokens(params["embed"], tokens)
+    for site in range(model.n_sites):
+        h = apply_norm(cfg, layer_params(params["site_norms"], site), x)
+        h1 = apply_norm(cfg, shared["ln1"], h)
+        q, k, v = attention.gqa_project_qkv(cfg, shared["attn"], h1, pos,
+                                            inv_freq)
+        o = attention.chunked_attention(q, k, v, causal=True, kv_block=S)
+        worst["attention"] = max(worst["attention"], _rms_rel(
+            fa_ops.flash(q, k, v, causal=True), o))
+        h = h + attention.out_proj(o, shared["attn"]["wo"]).to(x.dtype)
+        x = x + h + apply_mlp(cfg, shared["mlp"],
+                              apply_norm(cfg, shared["ln2"], h))
+        for layer in range(cfg.attn_every):
+            p = layer_params(params["mamba"], site, layer)
+            xk, ek = model._mamba_prefill(p, x, kern)
+            xp, ep = model._mamba_prefill(p, x, BASELINE)
+            worst["mamba update"] = max(worst["mamba update"],
+                                        _rms_rel(xk - x, xp - x))
+            worst["mamba state"] = max(worst["mamba state"],
+                                       _rms_rel(ek["state"], ep["state"]))
+            x = xp
+    return worst
+
+
+def device_busy_ms(fn) -> tuple:
+    """(milliseconds of kernel time in one call of ``fn`` — the device's
+    busy time, one stream — from ``torch.profiler``, or None where the
+    profiler records no device time; fn's result).  Only the device's own
+    events are summed: a CPU op's device time is its kernels' again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return (us / 1e3 if us > 0 else None), out
+
+
+def wall_ms(fn) -> tuple:
+    """(wall milliseconds of one call of ``fn``, synchronised; its result)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_serve_path(quick: bool) -> dict[str, int]:
+    say("== phase 3d: the serving path (python -m repro_torch.launch.serve "
+        + " ".join(SERVE_ARGV) + (" --reduced" if quick else "") + ")")
+    cfg = get_arch("zamba2-2.7b")
+    if quick:
+        cfg = reduced(cfg)
+    model = build(cfg)
+    mb.reset_launch_counts()
+    fa.reset_launch_counts()
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(SERVE_ARGV + (["--reduced"] if quick else []))
+    sync()
+    lines = buf.getvalue().strip().splitlines()
+    counts = {**fa.launch_counts, **sk.launch_counts}
+    say(f"  serve: exit {rc}, {time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        say("  | " + line)
+    say(f"  launches on the serving path: {counts}; membench "
+        f"{sum(mb.launch_counts.values())}")
+    if rc != 0 or len(lines) != 4:
+        raise AssertionError(f"serve exited {rc} with {len(lines)} lines")
+    # one prefill: the flash kernel once per attention site, the SSD kernel
+    # once per Mamba layer; decode runs neither
+    want = {"flash_attn": model.n_sites, "ssd_scan": cfg.n_layers}
+    if counts != want:
+        raise AssertionError(f"serve launched {counts}, expected {want}")
+    if any(mb.launch_counts.values()):
+        raise AssertionError(f"serve launched membench kernels: "
+                             f"{mb.launch_counts}")
+
+    # in process, one parameter set and one prompt batch (serve's seeds):
+    # the kernel route against the plain route
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=DEV).manual_seed(0))
+    tokens = make_batch(cfg, (SERVE_B, SERVE_P), torch.Generator(
+        device=DEV).manual_seed(1))["tokens"]
+    V = cfg.vocab_size
+    kern = replace(BASELINE, use_pallas=True)
+    with torch.inference_mode():
+        layers = layerwise_routes(model, params, tokens)
+        say(f"  every site and layer fed the same input, kernel route vs "
+            f"plain route, worst relative RMS: {layers} (tolerance "
+            f"{LAYER_TOL})")
+        if not all(e <= LAYER_TOL for e in layers.values()):
+            raise AssertionError(f"a layer's routes disagree: {layers}")
+        lk, ck = model.prefill(params, tokens, None, kern)
+        lp, cp = model.prefill(params, tokens, None, BASELINE)
+        sync()
+        lk, lp = lk[:, :V], lp[:, :V]
+        rms = _rms_rel(lk, lp)
+        leaves = {f"{k}": _rms_rel(ck[k], cp[k]) for k in ("k", "v")}
+        leaves.update({f"ssm/{k}": _rms_rel(ck["ssm"][k], cp["ssm"][k])
+                       for k in ck["ssm"]})
+        tk, tp = lk.argmax(-1), lp.argmax(-1)
+        say(f"  prefill logits, kernel route vs plain route "
+            f"({cfg.n_layers} layers deep): relative RMS {rms:.4e} (tolerance "
+            f"{SERVE_LOGITS_RMS_TOL}), max abs "
+            f"{float((lk - lp).abs().max()):.3e} of largest "
+            f"{float(lp.abs().max()):.3e}; cache leaves relative RMS "
+            f"{leaves}")
+        if not rms <= SERVE_LOGITS_RMS_TOL or not bool(lk.isfinite().all()):
+            raise AssertionError(f"prefill routes disagree: relative RMS "
+                                 f"{rms} > {SERVE_LOGITS_RMS_TOL}")
+        for row in range(SERVE_B):
+            a, b = int(tk[row]), int(tp[row])
+            if a == b:
+                say(f"  row {row}: first greedy token {a} on both routes")
+            else:
+                say(f"  row {row}: first greedy token differs: kernel route "
+                    f"{a}, plain route {b}; plain-route margin "
+                    f"{float(lp[row, b] - lp[row, a]):.4f}, kernel-route "
+                    f"margin {float(lk[row, a] - lk[row, b]):.4f}")
+        del cp
+        # where the time goes, warm (serve's own prefill above was the
+        # process's first): wall time and the device's busy time per call
+        for name, variant in (("kernel route", kern), ("plain route",
+                                                        BASELINE)):
+            run = lambda v=variant: model.prefill(params, tokens, None, v)
+            wall, _ = wall_ms(run)
+            busy, _ = device_busy_ms(run)
+            say(f"  warm prefill, {name}: {wall:.1f} ms wall, device busy "
+                f"{'not measured' if busy is None else f'{busy:.1f} ms'}")
+        # decode from the kernel route's cache: finite logits
+        for key in ("k", "v"):
+            ck[key] = torch.nn.functional.pad(ck[key], (0, 0, 0, 0, 0, 3))
+        tok = tk[:, None]
+        for i in range(3):
+            # each call advances the cache: run every step once
+            step = lambda: model.decode_step(params, ck, tok, SERVE_P + i)
+            if i < 2:
+                wall, (logits, _) = wall_ms(step)
+            else:
+                busy, (logits, _) = device_busy_ms(step)
+            if not bool(logits.isfinite().all()):
+                raise AssertionError(f"decode step {i}: non-finite logits")
+            tok = logits[:, :, :V].argmax(-1)
+    say(f"  decode steps from the kernel route's cache: finite logits; one "
+        f"step {wall:.1f} ms wall, device busy "
+        f"{'not measured' if busy is None else f'{busy:.1f} ms'}")
+    del params, ck, lk, lp
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1176,6 +1554,75 @@ def chase_entry(nbytes: int, launches: int) -> dict:
     return e
 
 
+def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
+                         ) -> list[dict]:
+    """The ``kernels`` entries of flash_attn and ssd_scan at the serving
+    shapes: kernel ms (CUDA events, back to back), plain ms, the library
+    call's ms (flash: ``scaled_dot_product_attention`` on the same bf16
+    tensors, timed here and used nowhere in the port; the SSD has no single
+    library call), and the bound.  Bounds: operations per the reference's
+    ``flops`` at the card's peak for the input type (bf16: 989 TFLOP/s),
+    against each input read once and each output written once at the
+    memory rate (B and C of the SSD are counted as the storage their
+    stride-0 views cover)."""
+    entries = []
+    q, k, v = flash_inputs(*FLASH_SERVE, torch.bfloat16, seed=80)
+    ms, host_ms = time_both_ms(lambda: fa.flash_attention(q, k, v), 20)
+    plain_ms = time_ms(lambda: fa.plain_flash(q, k, v), 5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    nb = 2 * (q.numel() + k.numel() + v.numel()) + 2 * q.numel()
+    nf = fa_ops.flops(q, k, True)
+    t_bytes, t_ops = nb / HBM_BYTES_PER_S, nf / PEAK_FLOPS["bfloat16_tensor"]
+    entries.append({
+        "name": "flash_attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn.cu",
+        "replaces": REPLACES["flash_attn"],
+        "launches": counts.get("flash_attn", 0),
+        "max_abs_err": errs["flash_attn"], "tolerance": FLASH_TOL["bfloat16"],
+        "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "flops": nf, "bytes": nb,
+        "shape": list(FLASH_SERVE), "dtype": "bfloat16", "causal": True,
+    })
+    del q, k, v, qt, kt, vt
+    xdt, dA, Bv, Cv = serve_ssd_inputs()
+    chunk = SSD_SERVE[-1]
+    BH, S, P = xdt.shape
+    N = Bv.shape[-1]
+    ms, host_ms = time_both_ms(lambda: sk.ssd_scan(xdt, dA, Bv, Cv,
+                                                   chunk=chunk), 20)
+    B3, C3 = Bv.reshape(BH, S, N), Cv.reshape(BH, S, N)
+    plain_ms = time_ms(lambda: sk.plain_ssd(xdt, dA, B3, C3), 3)
+    nb = (2 * xdt.numel() * xdt.element_size()                # x in, y out
+          + dA.numel() * 4 + 2 * 2 * SSD_SERVE[0] * S * N     # dA, B, C
+          + BH * N * P * 4)                                   # state out
+    nf = ssd_ops.flops(BH, S, P, N, chunk)
+    t_bytes, t_ops = nb / HBM_BYTES_PER_S, nf / PEAK_FLOPS["bfloat16_tensor"]
+    entries.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": REPLACES["ssd_scan"],
+        "launches": counts.get("ssd_scan", 0),
+        "max_abs_err": errs["ssd_scan"], "tolerance": SSD_TOL,
+        "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "flops": nf, "bytes": nb,
+        "shape": list(SSD_SERVE), "dtype": "bfloat16",
+    })
+    for e in entries:
+        lib = "-" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
+        say(f"  {e['name']:10s} {e['dtype']:8s} {e['shape']}  ms "
+            f"{e['ms']:.4f}  (host {e['host_ms']:.4f})  bound "
+            f"{e['bound_ms']:.4f} ({e['bound_by']}; {e['flops'] / 1e9:.2f} "
+            f"GFLOP, {e['bytes'] / 1e6:.2f} MB)  plain {e['plain_ms']:.4f}  "
+            f"library {lib}  err {e['max_abs_err']:.2e}")
+    return entries
+
+
 def main(argv=None) -> int:
     global OUT_DIR
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1193,12 +1640,15 @@ def main(argv=None) -> int:
     info = phase_device()
     phase_kernels(args.quick)
     phase_rw_chase(args.quick)
+    errs = phase_model_kernels(args.quick)
     counts = phase_main_path(args.quick)
     counts["rw"] = phase_rw_path(args.quick)["rw"]
     counts["chase"] = phase_latency_path(args.quick)["chase"]
+    counts.update(phase_serve_path(args.quick))
     phase_real(args.quick)
     phase_real_rw_chase(args.quick)
     line = phase_kernels_line(counts, args.quick)
+    line["kernels"] += model_kernel_entries(counts, errs)
     say(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
     say(info["smi"])
     say(json.dumps(line))

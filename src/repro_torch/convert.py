@@ -1,9 +1,10 @@
 """What crosses between this package and the JAX reference package: buffers,
-specs and results.  (The slice has no weights.)
+model weights and caches, specs and results.
 
 Nothing here imports ``jax`` or ``repro``: buffers cross as numpy arrays
-(``np.asarray(jax_array)`` on the reference's side), specs and results as the
-plain dicts of ``to_dict()``.
+(``np.asarray(jax_array)`` on the reference's side), weight and cache trees
+as nested dicts of them (``jax.tree.map(np.asarray, params)``), specs and
+results as the plain dicts of ``to_dict()``.
 
 bfloat16 is the trap: numpy has no bfloat16, the reference hands back an
 ``ml_dtypes`` array that ``torch.from_numpy`` refuses, so the bits go across
@@ -47,6 +48,23 @@ def to_reference(t: torch.Tensor) -> np.ndarray:
             return bits
         return bits.view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def params_from_reference(tree, device=None):
+    """A reference parameter tree taken across as numpy
+    (``jax.tree.map(np.asarray, params)``: nested dicts of arrays) -> the
+    same nested dict of tensors, leaf for leaf, same dtypes and bits
+    (bfloat16 through its uint16 bits), on ``device`` (None keeps the CPU)."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    return tensor_from_reference(tree, device)
+
+
+def cache_from_reference(tree, device=None):
+    """A reference decode cache (nested dicts of arrays, as the reference's
+    ``prefill`` returns it or ``init_cache`` makes it) -> the port's, leaf
+    for leaf."""
+    return params_from_reference(tree, device)
 
 
 def _map_backend(name, table):

@@ -18,7 +18,8 @@ kernel it replaces, what bounds it on an H100 and what the design does about
 it).  They are compiled with ``nvcc`` for ``sm_90a`` at first use — one
 ``nvcc`` per source, all started together — into shared libraries with a plain
 C interface under ``build/membench/`` at the checkout's root, and loaded with
-``ctypes``.  Nothing is built or loaded when this module is imported.
+``ctypes`` (``repro_torch.kernels.build``).  Nothing is built or loaded when
+this module is imported.
 
 Every wrapper takes its plain version ONLY for a tensor that lies on the CPU.
 For a CUDA tensor it launches the kernel or raises: no fallback.  Each
@@ -34,10 +35,6 @@ from the same cache state (``csrc/chase.cu``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import weakref
 from pathlib import Path
 
@@ -46,6 +43,9 @@ import torch
 
 from repro_torch.bench.mixes import (MAX_RW, RW_COMBINE_COEF, get_mix,
                                      interleavable)
+from repro_torch.kernels.build import KernelLibrary
+from repro_torch.kernels.build import launch as _launch
+from repro_torch.kernels.build import raise_on as _raise_on
 
 LANES = 128
 #: resident CTAs asked for per SM (256 threads each)
@@ -76,120 +76,34 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# build + load (route: nvcc -> shared library with a C interface -> ctypes)
+# build + load (route: nvcc -> shared library with a C interface -> ctypes;
+# kernels/build.py)
 # ---------------------------------------------------------------------------
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_libs: dict[str, ctypes.CDLL] = {}
-#: seconds the last ``build_all`` spent compiling (0.0 when all were cached)
-last_build_seconds = 0.0
-
-
-def build_dir() -> Path:
-    # src/repro_torch/kernels/membench/membench.py -> the checkout's root
-    return Path(__file__).resolve().parents[4] / "build" / "membench"
-
-
-def find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and under $CUDA_HOME / "
-        "/usr/local/cuda): the membench CUDA kernels cannot be built here")
-
-
-def _lib_path(source: str) -> Path:
-    """Content-addressed library path: a changed source never loads a stale
-    build."""
-    h = hashlib.sha256()
-    for f in (CSRC / source, CSRC / "membench_common.cuh"):
-        h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
-
-
-def build_all() -> dict[str, Path]:
-    """Compile every source that has no current library, all ``nvcc``
-    processes started together.  Raises with the compiler's output if one
-    fails.  Returns source -> library path."""
-    import time
-    global last_build_seconds
-    paths = {src: _lib_path(src) for src in sorted(set(SOURCES.values()))}
-    todo = {s: p for s, p in paths.items() if not p.exists()}
-    last_build_seconds = 0.0
-    if not todo:
-        return paths
-    nvcc = find_nvcc()
-    build_dir().mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for src, path in todo.items():
-        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[src] = (tmp, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failures = []
-    for src, (tmp, cmd, proc) in procs.items():
-        out, _ = proc.communicate()
-        path = todo[src]
-        path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out)
-        if proc.returncode != 0:
-            failures.append(f"{' '.join(cmd)}\nexit {proc.returncode}\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, path)
-    last_build_seconds = time.perf_counter() - t0
-    if failures:
-        raise RuntimeError("nvcc failed to build the membench kernels:\n"
-                           + "\n".join(failures))
-    return paths
-
-
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = {
+LIBRARY = KernelLibrary("membench", Path(__file__).resolve().parent / "csrc", {
     # mix dtype x partials out n_tiles block_rows streams passes unroll
     # interleave depth grid stream
-    "membench_acc": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "acc.cu": ("membench_acc",
+               [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # dtype x w partials out n_tiles block_rows streams passes unroll grid
     # stream
-    "membench_mxu": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mxu.cu": ("membench_mxu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # x out n_tiles tile_bytes streams passes unroll interleave grid stream
-    "membench_copy": [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _P],
+    "copy.cu": ("membench_copy", [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _P]),
     # dtype b c out n_tiles block_rows streams passes unroll grid stream
-    "membench_triad": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "triad.cu": ("membench_triad", [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # dtype ins reads outs writes n_tiles block_rows streams passes unroll
     # interleave grid stream
-    "membench_rw": [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rw.cu": ("membench_rw",
+              [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # perm out n_tiles tile_elems streams accumulate stream
-    "membench_chase": [_P, _P, _I, _I, _I, _I, _P],
-}
-_ENTRY = {"acc.cu": "membench_acc", "mxu.cu": "membench_mxu",
-          "copy.cu": "membench_copy", "triad.cu": "membench_triad",
-          "rw.cu": "membench_rw", "chase.cu": "membench_chase"}
-
-
-def _entry(source: str):
-    """The C entry point of ``source``, building and loading at first use."""
-    lib = _libs.get(source)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all()[source]))
-        fn = getattr(lib, _ENTRY[source])
-        fn.argtypes = _ARGTYPES[_ENTRY[source]]
-        fn.restype = ctypes.c_int
-        _libs[source] = lib
-    return getattr(lib, _ENTRY[source])
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error code {err} "
-                           f"(cudaGetLastError)")
+    "chase.cu": ("membench_chase", [_P, _P, _I, _I, _I, _I, _P]),
+}, headers=("membench_common.cuh",))
+CSRC = LIBRARY.csrc
+#: source -> loaded library (empty until the first launch on a card)
+_libs = LIBRARY.libs
+_entry = LIBRARY.entry
 
 
 # ---------------------------------------------------------------------------
@@ -292,18 +206,6 @@ def grid_size(n_tiles: int, device) -> int:
         sms = torch.cuda.get_device_properties(idx).multi_processor_count
         _sm_counts[idx] = sms
     return min(n_tiles, CTAS_PER_SM * sms)
-
-
-def _launch(fn, x: torch.Tensor, *args) -> int:
-    """Call the C entry ``fn(*args, stream)`` with x's device current and on
-    that device's current stream; returns its ``cudaGetLastError()``.  The
-    host's share of a timed call is kept small: the device is switched only
-    when it is not the current one already."""
-    dev = x.device.index
-    if dev == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,202 @@
+"""Attention: GQA with (partial) RoPE, chunked online-softmax attention and
+the decode step (counterpart of ``repro.models.attention``).
+
+``chunked_attention`` is the port of the reference's default path (its XLA
+form, blocked over queries and keys with an online softmax).  The prefill's
+kernel route (``Variant.use_pallas``) goes to
+``repro_torch.kernels.flash_attention`` instead.  Layouts are the
+reference's: q ``(B, S, H, Dh)``, k/v ``(B, S, KV, Dh)``.  ``ctx`` (the
+reference's sharding context) is accepted and ignored: the multi-device port
+is later work (ROADMAP Queue A 3).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import ParamSpec, cast_compute, rms_norm
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, rope_pct: float, theta: float, device=None):
+    rot = int(head_dim * rope_pct) // 2 * 2
+    if rot == 0:
+        return None
+    exponent = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exponent)  # (rot/2,)
+
+
+def apply_rope(x, positions, inv_freq):
+    """x: (B, S, H, Dh); positions: (B, S) or (S,). Rotates the first rot dims
+    (interleaved pairs ``x[..., ::2]``, ``x[..., 1::2]``)."""
+    if inv_freq is None:
+        return x
+    rot = inv_freq.shape[0] * 2
+    xf = x.to(torch.float32)
+    x_rot, x_pass = xf[..., :rot], xf[..., rot:]
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * inv_freq[None, None, :]  # (B,S,r/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x_rot[..., ::2], x_rot[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    x_rot = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([x_rot, x_pass], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention (the reference's default path)
+# ---------------------------------------------------------------------------
+
+def chunked_attention(q, k, v, *, causal: bool, kv_block: int = 1024,
+                      q_block: int = 1024, q_positions=None, kv_positions=None,
+                      ctx=None):
+    """q: (B, Sq, H, Dh); k/v: (B, Sk, KV, Dh|Dv).  GQA by head grouping (no
+    materialised repeat).  Returns (B, Sq, H, Dv).  Online softmax, blocked
+    over queries and keys: temporaries are O(q_block * kv_block) per head."""
+    B, Sq, H, Dh = q.shape
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=q.device)
+    if Sq > q_block and Sq % q_block == 0:
+        outs = [_kv_scan_attention(q[:, i:i + q_block], k, v, causal=causal,
+                                   kv_block=kv_block,
+                                   q_positions=q_positions[i:i + q_block],
+                                   kv_positions=kv_positions)
+                for i in range(0, Sq, q_block)]
+        return torch.cat(outs, dim=1)
+    return _kv_scan_attention(q, k, v, causal=causal, kv_block=kv_block,
+                              q_positions=q_positions, kv_positions=kv_positions)
+
+
+def _kv_scan_attention(q, k, v, *, causal: bool, kv_block: int,
+                       q_positions, kv_positions=None):
+    B, Sq, H, Dh = q.shape
+    _, Sk, KV, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // KV  # query heads per kv head
+    dev = q.device
+    scale = 1.0 / torch.sqrt(torch.tensor(Dh, dtype=torch.float32, device=dev))
+    kv_block = min(kv_block, Sk)
+
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev)
+    if kv_positions is None:
+        kv_positions = torch.arange(Sk, device=dev)
+
+    # pad KV to a block multiple; padded slots masked out via kv_valid
+    pad = (-Sk) % kv_block
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad))
+    kv_valid = torch.arange(Sk + pad, device=dev) < Sk
+    Sk = Sk + pad
+
+    # bf16 operands, products and sums in f32 (preferred_element_type=f32)
+    qc = cast_compute(q).to(torch.float32).reshape(B, Sq, KV, G, Dh)
+    m = torch.full((B, KV, G, Sq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, Sq, Dv), dtype=torch.float32, device=dev)
+    for j0 in range(0, Sk, kv_block):
+        k_b = cast_compute(k[:, j0:j0 + kv_block]).to(torch.float32)
+        v_b = cast_compute(v[:, j0:j0 + kv_block])
+        s = torch.einsum("bqkgd,bjkd->bkgqj", qc, k_b) * scale  # (B,KV,G,Sq,kb)
+        mask = kv_valid[j0:j0 + kv_block][None, None, None, None, :]
+        if causal:
+            mask = mask & (q_positions[None, None, None, :, None]
+                           >= kv_positions[j0:j0 + kv_block][None, None, None, None, :])
+        # -1e30, not -inf: a fully-masked block would make m == -inf and
+        # exp(-inf - -inf) == nan in the online-softmax update.
+        s = torch.where(mask, s, torch.tensor(-1e30, device=dev))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        # the probabilities are rounded to the value dtype (bf16), as the
+        # reference's einsum takes them
+        pv = torch.einsum("bkgqj,bjkd->bkgqd",
+                          p.to(v_b.dtype).to(torch.float32),
+                          v_b.to(torch.float32))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]            # (B,KV,G,Sq,Dv)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer (params + prefill/decode application)
+# ---------------------------------------------------------------------------
+
+def gqa_specs(cfg, d: int) -> dict:
+    hd = cfg.resolved_head_dim
+    out = {
+        "wq": ParamSpec((d, cfg.n_heads, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((cfg.n_heads, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        out["q_norm"] = ParamSpec((hd,), ("head_dim",), "ones")
+        out["k_norm"] = ParamSpec((hd,), ("head_dim",), "ones")
+    return out
+
+
+def _proj_heads(xc, w):
+    """einsum("bsd,dhk->bshk") as one bf16 matrix product."""
+    d, h, k = w.shape
+    return (xc @ cast_compute(w).reshape(d, h * k)).reshape(*xc.shape[:-1], h, k)
+
+
+def out_proj(o, wo):
+    """einsum("bshk,hkd->bsd", bf16(o), bf16(wo)) as one matrix product."""
+    h, k, d = wo.shape
+    return cast_compute(o).reshape(*o.shape[:-2], h * k) @ \
+        cast_compute(wo).reshape(h * k, d)
+
+
+def gqa_project_qkv(cfg, p: dict, x, positions, inv_freq):
+    xc = cast_compute(x)
+    q = _proj_heads(xc, p["wq"])
+    k = _proj_heads(xc, p["wk"])
+    v = _proj_heads(xc, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    return q, k, v
+
+
+def gqa_decode(cfg, p: dict, x, cache_k, cache_v, pos: int):
+    """x: (B, 1, D); cache_(k|v): (B, Smax, KV, Dh); pos: int.
+
+    Returns (out (B,1,D), cache_k, cache_v).  The new key and value are
+    written into the cache tensors in place at ``pos`` (the reference returns
+    updated copies; in place saves a copy of the cache per token)."""
+    B, _, D = x.shape
+    hd = cfg.resolved_head_dim
+    inv_freq = rope_freqs(hd, cfg.rope_pct, cfg.rope_theta, device=x.device)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = gqa_project_qkv(cfg, p, x, positions, inv_freq)
+    cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
+    cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
+    Smax = cache_k.shape[1]
+    KV = cfg.n_kv_heads
+    G = cfg.n_heads // KV
+    s = torch.einsum("bkgd,bjkd->bkgj",
+                     cast_compute(q).to(torch.float32).reshape(B, KV, G, hd),
+                     cast_compute(cache_k).to(torch.float32))
+    s = s / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=x.device))
+    mask = torch.arange(Smax, device=x.device)[None, None, None, :] <= pos
+    s = s.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgj,bjkd->bkgd",
+                     w.to(torch.bfloat16).to(torch.float32),
+                     cast_compute(cache_v).to(torch.float32))
+    o = o.reshape(B, 1, cfg.n_heads, -1).to(x.dtype)
+    out = out_proj(o, p["wo"])
+    return out.to(x.dtype), cache_k, cache_v

@@ -1,0 +1,194 @@
+"""Shared model machinery: param specs, initialisers, norms, MLPs, embeddings
+(counterpart of ``repro.models.common``).
+
+Every model declares its parameters once as a nested dict of ``ParamSpec`` —
+shape, logical axes and initialiser — and ``init_params`` draws the tensors
+from a ``torch.Generator``.  The layouts, the keys, the stacked leading dims
+and the standard deviations are the reference's, so a parameter tree crosses
+between the two packages leaf for leaf (``repro_torch.convert``).  Compute is
+in bfloat16, norms and softmax in float32, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]
+    init: str = "normal"       # normal | zeros | ones | embed
+    scale: Optional[float] = None  # stddev; default 1/sqrt(fan_in)
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamSpec shape {self.shape} and axes "
+                             f"{self.axes} differ in length")
+
+
+def spec_map(fn, tree):
+    """``fn`` over every leaf of a nested dict (a leaf is anything that is
+    not a dict), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: spec_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in the reference's flattening order
+    (``jax.tree.flatten`` walks dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _fan_in(shape: tuple[int, ...]) -> int:
+    # convention: last dim is the output dim for 2D+; fan-in is the product of the
+    # remaining non-layer dims.  For stacked (L, ..., out) weights the leading
+    # layer dim is excluded by the caller via scale.
+    if len(shape) <= 1:
+        return max(shape[0] if shape else 1, 1)
+    return max(math.prod(shape[:-1]), 1)
+
+
+def init_params(specs, generator: torch.Generator):
+    """Materialise a parameter tree from specs, drawn from ``generator`` on
+    its device (leaves in the reference's order; the numbers differ from the
+    reference's ``jax.random``, the standard deviations do not)."""
+    device = generator.device
+
+    def one(spec: ParamSpec):
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
+        if spec.init == "embed":
+            std = spec.scale if spec.scale is not None else 0.02
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(std).to(spec.dtype)
+
+    # draw in the reference's leaf order, so that a seed gives the same tree
+    # whatever order the dicts were built in
+    drawn = {id(s): one(s) for s in tree_leaves(specs)}
+    return spec_map(lambda s: drawn[id(s)], specs)
+
+
+# ---------------------------------------------------------------------------
+# Numerics helpers (compute in bf16, normalize/softmax in f32)
+# ---------------------------------------------------------------------------
+
+def cast_compute(x, dtype=torch.bfloat16):
+    return x.to(dtype)
+
+
+def rms_norm(x, weight, eps: float):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    out = out + bias.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def norm_specs(cfg, d: int) -> dict:
+    if cfg.norm == "layer":
+        return {"scale": ParamSpec((d,), ("embed",), "ones"),
+                "bias": ParamSpec((d,), ("embed",), "zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), "ones")}
+
+
+def apply_norm(cfg, p: dict, x):
+    if cfg.norm == "layer":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def mlp_specs(cfg, d: int, d_ff: int) -> dict:
+    if cfg.mlp == "swiglu":
+        return {
+            "w_gate": ParamSpec((d, d_ff), ("embed", "ffn")),
+            "w_up": ParamSpec((d, d_ff), ("embed", "ffn")),
+            "w_down": ParamSpec((d_ff, d), ("ffn", "embed")),
+        }
+    return {
+        "w_up": ParamSpec((d, d_ff), ("embed", "ffn")),
+        "w_down": ParamSpec((d_ff, d), ("ffn", "embed")),
+    }
+
+
+def apply_mlp(cfg, p: dict, x):
+    xc = cast_compute(x)
+    if cfg.mlp == "swiglu":
+        g = xc @ cast_compute(p["w_gate"])
+        u = xc @ cast_compute(p["w_up"])
+        h = F.silu(g.to(torch.float32)).to(xc.dtype) * u
+    else:
+        u = xc @ cast_compute(p["w_up"])
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(u.to(torch.float32), approximate="tanh").to(xc.dtype)
+    return (h @ cast_compute(p["w_down"])).to(x.dtype)
+
+
+def stack_specs(specs, n: int, axis_name: str = "layers"):
+    """Prepend a stacked layer dim to every spec in the tree."""
+    def one(s: ParamSpec) -> ParamSpec:
+        scale = s.scale if s.scale is not None else 1.0 / math.sqrt(_fan_in(s.shape))
+        if s.init in ("zeros", "ones"):
+            scale = None
+        return ParamSpec((n,) + s.shape, (axis_name,) + s.axes, s.init, scale, s.dtype)
+    return spec_map(one, specs)
+
+
+# ---------------------------------------------------------------------------
+# Embedding + logits
+# ---------------------------------------------------------------------------
+
+def vocab_padded(cfg) -> int:
+    """Vocab padded to a 256 multiple, as the reference pads it (its vocab
+    axis shards over a 16-way model axis).  Padded logit columns are masked
+    to -1e30 before any softmax/argmax."""
+    return -(-cfg.vocab_size // 256) * 256
+
+
+def embed_specs(cfg) -> dict:
+    vp = vocab_padded(cfg)
+    out = {"embedding": ParamSpec((vp, cfg.d_model), ("vocab", "embed"), "embed")}
+    if not cfg.tied_embeddings:
+        out["lm_head"] = ParamSpec((cfg.d_model, vp), ("embed", "vocab"))
+    return out
+
+
+def embed_tokens(p: dict, tokens):
+    return cast_compute(p["embedding"][tokens])
+
+
+def lm_logits(cfg, p: dict, h):
+    """(..., D) -> (..., V_padded) f32 logits; padded columns masked."""
+    hc = cast_compute(h)
+    if cfg.tied_embeddings:
+        w = cast_compute(p["embedding"]).T
+    else:
+        w = cast_compute(p["lm_head"])
+    logits = (hc @ w).to(torch.float32)
+    if cfg.logit_scale != 1.0:
+        logits = logits / cfg.logit_scale
+    vp = w.shape[-1]
+    if vp != cfg.vocab_size:
+        pad_mask = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad_mask, -1e30)
+    return logits

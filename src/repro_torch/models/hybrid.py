@@ -1,0 +1,176 @@
+"""Zamba2-style hybrid: Mamba2 backbone + one *shared* transformer block
+(counterpart of ``repro.models.hybrid``: the serving half, ``prefill`` and
+``decode_step``).
+
+The shared block (GQA attention + FFN, one parameter set) is applied before
+every ``attn_every``-th group of Mamba layers with a per-site input norm.
+Parameters are stacked ``(sites, group, ...)`` as in the reference; where the
+reference scans over the stacks, the port loops.  Zamba2's per-site LoRA
+deltas are omitted, as in the reference.
+
+``Variant.use_pallas`` keeps the reference's meaning: the prefill's site
+attention goes through the hand-written flash-attention kernel and every
+Mamba layer's SSD through the hand-written SSD kernel; without it, through
+the ports of the reference's default paths (``chunked_attention``,
+``ssd_chunked``).  Decode stays plain PyTorch, as the reference computes it
+outside any Pallas kernel.  ``ctx`` (sharding) is accepted and ignored.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (apply_mlp, apply_norm, cast_compute,
+                                       embed_specs, embed_tokens, lm_logits,
+                                       mlp_specs, norm_specs, rms_norm,
+                                       stack_specs)
+from repro_torch.models.ssm import (_project, ssd_chunked, ssd_kernel_route,
+                                    ssm_cache_shapes, ssm_decode, ssm_dims,
+                                    ssm_specs)
+from repro_torch.models.variant import BASELINE, Variant
+
+
+def _index(tree, *idx):
+    """The slice ``[idx]`` of every leaf of a stacked nested dict."""
+    if isinstance(tree, dict):
+        return {k: _index(v, *idx) for k, v in tree.items()}
+    return tree[idx]
+
+
+def _stack(trees: list):
+    """Stack a list of equally shaped nested dicts leaf by leaf (the
+    reference's scan outputs)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+class HybridLM:
+    def __init__(self, cfg):
+        self.cfg = cfg
+        if cfg.n_layers % cfg.attn_every:
+            raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                             f"multiple of attn_every {cfg.attn_every}")
+        self.n_sites = cfg.n_layers // cfg.attn_every
+
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        mamba_block = {"ln": norm_specs(cfg, cfg.d_model), "ssm": ssm_specs(cfg)}
+        shared_block = {
+            "ln1": norm_specs(cfg, cfg.d_model),
+            "attn": attn.gqa_specs(cfg, cfg.d_model),
+            "ln2": norm_specs(cfg, cfg.d_model),
+            "mlp": mlp_specs(cfg, cfg.d_model, cfg.d_ff),
+        }
+        return {
+            "embed": embed_specs(cfg),
+            # (sites, group, ...) double-stacked mamba params
+            "mamba": stack_specs(
+                stack_specs(mamba_block, cfg.attn_every, "layers"),
+                self.n_sites, "sites"),
+            "site_norms": stack_specs(norm_specs(cfg, cfg.d_model),
+                                      self.n_sites, "sites"),
+            "shared": shared_block,
+            "ln_f": norm_specs(cfg, cfg.d_model),
+        }
+
+    # -- serving -----------------------------------------------------------------
+    def cache_shapes(self, batch: int, seq_len: int) -> dict:
+        """Two cache families: per-mamba-layer SSM caches and per-site KV
+        caches; name -> (shape, dtype), unstacked."""
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        kv = ((batch, seq_len, cfg.n_kv_heads, hd), torch.bfloat16)
+        return {"ssm": ssm_cache_shapes(cfg, batch), "k": kv, "v": kv}
+
+    def _mamba_prefill(self, p, x, variant: Variant):
+        """One Mamba layer over the whole prompt; returns (x, its cache)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        h = apply_norm(cfg, p["ln"], x)
+        z, xh, Bm, Cm, dt = _project(cfg, p["ssm"], h)
+        A = -torch.exp(p["ssm"]["A_log"].to(torch.float32))
+        ssd = ssd_kernel_route if variant.use_pallas else ssd_chunked
+        y, state = ssd(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size)
+        y = y + p["ssm"]["D"].to(torch.float32)[None, None, :, None] * \
+            xh.to(torch.float32)
+        d_in, H = ssm_dims(cfg)
+        y = y.reshape(B, S, d_in)
+        y = y.to(torch.float32) * F.silu(z.to(torch.float32))
+        y = rms_norm(y.to(x.dtype), p["ssm"]["gate_norm"], cfg.norm_eps)
+        out = x + (cast_compute(y) @ cast_compute(p["ssm"]["w_out"])).to(x.dtype)
+        W = cfg.ssm.conv_width
+        # conv caches: last W-1 *pre-activation* conv inputs
+        xc = cast_compute(h)[:, S - (W - 1):, :]
+        entry = {
+            "state": state,
+            "conv_x": xc @ cast_compute(p["ssm"]["w_x"]),
+            "conv_B": xc @ cast_compute(p["ssm"]["w_B"]),
+            "conv_C": xc @ cast_compute(p["ssm"]["w_C"]),
+        }
+        return out, entry
+
+    def prefill(self, params, tokens, ctx=None, variant: Variant = BASELINE):
+        """tokens (B, S) -> (logits of the last position (B, V_padded) f32,
+        cache {"ssm": {name: (sites, group, ...)}, "k"/"v": (sites, B, S, KV,
+        hd) bf16})."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = embed_tokens(params["embed"], tokens)
+        positions = torch.arange(S, device=tokens.device)
+        inv_freq = attn.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
+                                   cfg.rope_theta, device=tokens.device)
+        shared = params["shared"]
+        caches = []
+        for site in range(self.n_sites):
+            h = apply_norm(cfg, _index(params["site_norms"], site), x)
+            h1 = apply_norm(cfg, shared["ln1"], h)
+            q, k, v = attn.gqa_project_qkv(cfg, shared["attn"], h1, positions,
+                                           inv_freq)
+            if variant.use_pallas:
+                o = fa_ops.flash(q, k, v, causal=True)
+            else:
+                o = attn.chunked_attention(q, k, v, causal=True,
+                                           kv_block=min(variant.kv_block, S))
+            h = h + attn.out_proj(o, shared["attn"]["wo"]).to(x.dtype)
+            h2 = apply_norm(cfg, shared["ln2"], h)
+            x = x + h + apply_mlp(cfg, shared["mlp"], h2)
+            layer_caches = []
+            for layer in range(cfg.attn_every):
+                x, entry = self._mamba_prefill(
+                    _index(params["mamba"], site, layer), x, variant)
+                layer_caches.append(entry)
+            caches.append({"ssm": _stack(layer_caches),
+                           "k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)})
+        x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
+        return lm_logits(cfg, params["embed"], x)[:, 0], _stack(caches)
+
+    def decode_step(self, params, cache, tokens, pos: int, ctx=None,
+                    variant: Variant = BASELINE):
+        """tokens (B, 1) at position ``pos`` -> (logits (B, 1, V_padded) f32,
+        cache).  The cache's tensors are updated in place (the reference
+        returns a new cache; in place saves a copy of it per token), and the
+        same dict is returned."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens)
+        shared = params["shared"]
+        for site in range(self.n_sites):
+            h = apply_norm(cfg, _index(params["site_norms"], site), x)
+            h1 = apply_norm(cfg, shared["ln1"], h)
+            a, _, _ = attn.gqa_decode(cfg, shared["attn"], h1, cache["k"][site],
+                                      cache["v"][site], pos)
+            h = h + a
+            h2 = apply_norm(cfg, shared["ln2"], h)
+            x = x + h + apply_mlp(cfg, shared["mlp"], h2)
+            for layer in range(cfg.attn_every):
+                p = _index(params["mamba"], site, layer)
+                h = apply_norm(cfg, p["ln"], x)
+                y, new = ssm_decode(cfg, p["ssm"], h,
+                                    _index(cache["ssm"], site, layer))
+                for name, t in new.items():
+                    cache["ssm"][name][site, layer] = t
+                x = x + y
+        x = apply_norm(cfg, params["ln_f"], x)
+        return lm_logits(cfg, params["embed"], x), cache

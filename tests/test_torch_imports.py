@@ -37,11 +37,25 @@ def test_the_port_has_the_slice_modules():
                  "core/instruction_mix.py", "obs/trace.py", "obs/metrics.py",
                  "obs/ledger.py", "kernels/membench/membench.py",
                  "kernels/membench/ops.py", "kernels/membench/ref.py",
-                 "characterize/loaded.py", "convert.py"):
+                 "characterize/loaded.py", "convert.py", "kernels/build.py",
+                 "configs/base.py", "configs/zamba2_2p7b.py",
+                 "configs/__init__.py", "models/common.py",
+                 "models/variant.py", "models/attention.py", "models/ssm.py",
+                 "models/hybrid.py", "models/registry.py",
+                 "kernels/flash_attention/flash_attention.py",
+                 "kernels/flash_attention/ops.py",
+                 "kernels/flash_attention/ref.py",
+                 "kernels/ssd_scan/ssd_scan.py", "kernels/ssd_scan/ops.py",
+                 "kernels/ssd_scan/ref.py", "launch/serve.py"):
         assert want in have, want
-    csrc = ROOT / "src" / "repro_torch" / "kernels" / "membench" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == \
-        {"acc.cu", "mxu.cu", "copy.cu", "triad.cu", "rw.cu", "chase.cu"}
+    kernels = ROOT / "src" / "repro_torch" / "kernels"
+    for package, sources in (
+            ("membench", {"acc.cu", "mxu.cu", "copy.cu", "triad.cu", "rw.cu",
+                          "chase.cu"}),
+            ("flash_attention", {"flash_attn.cu"}),
+            ("ssd_scan", {"ssd_scan.cu"})):
+        assert {p.name for p in (kernels / package / "csrc").glob("*.cu")} \
+            == sources, package
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -61,6 +75,7 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.kernels.membench.ops, repro_torch.convert\n"
         "import repro_torch.obs, repro_torch.core.instruction_mix\n"
         "import repro_torch.characterize\n"
+        "import repro_torch.launch.serve, repro_torch.models.hybrid\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
         "r = Runner(device='cpu').run(BenchSpec(mixes=('load_sum',),\n"
         "    sizes=(4096,), backend='cuda', reps=1, warmup=0))\n"
@@ -68,6 +83,18 @@ def test_bench_imports_with_jax_blocked():
         "r = Runner(device='cpu').run(BenchSpec(mixes=('latency_chase',),\n"
         "    sizes=(4096,), backend='cuda', reps=1, warmup=0, load=1))\n"
         "assert r.points[0].latency_ns > 0\n"
+        "import dataclasses, torch\n"
+        "from repro_torch.configs import get_arch, reduced\n"
+        "from repro_torch.models.common import init_params\n"
+        "from repro_torch.models.registry import build\n"
+        "from repro_torch.models.variant import BASELINE\n"
+        "cfg = reduced(get_arch('zamba2-2.7b'))\n"
+        "m = build(cfg)\n"
+        "p = init_params(m.param_specs(), torch.Generator().manual_seed(0))\n"
+        "toks = torch.zeros((1, 32), dtype=torch.int64)\n"
+        "v = dataclasses.replace(BASELINE, use_pallas=True)\n"
+        "logits, cache = m.prefill(p, toks, None, v)\n"
+        "assert logits.shape == (1, 512) and bool(logits.isfinite().all())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -81,7 +108,15 @@ def test_bench_imports_with_jax_blocked():
 
 
 def test_nothing_is_built_at_import():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.membench import membench as mb
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     assert mb._libs == {}
     assert all(v == 0 for v in mb.launch_counts.values())   # no card here
     assert (mb.CSRC / "membench_common.cuh").exists()
+    for lib, counts in ((fa.LIBRARY, fa.launch_counts),
+                        (sk.LIBRARY, sk.launch_counts)):
+        assert lib.libs == {} and all(v == 0 for v in counts.values())
+        assert all((lib.csrc / src).exists() for src in lib.entries)
+        # one output directory for every kernel package: build/<package>
+        assert lib.build_dir == mb.LIBRARY.build_dir.parent / lib.name
