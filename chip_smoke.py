@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
 
   1  device: card name and power limit, torch / CUDA / nvcc versions, and the
      build of the kernels from ``src/repro_torch/kernels/*/csrc`` (membench,
-     flash_attention, ssd_scan), one ``nvcc`` per source, all together.
+     flash_attention, ssd_scan), one ``nvcc`` per source, all together; the
+     SASS of mxu.cu and flash_attn.cu shows tensor-core instructions in their
+     bfloat16 routes and none in their float32 routes.
   2  every kernel against its plain version on the card, over dtypes, sizes,
      tilings, interleave, unroll and passes, on the benchmark's working set
      (whose sums cancel) and on a non-cancelling ramp input with a relative
@@ -37,11 +39,13 @@ Phases (any failure raises and the script exits non-zero):
      in its one prefill, no membench launch), then in process the kernel
      route's prefill against the plain route's, and two decode steps.
   4  the measurement is real: doubling ``passes`` doubles the time, no GB/s
-     above the card's memory rate at 2 GiB, mxu below the float32 peak; the
-     chase at least 5 ns per dependent step, loaded latency not below idle.
+     above the card's memory rate at 2 GiB, mxu below the float32 peak and,
+     on the bfloat16 working set, below the bf16 tensor-core peak; the chase
+     at least 5 ns per dependent step, loaded latency not below idle.
   5  one JSON line listing every kernel with its time, its plain version's,
      the library call's, and its bound (flash_attn and ssd_scan at the
-     serving shapes).
+     serving shapes); mxu and flash_attn, and their library calls, also by
+     device time (the calls enqueued behind a device-side sleep).
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -297,10 +301,50 @@ def phase_device() -> dict:
         say(f"  {src}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)}, "
             f"max spill stores {spills} B")
+    check_tensor_core_routes(built)
     props = torch.cuda.get_device_properties(DEV)
     say(f"SMs {props.multi_processor_count}, grid cap "
         f"{mb.CTAS_PER_SM} CTAs/SM x {props.multi_processor_count}")
     return {"smi": smi.splitlines()[0]}
+
+
+#: kernels (by a fragment of their mangled name) that must, or must not,
+#: run on the tensor cores: the bfloat16 routes multiply there (exact:
+#: bf16 products fit float32), the float32 routes may not (TF32 would round
+#: x to 10 mantissa bits)
+TENSOR_CORE_ROUTES = {
+    ("membench", "mxu.cu"): {"MxuBf16": True, "MxuF32": False},
+    ("flash_attention", "flash_attn.cu"): {"flash_fwd_tc": True,
+                                           "9flash_fwd": False},
+}
+
+
+def check_tensor_core_routes(built: dict) -> None:
+    """Count tensor-core instructions (HMMA, HGMMA) per kernel in the SASS
+    of the built libraries (``cuobjdump -sass``); raise unless every
+    bfloat16 route has some and no float32 route has any."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    for (pkg, src), want in TENSOR_CORE_ROUTES.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(built[pkg][src])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts: dict[str, int] = {}
+        name = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                counts[name] = 0
+            elif name and ("HMMA" in line or "HGMMA" in line):
+                counts[name] += 1
+        for frag, tensor in want.items():
+            hits = {n: c for n, c in counts.items() if frag in n}
+            if not hits or any((c > 0) != tensor for c in hits.values()):
+                raise AssertionError(
+                    f"{pkg}/{src}: kernels matching {frag!r} must "
+                    f"{'' if tensor else 'not '}issue tensor-core "
+                    f"instructions; SASS counts {hits}")
+            say(f"  {pkg}/{src} {frag}: {len(hits)} kernels, tensor-core "
+                f"instructions per kernel {sorted(set(hits.values()))}")
 
 
 # ---------------------------------------------------------------------------
@@ -1230,6 +1274,35 @@ def time_ms(fn, n: int, warmup: int = 2) -> float:
     return time_both_ms(fn, n, warmup)[0]
 
 
+def device_ms(fn, n: int, warmup: int = 2) -> float:
+    """Mean device milliseconds per call over ``n`` back-to-back calls,
+    free of the host's pace: the calls are enqueued behind a device-side
+    sleep long enough for the host to enqueue them all, so that the CUDA
+    events around them time the device alone (a call whose checks,
+    allocations and launches outlast its kernels would otherwise be timed
+    at the host's pace).  The sleep is lengthened until the first event is
+    still pending when the last call has been enqueued."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    cycles = 10**7
+    for _ in range(6):
+        torch.cuda._sleep(cycles)
+        t0.record()
+        for _ in range(n):
+            fn()
+        covered = not t0.query()
+        t1.record()
+        sync()
+        if covered:
+            return t0.elapsed_time(t1) / n
+        cycles *= 4
+    raise AssertionError("device_ms: the host did not get ahead of the "
+                         "device")
+
+
 def kernel_fn(kernel: str, x, y, w, out, passes: int):
     kw = dict(block_rows=mb.default_block_rows(x.shape[0]), passes=passes)
     return {
@@ -1259,54 +1332,66 @@ REAL_MIN_MS = 2.0
 
 
 def phase_real(quick: bool) -> None:
+    """Every first-slice kernel on the float32 working set, and mxu on the
+    bfloat16 one too: its tensor-core route is held to the bf16 peak."""
     say("== phase 4: the measurement is real")
     sizes = (16 * MiB,) if quick else (16 * MiB, 2 * GiB)
-    for nbytes in sizes:
-        x = working_set(nbytes, device=DEV)
-        y, out = x * 0.5, torch.empty_like(x)
-        w = torch.eye(mb.LANES, dtype=x.dtype, device=DEV)
-        n = 5 if nbytes <= 16 * MiB else 3
-        for kernel in BANDWIDTH_KERNELS:
-            # the smallest power-of-two pass count whose call lasts
-            # REAL_MIN_MS; at 2 GiB one pass already does
-            passes, t1 = 1, time_ms(kernel_fn(kernel, x, y, w, out, 1), n)
-            while t1 < REAL_MIN_MS and passes < 2**16:
-                passes *= 2
-                t1 = time_ms(kernel_fn(kernel, x, y, w, out, passes), n)
-            t2 = time_ms(kernel_fn(kernel, x, y, w, out, 2 * passes), n)
-            ratio = t2 / t1
-            nb, nf = work(kernel, x)
-            gbps = nb * 2 * passes / (t2 * 1e-3) / 1e9
-            tflops = nf * 2 * passes / (t2 * 1e-3) / 1e12
-            say(f"  {kernel:9s} {nbytes:>11d} B  passes {passes}->"
-                f"{2 * passes}: {t1:.4f} -> {t2:.4f} ms  ratio {ratio:.3f}  "
-                f"{gbps:.1f} GB/s  {tflops:.2f} TFLOP/s")
-            if not 1.7 <= ratio <= 2.3:
-                raise AssertionError(
-                    f"{kernel} at {nbytes} B: time at 2x passes is "
-                    f"{ratio:.3f}x the time at 1x (expected 1.7..2.3): the "
-                    f"pass loop does not do what it is accounted for")
-            if nbytes >= 2 * GiB and gbps > HBM_BYTES_PER_S / 1e9 * 1.02:
-                raise AssertionError(
-                    f"{kernel} at {nbytes} B reports {gbps:.1f} GB/s, above "
-                    f"the card's memory rate: some traffic is not executed")
-            if kernel == "mxu" and tflops * 1e12 >= PEAK_FLOPS["float32"]:
-                raise AssertionError(
-                    f"mxu reports {tflops:.1f} TFLOP/s, above the float32 "
-                    f"peak: part of the product is not computed")
-        del x, y, out
+    for dname, kernels in (("float32", BANDWIDTH_KERNELS),
+                           ("bfloat16", ("mxu",))):
+        for nbytes in sizes[-1:] if dname == "bfloat16" else sizes:
+            x = working_set(nbytes, dtype=DTYPES[dname], device=DEV)
+            y, out = x * 0.5, torch.empty_like(x)
+            w = torch.eye(mb.LANES, dtype=x.dtype, device=DEV)
+            n = 5 if nbytes <= 16 * MiB else 3
+            for kernel in kernels:
+                real_point(kernel, dname, nbytes, x, y, w, out, n)
+            del x, y, out
+            torch.cuda.empty_cache()
+
+
+def real_point(kernel: str, dname: str, nbytes: int, x, y, w, out,
+               n: int) -> None:
+    """Time one kernel at the smallest power-of-two pass count whose call
+    lasts REAL_MIN_MS (at 2 GiB one pass already does) and at twice that;
+    raise unless the time doubles, the GB/s stays under the card's memory
+    rate at 2 GiB, and mxu's TFLOP/s stays under the peak of its route (the
+    float32 units for float32, the tensor cores for bfloat16)."""
+    passes, t1, t2 = doubled(
+        lambda p: kernel_fn(kernel, x, y, w, out, p), n)
+    ratio = t2 / t1
+    nb, nf = work(kernel, x)
+    gbps = nb * 2 * passes / (t2 * 1e-3) / 1e9
+    tflops = nf * 2 * passes / (t2 * 1e-3) / 1e12
+    say(f"  {kernel:9s} {dname:8s} {nbytes:>11d} B  passes {passes}->"
+        f"{2 * passes}: {t1:.4f} -> {t2:.4f} ms  ratio {ratio:.3f}  "
+        f"{gbps:.1f} GB/s  {tflops:.2f} TFLOP/s")
+    check_ratio(f"{kernel} {dname} at {nbytes} B", t1, t2)
+    if nbytes >= 2 * GiB and gbps > HBM_BYTES_PER_S / 1e9 * 1.02:
+        raise AssertionError(
+            f"{kernel} {dname} at {nbytes} B reports {gbps:.1f} GB/s, above "
+            f"the card's memory rate: some traffic is not executed")
+    peak = "bfloat16_tensor" if dname == "bfloat16" else "float32"
+    if kernel == "mxu" and tflops * 1e12 >= PEAK_FLOPS[peak]:
+        raise AssertionError(
+            f"mxu {dname} reports {tflops:.1f} TFLOP/s, above the {peak} "
+            f"peak: part of the product is not computed")
 
 
 def doubled(make_fn, n: int, min_ms: float = REAL_MIN_MS
             ) -> tuple[int, float, float]:
     """(passes, ms at passes, ms at 2 x passes) for the smallest power-of-two
     pass count whose call lasts ``min_ms``; ``make_fn(passes)`` gives the
-    call."""
+    call.  Each of the two times is the least of three timings: noise (a
+    clock change, a neighbour on the host) only ever adds time, and one
+    slow timing of the shorter call once read as a pass loop that does not
+    double."""
     passes, t1 = 1, time_ms(make_fn(1), n)
     while t1 < min_ms and passes < 2**16:
         passes *= 2
         t1 = time_ms(make_fn(passes), n)
-    return passes, t1, time_ms(make_fn(2 * passes), n)
+    t1 = min(t1, *(time_ms(make_fn(passes), n) for _ in range(2)))
+    t2 = min(time_ms(make_fn(2 * passes), n) for _ in range(3))
+    return passes, t1, t2
 
 
 def check_ratio(what: str, t1: float, t2: float) -> None:
@@ -1425,6 +1510,12 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
             plain_ms = time_ms(plain[kernel], n)
             lib = library[kernel]
             library_ms = time_ms(lib, n) if lib is not None else None
+            # mxu (bound to beat its library call) also by device time, which
+            # the host's share of a short call does not blur
+            dev = ({"device_ms": device_ms(kernel_fn(kernel, x, y, w, out, 1),
+                                           n),
+                    "library_device_ms": device_ms(lib, n)}
+                   if kernel == "mxu" else {})
             nb, nf = work(kernel, x)
             peak = (PEAK_FLOPS["bfloat16_tensor"]
                     if kernel == "mxu" and dname == "bfloat16"
@@ -1440,7 +1531,7 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
                 "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms,
+                "library_ms": library_ms, **dev,
                 **({"bound_ms_tf32": max(
                     t_bytes, nf / PEAK_FLOPS["tf32_tensor"]) * 1e3}
                    if kernel == "mxu" and dname == "float32" else {}),
@@ -1452,7 +1543,9 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
                 f"(host {host_ms:.4f})  bound {e['bound_ms']:.4f} "
                 f"({e['bound_by']})  plain {plain_ms:.4f}  library "
                 f"{'-' if library_ms is None else f'{library_ms:.4f}'}  "
-                f"err {err:.2e} of {mag:.3e} (tolerance {tol:.2e})")
+                f"err {err:.2e} of {mag:.3e} (tolerance {tol:.2e})"
+                + (f"  device {dev['device_ms']:.4f} vs library "
+                   f"{dev['library_device_ms']:.4f}" if dev else ""))
         entries += rw_entries(x, xr, dname, nbytes, n, counts["rw"])
         del x, y, out, xr, yr
         torch.cuda.empty_cache()
@@ -1570,8 +1663,11 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
     ms, host_ms = time_both_ms(lambda: fa.flash_attention(q, k, v), 20)
     plain_ms = time_ms(lambda: fa.plain_flash(q, k, v), 5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    library_ms = time_ms(sdpa, 20)
+    dev = {"device_ms": device_ms(lambda: fa.flash_attention(q, k, v), 20),
+           "library_device_ms": device_ms(sdpa, 20)}
     nb = 2 * (q.numel() + k.numel() + v.numel()) + 2 * q.numel()
     nf = fa_ops.flops(q, k, True)
     t_bytes, t_ops = nb / HBM_BYTES_PER_S, nf / PEAK_FLOPS["bfloat16_tensor"]
@@ -1584,7 +1680,7 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
         "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "flops": nf, "bytes": nb,
+        "library_ms": library_ms, **dev, "flops": nf, "bytes": nb,
         "shape": list(FLASH_SERVE), "dtype": "bfloat16", "causal": True,
     })
     del q, k, v, qt, kt, vt
@@ -1619,7 +1715,9 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
             f"{e['ms']:.4f}  (host {e['host_ms']:.4f})  bound "
             f"{e['bound_ms']:.4f} ({e['bound_by']}; {e['flops'] / 1e9:.2f} "
             f"GFLOP, {e['bytes'] / 1e6:.2f} MB)  plain {e['plain_ms']:.4f}  "
-            f"library {lib}  err {e['max_abs_err']:.2e}")
+            f"library {lib}  err {e['max_abs_err']:.2e}"
+            + (f"  device {e['device_ms']:.4f} vs library "
+               f"{e['library_device_ms']:.4f}" if "device_ms" in e else ""))
     return entries
 
 

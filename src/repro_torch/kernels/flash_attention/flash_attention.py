@@ -42,7 +42,7 @@ LIBRARY = KernelLibrary(
         "flash_attn.cu": ("flash_attn_fwd",
                           [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _P]),
-    })
+    }, headers=("../../tensor_core.cuh",))
 
 
 def plain_flash(q, k, v, *, causal: bool = True) -> torch.Tensor:
@@ -101,8 +101,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 256,
                     kv_block: int = 256) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D/Dv) -> (B, Sq, H, Dv), GQA with
     H = G * KV.  ``q_block``/``kv_block`` keep the reference's signature and
-    its divisibility rule; the CUDA kernel tiles by 64 query rows and 32 keys
-    whatever they are (the output depends on the tiling only by rounding)."""
+    its divisibility rule; the CUDA kernel tiles by 64 query rows and 64 keys
+    (bfloat16, on the tensor cores) or 32 keys (float32) whatever they are
+    (the output depends on the tiling only by rounding)."""
     _check(q, k, v, q_block, kv_block)
     if q.device.type == "cpu":
         return plain_flash(q, k, v, causal=causal)

@@ -26,8 +26,9 @@ For a CUDA tensor it launches the kernel or raises: no fallback.  Each
 wrapper adds one to ``launch_counts[name]`` where it launches its kernel, and
 nowhere else.
 
-Grid: ``G = min(n_tiles, CTAS_PER_SM * SM count)`` CTAs of 256 threads; CTA
-``c`` owns walk steps ``c, c+G, ...`` in every pass.  The chase is the
+Grid: ``G = min(n_tiles, CTAS_PER_SM * SM count)`` CTAs of 256 threads (mxu:
+as many as stay resident, ``mxu_launch_plan``); CTA ``c`` owns walk steps
+``c, c+G, ...`` in every pass.  The chase is the
 exception: one thread walks every tile, so that one dependent chain runs at
 a time, and each pass is a launch of its own, so that every pass starts
 from the same cache state (``csrc/chase.cu``).
@@ -99,7 +100,7 @@ LIBRARY = KernelLibrary("membench", Path(__file__).resolve().parent / "csrc", {
               [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # perm out n_tiles tile_elems streams accumulate stream
     "chase.cu": ("membench_chase", [_P, _P, _I, _I, _I, _I, _P]),
-}, headers=("membench_common.cuh",))
+}, headers=("membench_common.cuh", "../../tensor_core.cuh"))
 CSRC = LIBRARY.csrc
 #: source -> loaded library (empty until the first launch on a card)
 _libs = LIBRARY.libs
@@ -197,7 +198,7 @@ def default_block_rows(rows: int) -> int:
 _sm_counts: dict[int, int] = {}
 
 
-def grid_size(n_tiles: int, device) -> int:
+def sm_count(device) -> int:
     idx = torch.device(device).index
     if idx is None:
         idx = torch.cuda.current_device()
@@ -205,7 +206,29 @@ def grid_size(n_tiles: int, device) -> int:
     if sms is None:
         sms = torch.cuda.get_device_properties(idx).multi_processor_count
         _sm_counts[idx] = sms
-    return min(n_tiles, CTAS_PER_SM * sms)
+    return sms
+
+
+def grid_size(n_tiles: int, device) -> int:
+    return min(n_tiles, CTAS_PER_SM * sm_count(device))
+
+
+#: the launch plan of csrc/mxu.cu per dtype (mirrors its route constants):
+#: CTAs resident per SM, and dynamic shared memory per CTA — float32: w
+#: (64 KiB) and two 128-row chunks of x; bfloat16: two 128-row chunks (w
+#: lives in registers)
+MXU_PLAN = {torch.float32: (1, 64 * 1024 + 2 * 128 * LANES * 4),
+            torch.bfloat16: (2, 2 * 128 * LANES * 2)}
+
+
+def mxu_launch_plan(n_tiles: int, block_rows: int, dtype, sms: int) -> dict:
+    """Grid, dynamic shared memory per CTA, and whether a tile ends in a
+    half-full 16-row slab (bfloat16 route: its rows 8..15 enter the product
+    as zeros).  The grid is persistent: as many CTAs as stay resident, at
+    most one per tile."""
+    ctas_per_sm, smem = MXU_PLAN[dtype]
+    return {"grid": min(n_tiles, ctas_per_sm * sms), "smem_bytes": smem,
+            "half_slab": block_rows % 16 == 8}
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +392,8 @@ def mxu(x, w=None, *, block_rows: int, streams: int = 1, passes: int = 1,
     if x.device.type == "cpu":
         both = plain_mxu(x, w, block_rows, passes)
     else:
-        grid = grid_size(n_tiles, x.device)
+        grid = mxu_launch_plan(n_tiles, block_rows, x.dtype,
+                               sm_count(x.device))["grid"]
         partials = torch.empty(2 * grid, dtype=torch.float32, device=x.device)
         both = torch.empty(2, dtype=torch.float32, device=x.device)
         err = _launch(_entry(SOURCES["mxu"]), x, _DTYPE_CODE[x.dtype],

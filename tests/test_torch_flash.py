@@ -2,7 +2,8 @@
 against the JAX package's, on the CPU: ``plain_flash`` (the plain version
 beside the CUDA kernel) against the reference's Pallas kernel in interpret
 mode and against its oracle, at ``tests/test_kernels.py``'s shapes plus one
-with the serving model's head dim 80; the wrapper on CPU tensors; the
+with the serving model's head dim 80; an emulation of the CUDA kernel's bf16
+tensor-core numerics against the same two; the wrapper on CPU tensors; the
 argument checks.  The CUDA kernel itself runs only on the card
 (``chip_smoke.py`` phase 2c)."""
 import jax.numpy as jnp
@@ -45,6 +46,54 @@ def test_plain_flash_matches_the_reference(shape, causal, dname):
     assert got.dtype == T(q).dtype and tuple(got.shape) == q.shape
     got = got.float().numpy()
     tol = TOL[dname]
+    for want in (j_flash(q, k, v, causal=causal, q_block=64, kv_block=64),
+                 j_ref(q, k, v, causal=causal)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+#: the bf16 route of flash_attn.cu in float32 arithmetic: key tiles of 64,
+#: scores scaled by log2(e) / sqrt(D) and masked to -1e30, an online
+#: softmax in base 2 in float32, P rounded to bf16 before P V, l summed from
+#: the float32 P, O accumulated in float32 and rounded to bf16 once
+def _emulate_tensor_core_flash(q, k, v, causal):
+    B, Sq, H, D = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    qf = q.float().reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
+    kf, vf = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
+    c = np.float32(np.log2(np.e) / np.sqrt(D))
+    m = torch.full((B, KV, G, Sq), -1e30)
+    l = torch.zeros((B, KV, G, Sq))
+    acc = torch.zeros((B, KV, G, Sq, D))
+    pos = torch.arange(Sq)[:, None]
+    for j0 in range(0, Sk, 64):
+        keys = torch.arange(j0, min(j0 + 64, Sk))[None, :]
+        s = torch.einsum("bkgqd,bkjd->bkgqj", qf, kf[:, :, j0:j0 + 64]) * c
+        if causal:
+            s = torch.where(keys <= pos, s, torch.tensor(-1e30))
+        mx = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - mx[..., None])
+        corr = torch.exp2(m - mx)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqj,bkjd->bkgqd", p.bfloat16().float(), vf[:, :, j0:j0 + 64])
+        m = mx
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).bfloat16()
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 256, 2, 2, 80)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_numerics_fit_the_reference(shape, causal):
+    """The bf16 route's rounding (P in bf16 before P V) stays within the
+    reference's bf16 tolerance of its oracle and of its Pallas kernel."""
+    q, k, v = _inputs(*shape, jnp.bfloat16, seed=sum(shape))
+    got = _emulate_tensor_core_flash(T(q), T(k), T(v), causal)
+    assert tuple(got.shape) == q.shape
+    got = got.float().numpy()
+    tol = TOL["bfloat16"]
     for want in (j_flash(q, k, v, causal=causal, q_block=64, kv_block=64),
                  j_ref(q, k, v, causal=causal)):
         np.testing.assert_allclose(got, np.asarray(want, np.float32),

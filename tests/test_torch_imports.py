@@ -10,6 +10,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
+#: the port's diagnostic scripts (they import torch and the port only)
+TOOLS = sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -58,7 +60,8 @@ def test_the_port_has_the_slice_modules():
             == sources, package
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", FILES + TOOLS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_reference(path):
     bad = [(mod, line) for mod, line in _imports(path)
            if mod.split(".")[0] in FORBIDDEN]

@@ -325,3 +325,20 @@ def test_default_block_rows_matches_the_backend_rule():
     for rows in (8, 64, 120, 128, 136, 1000 * 8, 2**20):
         assert mb.default_block_rows(rows) == \
             ref_backend("pallas")._resolve(spec, rows)
+
+
+@pytest.mark.parametrize("block_rows", [8, 16, 24, 128])
+@pytest.mark.parametrize("streams", [1, 2, 4])
+def test_mxu_launch_plan(block_rows, streams):
+    """The mxu launch plan fits the card (dynamic shared memory at most the
+    232,448 bytes a block may have on an H100), its persistent grid is at
+    least one CTA and at most one per tile, and a tile of an odd multiple of
+    8 rows is reported as ending in a half-full 16-row slab."""
+    xt = torch.zeros((3072, 128))
+    n_tiles = mb._check(xt, block_rows, streams, 1, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for sms in (1, 132):
+            plan = mb.mxu_launch_plan(n_tiles, block_rows, dtype, sms)
+            assert 0 < plan["smem_bytes"] <= 232_448
+            assert 1 <= plan["grid"] <= n_tiles
+            assert plan["half_slab"] == (block_rows % 16 == 8)
