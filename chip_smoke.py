@@ -11,9 +11,10 @@ Phases (any failure raises and the script exits non-zero):
 
   1  device: card name and power limit, torch / CUDA / nvcc versions, and the
      build of the kernels from ``src/repro_torch/kernels/*/csrc`` (membench,
-     flash_attention, ssd_scan), one ``nvcc`` per source, all together; the
-     SASS of mxu.cu and flash_attn.cu shows tensor-core instructions in their
-     bfloat16 routes and none in their float32 routes.
+     flash_attention, ssd_scan), one ``nvcc`` per source, all together, each
+     kernel that spills registers named; the SASS of mxu.cu and flash_attn.cu
+     shows tensor-core instructions in their bfloat16 routes and none in
+     their float32 routes.
   2  every kernel against its plain version on the card, over dtypes, sizes,
      tilings, interleave, unroll and passes, on the benchmark's working set
      (whose sums cancel) and on a non-cancelling ramp input with a relative
@@ -44,8 +45,9 @@ Phases (any failure raises and the script exits non-zero):
      at least 5 ns per dependent step, loaded latency not below idle.
   5  one JSON line listing every kernel with its time, its plain version's,
      the library call's, and its bound (flash_attn and ssd_scan at the
-     serving shapes); mxu and flash_attn, and their library calls, also by
-     device time (the calls enqueued behind a device-side sleep).
+     serving shapes); every membench kernel and rw ladder member, and
+     flash_attn, and their library calls, also by device time (the calls
+     enqueued behind a device-side sleep).
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -290,17 +292,23 @@ def phase_device() -> dict:
         f"{mb.LIBRARY.build_dir.parent}")
     for src, path in paths.items():
         log = path.with_suffix(".log")
-        regs, spills = [], 0
+        regs, spills, spilled, fn = [], 0, [], ""
         if log.exists():
             for line in log.read_text().splitlines():
+                if "Compiling entry function" in line:
+                    fn = line.split("'")[1] if "'" in line else line
                 if "Used" in line and "registers" in line:
                     regs.append(int(line.split("Used")[1].split()[0]))
                 if "bytes spill stores" in line:
-                    spills = max(spills, int(
-                        line.split("bytes spill stores")[0].split()[-1]))
+                    n = int(line.split("bytes spill stores")[0].split()[-1])
+                    spills = max(spills, n)
+                    if n:
+                        spilled.append(f"{fn} {n} B")
         say(f"  {src}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)}, "
             f"max spill stores {spills} B")
+        for k in spilled:
+            say(f"    spills: {k}")
     check_tensor_core_routes(built)
     props = torch.cuda.get_device_properties(DEV)
     say(f"SMs {props.multi_processor_count}, grid cap "
@@ -1510,12 +1518,12 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
             plain_ms = time_ms(plain[kernel], n)
             lib = library[kernel]
             library_ms = time_ms(lib, n) if lib is not None else None
-            # mxu (bound to beat its library call) also by device time, which
-            # the host's share of a short call does not blur
-            dev = ({"device_ms": device_ms(kernel_fn(kernel, x, y, w, out, 1),
-                                           n),
-                    "library_device_ms": device_ms(lib, n)}
-                   if kernel == "mxu" else {})
+            # also by device time, which the host's share of a short call
+            # does not blur
+            dev = {"device_ms": device_ms(kernel_fn(kernel, x, y, w, out, 1),
+                                          n),
+                   "library_device_ms": (device_ms(lib, n)
+                                         if lib is not None else None)}
             nb, nf = work(kernel, x)
             peak = (PEAK_FLOPS["bfloat16_tensor"]
                     if kernel == "mxu" and dname == "bfloat16"
@@ -1544,14 +1552,19 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
                 f"({e['bound_by']})  plain {plain_ms:.4f}  library "
                 f"{'-' if library_ms is None else f'{library_ms:.4f}'}  "
                 f"err {err:.2e} of {mag:.3e} (tolerance {tol:.2e})"
-                + (f"  device {dev['device_ms']:.4f} vs library "
-                   f"{dev['library_device_ms']:.4f}" if dev else ""))
+                + device_note(dev))
         entries += rw_entries(x, xr, dname, nbytes, n, counts["rw"])
         del x, y, out, xr, yr
         torch.cuda.empty_cache()
     for nbytes in (128 * KiB,) if quick else (128 * KiB, 16 * MiB):
         entries.append(chase_entry(nbytes, counts["chase"]))
     return {"kernels": entries}
+
+
+def device_note(dev: dict) -> str:
+    lib = dev["library_device_ms"]
+    return (f"  device {dev['device_ms']:.4f} vs library "
+            f"{'-' if lib is None else f'{lib:.4f}'}")
 
 
 def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int
@@ -1581,6 +1594,11 @@ def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int
                (2, 1): lambda: torch.add(x, ys[0], alpha=1.5, out=outs[0]),
                }.get((reads, writes))
         library_ms = time_ms(lib, n) if lib is not None else None
+        dev = {"device_ms": device_ms(lambda: mb.rw(
+                   x, *ys, reads=reads, writes=writes, outs=outs,
+                   block_rows=br), n),
+               "library_device_ms": (device_ms(lib, n)
+                                     if lib is not None else None)}
         mix = get_mix(rw_name(reads, writes))
         nb = mix.bytes_per_pass(x.numel() * x.element_size())
         t_bytes = nb / HBM_BYTES_PER_S
@@ -1593,7 +1611,7 @@ def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int
             "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            "library_ms": library_ms, **dev,
             "shape": list(x.shape), "dtype": dname, "nbytes": nbytes,
             "block_rows": br, "passes": 1,
         })
@@ -1602,7 +1620,7 @@ def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int
             f"(host {host_ms:.4f})  bound {e['bound_ms']:.4f} "
             f"({e['bound_by']})  plain {plain_ms:.4f}  library "
             f"{'-' if library_ms is None else f'{library_ms:.4f}'}  "
-            f"err {err:.1f}")
+            f"err {err:.1f}" + device_note(dev))
         del ys, outs
     return entries
 

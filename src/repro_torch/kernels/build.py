@@ -135,13 +135,15 @@ def launch(fn, x, *args) -> int:
     """Call the C entry ``fn(*args, stream)`` with the device of tensor x
     current and on that device's current stream; returns its
     ``cudaGetLastError()``.  The host's share of a timed call is kept small:
-    the device is switched only when it is not the current one already."""
+    the device is switched only when it is not the current one already, and
+    the stream is read as a raw handle (no ``torch.cuda.Stream`` object is
+    made)."""
     import torch
     dev = x.device.index
-    if dev == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    if dev == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
 
 
 def raise_on(err: int, what: str) -> None:

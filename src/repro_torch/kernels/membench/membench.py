@@ -28,14 +28,16 @@ nowhere else.
 
 Grid: ``G = min(n_tiles, CTAS_PER_SM * SM count)`` CTAs of 256 threads (mxu:
 as many as stay resident, ``mxu_launch_plan``); CTA ``c`` owns walk steps
-``c, c+G, ...`` in every pass.  The chase is the
-exception: one thread walks every tile, so that one dependent chain runs at
-a time, and each pass is a launch of its own, so that every pass starts
-from the same cache state (``csrc/chase.cu``).
+``c, c+G, ...`` in every pass.  The chase is the exception: one thread
+walks every tile, so that one dependent chain runs at a time, and each pass
+is a launch of its own, so that every pass starts from the same cache state
+(``csrc/chase.cu``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 import weakref
 from pathlib import Path
 
@@ -49,7 +51,8 @@ from repro_torch.kernels.build import launch as _launch
 from repro_torch.kernels.build import raise_on as _raise_on
 
 LANES = 128
-#: resident CTAs asked for per SM (256 threads each)
+#: resident CTAs asked for per SM (256 threads each); csrc/rw.cu is compiled
+#: for it (``kRwCtas``, its ``__launch_bounds__``)
 CTAS_PER_SM = 4
 UNROLLS = (1, 2, 4, 8)
 INTERLEAVES = (1, 2, 4, 8)
@@ -100,7 +103,7 @@ LIBRARY = KernelLibrary("membench", Path(__file__).resolve().parent / "csrc", {
               [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # perm out n_tiles tile_elems streams accumulate stream
     "chase.cu": ("membench_chase", [_P, _P, _I, _I, _I, _I, _P]),
-}, headers=("membench_common.cuh", "../../tensor_core.cuh"))
+}, headers=("membench_common.cuh", "stream.cuh", "../../tensor_core.cuh"))
 CSRC = LIBRARY.csrc
 #: source -> loaded library (empty until the first launch on a card)
 _libs = LIBRARY.libs
@@ -129,7 +132,16 @@ def _check(x: torch.Tensor, block_rows: int, streams: int, passes: int,
                          f"multiple of 8, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    rows = x.shape[0]
+    return _check_knobs(x.shape[0], block_rows, streams, passes, unroll,
+                        interleave)
+
+
+@functools.lru_cache(maxsize=1024)
+def _check_knobs(rows: int, block_rows: int, streams: int, passes: int,
+                 unroll: int, interleave: int) -> int:
+    """The knob checks of ``_check`` (they depend on the knobs and the row
+    count alone, so a timed loop pays for them once: a call that raises is
+    not cached and raises again); returns n_tiles."""
     if block_rows < 8 or block_rows % 8 or rows % block_rows:
         raise ValueError(f"block_rows {block_rows} must be a multiple of 8 "
                          f"that divides {rows} rows")
@@ -150,10 +162,15 @@ def _check(x: torch.Tensor, block_rows: int, streams: int, passes: int,
     return n_tiles
 
 
-def _check_like(y: torch.Tensor, x: torch.Tensor, name: str) -> None:
+def _check_like(y: torch.Tensor, x: torch.Tensor, name: str,
+                index: int | None = None) -> None:
+    """Raise unless y is a contiguous tensor of x's shape, dtype and device
+    (``name[index]`` in the message when an index is given)."""
     if not isinstance(y, torch.Tensor) or y.shape != x.shape \
             or y.dtype != x.dtype or y.device != x.device \
             or not y.is_contiguous():
+        if index is not None:
+            name = f"{name}[{index}]"
         raise ValueError(f"{name} must be a contiguous tensor like x "
                          f"(shape {tuple(x.shape)}, {x.dtype}, {x.device})")
 
@@ -445,6 +462,21 @@ def triad(b, c, out=None, *, block_rows: int, streams: int = 1,
     return out
 
 
+_pointers = threading.local()
+
+
+def _pointer_arrays():
+    """This thread's two ``MAX_RW``-long pointer arrays for the rw entry
+    point (filled before each launch, read by it before it returns), so
+    that a call does not build new ``ctypes`` arrays."""
+    try:
+        return _pointers.ins, _pointers.outs
+    except AttributeError:
+        _pointers.ins = (ctypes.c_void_p * MAX_RW)()
+        _pointers.outs = (ctypes.c_void_p * MAX_RW)()
+        return _pointers.ins, _pointers.outs
+
+
 def rw(x, *ys, reads: int, writes: int, outs=None, block_rows: int,
        streams: int = 1, passes: int = 1, unroll: int = 1,
        interleave: int = 1) -> tuple:
@@ -460,13 +492,13 @@ def rw(x, *ys, reads: int, writes: int, outs=None, block_rows: int,
                          f"reads - 1 extra read streams: reads={reads}, "
                          f"writes={writes}, {len(ys)} given")
     for i, y in enumerate(ys):
-        _check_like(y, x, f"ys[{i}]")
+        _check_like(y, x, "ys", i)
     if outs is not None:
         if len(outs) != writes:
             raise ValueError(f"outs holds {len(outs)} tensors, "
                              f"writes={writes}")
         for i, o in enumerate(outs):
-            _check_like(o, x, f"outs[{i}]")
+            _check_like(o, x, "outs", i)
         read_ptrs = {t.data_ptr() for t in (x, *ys)}
         write_ptrs = {o.data_ptr() for o in outs}
         if len(write_ptrs) != writes or write_ptrs & read_ptrs:
@@ -476,8 +508,12 @@ def rw(x, *ys, reads: int, writes: int, outs=None, block_rows: int,
         return plain_rw(x, *ys, writes=writes, outs=outs, passes=passes)
     if outs is None:
         outs = tuple(torch.empty_like(x) for _ in range(writes))
-    ins = (ctypes.c_void_p * reads)(*(t.data_ptr() for t in (x, *ys)))
-    dst = (ctypes.c_void_p * writes)(*(o.data_ptr() for o in outs))
+    ins, dst = _pointer_arrays()
+    ins[0] = x.data_ptr()
+    for i, y in enumerate(ys, 1):
+        ins[i] = y.data_ptr()
+    for i, o in enumerate(outs):
+        dst[i] = o.data_ptr()
     err = _launch(_entry(SOURCES["rw"]), x, _DTYPE_CODE[x.dtype], ins, reads,
                   dst, writes, n_tiles, block_rows, streams, passes, unroll,
                   interleave, grid_size(n_tiles, x.device))
