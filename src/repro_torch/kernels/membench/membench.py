@@ -28,10 +28,12 @@ nowhere else.
 
 Grid: ``G = min(n_tiles, CTAS_PER_SM * SM count)`` CTAs of 256 threads (mxu:
 as many as stay resident, ``mxu_launch_plan``); CTA ``c`` owns walk steps
-``c, c+G, ...`` in every pass.  The chase is the exception: one thread
-walks every tile, so that one dependent chain runs at a time, and each pass
-is a launch of its own, so that every pass starts from the same cache state
-(``csrc/chase.cu``).
+``c, c+G, ...`` in every pass.  Triad cuts the walk into blocks of
+consecutive vectors instead (``triad_launch_plan``): a non-persistent grid
+above the L2, a persistent one at and below it.  The chase is the
+exception: one thread walks every tile, so that one dependent chain runs at
+a time, and each pass is a launch of its own, so that every pass starts
+from the same cache state (``csrc/chase.cu``).
 """
 from __future__ import annotations
 
@@ -95,8 +97,10 @@ LIBRARY = KernelLibrary("membench", Path(__file__).resolve().parent / "csrc", {
     "mxu.cu": ("membench_mxu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # x out n_tiles tile_bytes streams passes unroll interleave grid stream
     "copy.cu": ("membench_copy", [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _P]),
-    # dtype b c out n_tiles block_rows streams passes unroll grid stream
-    "triad.cu": ("membench_triad", [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # dtype b c out n_tiles block_rows streams passes unroll shape grid
+    # stream
+    "triad.cu": ("membench_triad",
+                 [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     # dtype ins reads outs writes n_tiles block_rows streams passes unroll
     # interleave grid stream
     "rw.cu": ("membench_rw",
@@ -212,22 +216,52 @@ def default_block_rows(rows: int) -> int:
     return r
 
 
-_sm_counts: dict[int, int] = {}
+@functools.lru_cache(maxsize=None)
+def _properties(idx: int):
+    return torch.cuda.get_device_properties(idx)
+
+
+def _device_index(device) -> int:
+    idx = torch.device(device).index
+    return torch.cuda.current_device() if idx is None else idx
 
 
 def sm_count(device) -> int:
-    idx = torch.device(device).index
-    if idx is None:
-        idx = torch.cuda.current_device()
-    sms = _sm_counts.get(idx)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(idx).multi_processor_count
-        _sm_counts[idx] = sms
-    return sms
+    return _properties(_device_index(device)).multi_processor_count
+
+
+def l2_bytes(device) -> int:
+    """The card's L2 size in bytes (50 MiB on an H100)."""
+    return _properties(_device_index(device)).L2_cache_size
 
 
 def grid_size(n_tiles: int, device) -> int:
     return min(n_tiles, CTAS_PER_SM * sm_count(device))
+
+
+#: csrc/triad.cu: threads (one vector each) of a non-persistent block, and
+#: persistent CTAs (of 256 threads, one vector each) an SM
+TRIAD_NP_THREADS = 1024
+TRIAD_WIN_CTAS = 8
+_THREADS = 256
+
+
+@functools.lru_cache(maxsize=256)
+def triad_launch_plan(n_tiles: int, tile_bytes: int, sms: int,
+                      l2: int) -> dict:
+    """The grid shape of csrc/triad.cu for n_tiles tiles of tile_bytes:
+    ``shape`` 1 (non-persistent: ``grid`` blocks of ``TRIAD_NP_THREADS``
+    vectors per pass, the pass the slow grid dimension) when the three
+    buffers exceed the L2 of ``l2`` bytes, else 0 (persistent: ``grid``
+    resident CTAs take blocks of 256 vectors c, c + grid, ... in every
+    pass).  ``block_vecs`` is the vectors a block covers."""
+    vecs = n_tiles * tile_bytes // 16
+    if 3 * n_tiles * tile_bytes > l2:
+        return {"shape": 1, "grid": -(-vecs // TRIAD_NP_THREADS),
+                "block_vecs": TRIAD_NP_THREADS}
+    return {"shape": 0, "grid": min(-(-vecs // _THREADS),
+                                    TRIAD_WIN_CTAS * sms),
+            "block_vecs": _THREADS}
 
 
 #: the launch plan of csrc/mxu.cu per dtype (mirrors its route constants):
@@ -453,10 +487,12 @@ def triad(b, c, out=None, *, block_rows: int, streams: int = 1,
         return plain_triad(b, c, out, passes)
     if out is None:
         out = torch.empty_like(b)
+    plan = triad_launch_plan(n_tiles, block_rows * LANES * b.element_size(),
+                             sm_count(b.device), l2_bytes(b.device))
     err = _launch(_entry(SOURCES["triad"]), b, _DTYPE_CODE[b.dtype],
                   b.data_ptr(), c.data_ptr(), out.data_ptr(), n_tiles,
-                  block_rows, streams, passes, unroll,
-                  grid_size(n_tiles, b.device))
+                  block_rows, streams, passes, unroll, plan["shape"],
+                  plan["grid"])
     launch_counts["triad"] += 1
     _raise_on(err, "triad")
     return out

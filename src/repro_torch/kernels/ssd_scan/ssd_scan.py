@@ -3,7 +3,10 @@ C++ kernel for Hopper, its wrapper and its plain PyTorch version.
 
 Counterpart of ``repro.kernels.ssd_scan.ssd_scan`` (the Pallas kernel
 ``_ssd_kernel``).  The kernel is ``csrc/ssd_scan.cu`` (its header says what
-bounds it on an H100 and what the design does about it); it is compiled
+bounds it on an H100 and what the design does about it), with two routes
+that ``launch_plan`` chooses between: bfloat16 products on the tensor cores
+(float32 operands split into two bf16 halves), and float32 FMAs (float32
+inputs, and the shapes the tensor-core route does not take).  It is compiled
 with ``nvcc`` for ``sm_90a`` at first use into ``build/ssd_scan/`` at the
 checkout's root and loaded with ``ctypes`` (``repro_torch.kernels.build``).
 Nothing is built or loaded when this module is imported.
@@ -15,6 +18,7 @@ to ``launch_counts["ssd_scan"]`` where it launches, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -24,7 +28,16 @@ from repro_torch.kernels.build import KernelLibrary, launch, raise_on
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: shared memory a block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
-_TILE = 64                  # rows per query / key tile in csrc/ssd_scan.cu
+_TILE = 64                  # rows per query / key tile of route 0
+#: route 1 (tensor cores) of csrc/ssd_scan.cu: threads a CTA, CTAs an SM
+#: its ``__launch_bounds__`` cuts registers for, columns of P a CTA owns,
+#: padding of a staged row (bf16 elements), and the state widths it is
+#: built for (N padded up to one of them)
+TC_THREADS, TC_CTAS_PER_SM, TC_COLS, TC_PAD = 256, 2, 16, 8
+TC_WIDTHS = (16, 32, 64)
+#: shared memory of one SM on an H100 (228 KiB), and what the card keeps
+#: of it for each resident block (1 KiB)
+SM_SMEM_BYTES, SMEM_PER_BLOCK = 233_472, 1024
 
 #: launches of the kernel since the last ``reset_launch_counts``
 launch_counts: dict[str, int] = {"ssd_scan": 0}
@@ -39,19 +52,66 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = KernelLibrary(
     "ssd_scan", Path(__file__).resolve().parent / "csrc", {
         # dtype x dA  B heads so si ss  C heads so si ss  y state BH S P N Q
-        # stream
+        # route stream
         "ssd_scan.cu": ("ssd_scan_fwd",
                         [_I, _P, _P, _P, _I, _LL, _LL, _LL, _P, _I, _LL, _LL,
-                         _LL, _P, _P, _I, _I, _I, _I, _I, _P]),
-    })
+                         _LL, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    }, headers=("../../tensor_core.cuh",))
 
 
 def smem_bytes(P: int, N: int, Q: int) -> int:
-    """Dynamic shared memory of one CTA (``ssd_scan_smem_bytes`` in the
-    source): cum and decay rows, C and B tiles (padded), x, score and y
-    tiles, and the (N, P) state, all float32."""
+    """Dynamic shared memory of one CTA of route 0 (``ssd_scan_smem_bytes``
+    in the source): cum and decay rows, C and B tiles (padded), x, score and
+    y tiles, and the (N, P) state, all float32."""
     return 4 * (2 * Q + 2 * _TILE * (N + 1) + 2 * _TILE * P
                 + _TILE * (_TILE + 1) + N * P)
+
+
+def tc_width(N: int) -> int | None:
+    """The state width route 1 is built for that holds N (N padded up with
+    zero columns), or None above the widest."""
+    return next((w for w in TC_WIDTHS if N <= w), None)
+
+
+def tc_smem_bytes(N: int, Q: int) -> int:
+    """Dynamic shared memory of one CTA of route 1 (``tc_smem_bytes`` in the
+    source): a chunk's C and B rows and its x columns in bf16 (rows padded by
+    ``TC_PAD``), two buffers of the state's hi and lo halves, and three
+    float32 rows (cum * log2 e and the two decays)."""
+    row = tc_width(N) + TC_PAD
+    return 2 * (2 * Q * row + Q * (TC_COLS + TC_PAD) + 4 * TC_COLS * row) \
+        + 4 * 3 * Q
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(BH: int, P: int, N: int, Q: int, dtype, sms: int = 132,
+                aligned: bool = True) -> dict:
+    """The route ``ssd_scan`` launches, its grid, its dynamic shared memory,
+    the CTAs an SM holds at once and the waves of the grid on ``sms`` SMs.
+
+    Route 1 (tensor cores) takes bfloat16 with P and N multiples of 8, N up
+    to the widest of ``TC_WIDTHS``, Q a multiple of 16, 16-byte aligned rows
+    (``aligned``: x, B and C pointers and strides) and a chunk whose staging
+    fits a block; it owns ``TC_COLS`` columns of one row a CTA.  Route 0
+    (float32 FMAs) takes the rest, bfloat16 inputs widened to float32 by
+    the wrapper: one CTA a row.  Cached: a serving prefill asks for the
+    same plan once per layer (do not mutate the returned dict)."""
+    tc = (dtype == torch.bfloat16 and aligned and P % 8 == 0 and N % 8 == 0
+          and Q % 16 == 0 and tc_width(N) is not None
+          and tc_smem_bytes(N, Q) <= MAX_SMEM_BYTES)
+    if tc:
+        grid = -(-P // TC_COLS) * BH
+        smem = tc_smem_bytes(N, Q)
+        per_sm = min(TC_CTAS_PER_SM,
+                     SM_SMEM_BYTES // (smem + SMEM_PER_BLOCK))
+    else:
+        grid, smem = BH, smem_bytes(P, N, Q)
+        per_sm = min(2048 // 256, SM_SMEM_BYTES // (smem + SMEM_PER_BLOCK))
+    slots = per_sm * sms                 # 0: route 0 cannot launch (raises)
+    return {"route": int(tc), "grid": grid, "smem_bytes": smem,
+            "ctas_per_sm": per_sm, "slots": slots,
+            "waves": grid / slots if slots else float("inf"),
+            "last_wave": (grid - 1) % slots + 1 if slots else 0}
 
 
 def plain_ssd(xdt, dA, Bm, Cm):
@@ -133,17 +193,28 @@ def ssd_scan(xdt, dA, Bm, Cm, *, chunk: int = 256):
     if P % 4 or N % 4:
         raise ValueError(f"ssd_scan.cu takes P and N multiples of 4; got "
                          f"P={P}, N={N}")
-    if smem_bytes(P, N, Q) > MAX_SMEM_BYTES:
+    (bh_, bso, bsi, bss), (ch_, cso, csi, css) = layouts
+    aligned = all(v % 8 == 0 for v in (bso, bsi, bss, cso, csi, css)) \
+        and all(t.data_ptr() % 16 == 0 for t in (xdt, Bm, Cm))
+    route = launch_plan(BH, P, N, Q, xdt.dtype, aligned=aligned)["route"]
+    if route == 0 and smem_bytes(P, N, Q) > MAX_SMEM_BYTES:
         raise ValueError(f"P={P}, N={N}, chunk={Q} need "
                          f"{smem_bytes(P, N, Q)} B of shared memory, more "
                          f"than the {MAX_SMEM_BYTES} B a block may use")
+    out_dtype = xdt.dtype
+    if route == 0 and out_dtype != torch.float32:
+        # route 0 computes in float32: bf16 inputs widened (exactly), y
+        # rounded back once, as the kernel itself would round it
+        xdt, Bm, Cm = xdt.float(), Bm.float(), Cm.float()
+        (bh_, bso, bsi, bss), (ch_, cso, csi, css) = [
+            _bc_layout(m, name, BH, S, N) for name, m in (("Bm", Bm),
+                                                          ("Cm", Cm))]
     y = torch.empty_like(xdt)
     st = torch.empty((BH, N, P), dtype=torch.float32, device=xdt.device)
-    (bh_, bso, bsi, bss), (ch_, cso, csi, css) = layouts
     err = launch(LIBRARY.entry("ssd_scan.cu"), xdt, _DTYPE_CODE[xdt.dtype],
                  xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), bh_, bso, bsi,
                  bss, Cm.data_ptr(), ch_, cso, csi, css, y.data_ptr(),
-                 st.data_ptr(), BH, S, P, N, Q)
+                 st.data_ptr(), BH, S, P, N, Q, route)
     launch_counts["ssd_scan"] += 1
     raise_on(err, "ssd_scan")
-    return y, st
+    return y.to(out_dtype), st

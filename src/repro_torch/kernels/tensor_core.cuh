@@ -1,14 +1,14 @@
 // Warp-level tensor-core and asynchronous-copy primitives (inline PTX) shared
-// by the hand-written kernels of the port: mxu.cu (membench) and
-// flash_attn.cu (flash attention).  Compiled for sm_90a; every instruction
-// here exists since sm_80 and runs on Hopper as it is.
+// by the hand-written kernels of the port: mxu.cu (membench), flash_attn.cu
+// (flash attention) and ssd_scan.cu (Mamba-2 SSD).  Compiled for sm_90a;
+// every instruction here exists since sm_80 and runs on Hopper as it is.
 //
 //  * cp.async: one 16-byte copy from global to shared memory that the thread
 //    does not wait for; copies are grouped by commit and waited for by
 //    group count.  With src_bytes 0 the 16 bytes are zero-filled.
-//  * ldmatrix: a warp loads four 8x8 bf16 matrices from shared memory, each
-//    lane giving the address of one 16-byte row, into the fragment layout of
-//    mma.sync (with .trans: transposed).
+//  * ldmatrix: a warp loads four (or two) 8x8 bf16 matrices from shared
+//    memory, each lane giving the address of one 16-byte row, into the
+//    fragment layout of mma.sync (with .trans: transposed).
 //  * mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: D(16x8) =
 //    A(16x16) B(16x8) + C in float32; the bf16 products are exact in float32.
 //
@@ -56,6 +56,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// two 8x8 matrices, transposed: lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 

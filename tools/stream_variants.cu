@@ -1,8 +1,10 @@
-// Design variants of the streaming membench kernels (csrc/copy.cu and
-// csrc/rw.cu), for timing on the card by tools/stream_variants.py, which
-// builds this file with -I src/repro_torch/kernels/membench/csrc: once per
-// cache-hint pair (-DSV_LD=n -DSV_ST=n) for the first sweep, and with
-// -DSV_LEAN once per hint set (-DSV_HINT=n) for the second and third.
+// Design variants of the streaming membench kernels (csrc/copy.cu,
+// csrc/rw.cu and csrc/triad.cu), for timing on the card by
+// tools/stream_variants.py, which builds this file with
+// -I src/repro_torch/kernels/membench/csrc: once per cache-hint pair
+// (-DSV_LD=n -DSV_ST=n) for the first sweep, with -DSV_LEAN once per hint
+// set (-DSV_HINT=n) for the second and third, and with -DSV_TRIAD for the
+// triad sweep (its variants are described at SV_TRIAD below).
 //
 // Second and third sweeps (SV_LEAN): sv_lean<T, R, V, CTAS> runs the pass
 // body of csrc/stream.cuh (the one rw.cu runs) with V vectors a thread in
@@ -61,7 +63,147 @@ __device__ __forceinline__ uint4 fold(const uint4* in) {
 
 }  // namespace sv
 
-#ifdef SV_LEAN
+#if defined(SV_TRIAD)
+
+namespace sv {
+
+// Triad variants (SV_TRIAD): out = b + 1.5 c per 16-byte vector, as
+// csrc/triad.cu computes it (fold<T, 2>: the product rounded, then the sum),
+// over the tiles in walk_tile order.  Vector q of the walk (q = step *
+// tile_vecs + i) lies at walk_tile(step) * tile_vecs + i; a block of the
+// grid takes THREADS x V consecutive vectors of the walk, thread t the
+// vectors t, t + THREADS, ... of it, all V x 2 loads issued before its V
+// stores.
+//
+//  triad_np<T, V, THREADS>   (a) non-persistent: one block per THREADS x V
+//                            vectors in address order, the pass the slow
+//                            grid dimension (blockIdx.y): the resident
+//                            blocks cover one compact moving window.
+//  triad_win<T, V, THREADS>  (b) persistent, compact window: G resident
+//                            CTAs take blocks c, c + G, ... of the same
+//                            THREADS x V vectors, so the G CTAs in flight
+//                            cover G x THREADS x V consecutive vectors (a
+//                            few MiB) instead of G tiles spread over the
+//                            buffer; the pass loop inside.
+// THREADS 256, 512 or 1024: (c), the CTA size.
+
+__device__ __forceinline__ size_t walk_vec(long long q, int tile_vecs,
+                                           int streams, int seg) {
+  if (streams == 1) return (size_t)q * 16;
+  const long long step = q / tile_vecs;
+  return ((size_t)mb::walk_tile((int)step, streams, seg) * tile_vecs +
+          (size_t)(q - step * tile_vecs)) * 16;
+}
+
+template <typename T, int V, int THREADS>
+__device__ __forceinline__ void triad_block(const char* b, const char* c,
+                                            char* out, long long blk,
+                                            long long total, int tile_vecs,
+                                            int streams, int seg) {
+  const long long q0 = blk * THREADS * V + threadIdx.x;
+  uint4 in[V][2];
+  size_t off[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const long long q = q0 + (long long)k * THREADS;
+    off[k] = walk_vec(q, tile_vecs, streams, seg);
+    if (q < total) {
+      in[k][0] = mb::ld16(b + off[k]);
+      in[k][1] = mb::ld16(c + off[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    if (q0 + (long long)k * THREADS < total)
+      mb::st16(out + off[k], fold<T, 2>(in[k]));
+}
+
+template <typename T, int V, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+triad_np(const char* b, const char* c, char* out, int n_tiles, int tile_vecs,
+         int streams) {
+  triad_block<T, V, THREADS>(b, c, out, blockIdx.x,
+                             (long long)n_tiles * tile_vecs, tile_vecs,
+                             streams, n_tiles / streams);
+}
+
+template <typename T, int V, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+triad_win(const char* b, const char* c, char* out, int n_tiles, int tile_vecs,
+          int streams, int passes) {
+  const long long total = (long long)n_tiles * tile_vecs;
+  const long long blocks = (total + THREADS * V - 1) / (THREADS * V);
+  for (int p = 0; p < passes; ++p) {
+    for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x)
+      triad_block<T, V, THREADS>(b, c, out, blk, total, tile_vecs, streams,
+                                 n_tiles / streams);
+    mb::pass_barrier();
+  }
+}
+
+template <typename T, int V, int THREADS>
+static int triad_launch_t(int kind, const void* b, const void* c, void* out,
+                          int n_tiles, int tile_vecs, int streams, int passes,
+                          int grid, cudaStream_t s, int occupancy_only) {
+  if (occupancy_only) {
+    int n = 0;
+    if (kind == 0)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, triad_np<T, V, THREADS>, THREADS, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, triad_win<T, V, THREADS>, THREADS, 0);
+    return -n;
+  }
+  const char* bp = static_cast<const char*>(b);
+  const char* cp = static_cast<const char*>(c);
+  char* op = static_cast<char*>(out);
+  if (kind == 0) {
+    const long long total = (long long)n_tiles * tile_vecs;
+    const long long blocks = (total + THREADS * V - 1) / (THREADS * V);
+    if (blocks > 0x7fffffffLL || passes > 65535)
+      return (int)cudaErrorInvalidValue;
+    triad_np<T, V, THREADS><<<dim3((unsigned)blocks, passes), THREADS, 0, s>>>(
+        bp, cp, op, n_tiles, tile_vecs, streams);
+  } else {
+    triad_win<T, V, THREADS><<<grid, THREADS, 0, s>>>(
+        bp, cp, op, n_tiles, tile_vecs, streams, passes);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sv
+
+// (V, THREADS) of the triad variants
+#define SV_TRIAD_LIST(X)                                                    \
+  X(1, 256) X(2, 256) X(4, 256) X(8, 256) X(1, 512) X(2, 512) X(4, 512)     \
+  X(1, 1024) X(2, 1024) X(4, 1024)
+
+// kind 0: triad_np (grid: blocks x passes, computed here; `grid` unused),
+// kind 1: triad_win on `grid` CTAs.  dtype 0 float32, 1 bfloat16.
+// occupancy_only != 0: launch nothing, return minus the resident CTAs an SM.
+// A (V, THREADS) not in the list: cudaErrorInvalidValue.
+extern "C" int sv_triad_launch(int kind, int dtype, int vecs, int threads,
+                               const void* b, const void* c, void* out,
+                               int n_tiles, int tile_vecs, int streams,
+                               int passes, int grid, int occupancy_only,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SV_TRIAD_CASE(V, TH)                                                \
+  if (vecs == V && threads == TH)                                           \
+    return dtype == 0                                                       \
+        ? sv::triad_launch_t<float, V, TH>(kind, b, c, out, n_tiles,        \
+                                           tile_vecs, streams, passes,      \
+                                           grid, s, occupancy_only)         \
+        : sv::triad_launch_t<__nv_bfloat16, V, TH>(                         \
+              kind, b, c, out, n_tiles, tile_vecs, streams, passes, grid,   \
+              s, occupancy_only);
+  SV_TRIAD_LIST(SV_TRIAD_CASE)
+#undef SV_TRIAD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+#elif defined(SV_LEAN)
 
 #ifndef SV_HINT
 #define SV_HINT 0

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Device times of the streaming membench kernels (``csrc/copy.cu``,
-``csrc/rw.cu``) and of their design variants, on one NVIDIA GPU.
+``csrc/rw.cu``, ``csrc/triad.cu``) and of their design variants, on one
+NVIDIA GPU.
 
     python3 tools/stream_variants.py                   # wrappers + variants
     python3 tools/stream_variants.py --mode wrappers --src DIR --label NAME
     python3 tools/stream_variants.py --quick           # no 2 GiB shapes
+    python3 tools/stream_variants.py --sweep triad     # triad and its variants
 
-``wrappers``: ``membench.copy`` and ``membench.rw`` over the R:W ladder of
+``wrappers``: ``membench.copy``, ``membench.rw`` over the R:W ladder and
+``membench.triad`` (beside rw_2to1, which computes the same function) of
 the package under ``--src`` (default: this checkout's ``src``), with the
 library calls ``out.copy_(x)`` and ``torch.add(x, y, alpha=1.5, out=out)``
 beside them, at 32 KiB and 1 MiB float32 (2048 and 64 passes a call, so
@@ -33,7 +36,14 @@ and ``st.global.cs`` stores.  The third: the (R, V, CTAs) of ``THIRD`` with
 every hint set of ``HINT_NAMES`` (``st.global.cs`` stores,
 ``ld.global.L2::256B`` loads, both, neither), on rw.cu's tile walk and on a
 rotated walk (CTA c starts every tile at its own 512-byte offset, so that the
-CTAs are not all at one offset of their tiles at once).  Each config is timed twice, in turns with the
+CTAs are not all at one offset of their tiles at once).  ``triad`` (alone:
+the wrappers are then timed at the triad point of the ladder only): the
+triad variants of the ``SV_TRIAD`` build (``np``: a non-persistent grid of
+blocks of THREADS x V vectors in address order, one block per piece and the
+pass the slow grid dimension; ``win``: a persistent grid of every CTA that
+stays resident taking the same blocks c, c + G, ..., so that the CTAs in
+flight cover one compact window), for V in 1, 2, 4, 8 and THREADS in 256,
+512, 1024, against ``membench.triad`` and ``torch.add``.  Each config is timed twice, in turns with the
 others, and keeps its lesser time; configs whose launches are the same at a
 shape are timed once.
 
@@ -88,7 +98,8 @@ def parse_args():
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory whose repro_torch is timed")
     ap.add_argument("--label", default="change")
-    ap.add_argument("--sweep", choices=("first", "second", "third", "all"),
+    ap.add_argument("--sweep", choices=("first", "second", "third", "all",
+                                        "triad"),
                     default="all")
     ap.add_argument("--quick", action="store_true",
                     help="leave out the 2 GiB shapes")
@@ -174,8 +185,9 @@ def check(outs, want, what: str) -> None:
 def time_wrappers() -> list[dict]:
     say(f"== wrappers of {ARGS.src} ({ARGS.label})")
     rows = []
+    ladder = ((2, 1),) if ARGS.sweep == "triad" else LADDER
     for dname, nbytes, passes, n in shapes():
-        for reads, writes in LADDER:
+        for reads, writes in ladder:
             x, ys, outs, want = operands(dname, nbytes, reads, writes)
             br = mb.default_block_rows(x.shape[0])
             calls = {"rw": lambda: mb.rw(x, *ys, reads=reads, writes=writes,
@@ -184,6 +196,10 @@ def time_wrappers() -> list[dict]:
             if (reads, writes) == (1, 1):
                 calls["copy"] = lambda: mb.copy(x, outs[0], block_rows=br,
                                                 passes=passes)
+            if (reads, writes) == (2, 1):
+                calls["triad"] = lambda: mb.triad(x, ys[0], outs[0],
+                                                  block_rows=br,
+                                                  passes=passes)
             for name, fn in calls.items():
                 fn()
                 check(outs, want, f"{name} {reads}:{writes} {dname} {nbytes}")
@@ -194,7 +210,7 @@ def time_wrappers() -> list[dict]:
             for name, fn in calls.items():
                 t = [device_ms(fn, n) for _ in range(2)]
                 lt = [device_ms(lib, n)[0] for _ in range(2)] if lib else None
-                mix = "copy" if name == "copy" else f"rw_{reads}to{writes}"
+                mix = name if name != "rw" else f"rw_{reads}to{writes}"
                 nb = (reads + writes) * x.numel() * x.element_size() * passes
                 r = {"label": ARGS.label, "kernel": mix, "dtype": dname,
                      "nbytes": nbytes, "passes": passes,
@@ -232,11 +248,14 @@ def build_variants() -> dict:
         keys += [("lean", h) for h in (0, 1)]
     if ARGS.sweep in ("third", "all"):
         keys += [("lean", h) for h in HINT_NAMES if ("lean", h) not in keys]
+    if ARGS.sweep == "triad":
+        keys = [("triad",)]
     t0 = time.perf_counter()
     procs = {}
     for key in keys:
         so = out / f"stream_variants-{'-'.join(map(str, key))}.so"
         defs = ([f"-DSV_LD={key[1]}", f"-DSV_ST={key[2]}"] if key[0] == "first"
+                else ["-DSV_TRIAD"] if key[0] == "triad"
                 else ["-DSV_LEAN", f"-DSV_HINT={key[1]}"])
         cmd = [nvcc, *NVCC_FLAGS, f"-I{csrc}", *defs, "-o", str(so),
                str(ROOT / "tools" / "stream_variants.cu")]
@@ -251,7 +270,10 @@ def build_variants() -> dict:
             say(f"  {key} did not build:\n{log[-1500:]}")
             continue
         lib = ctypes.CDLL(str(so))
-        if key[0] == "first":
+        if key[0] == "triad":
+            lib.sv_triad_launch.argtypes = [I, I, I, I, P, P, P] + [I] * 6 \
+                + [P]
+        elif key[0] == "first":
             lib.sv_rw_launch.argtypes = [I, I, I, P, P, I, I, I, I, I, I, I, P]
             lib.sv_bulk_launch.argtypes = [I, I, P, P, I, I, LL, I, I, I, I,
                                            I, I, P]
@@ -440,6 +462,78 @@ def time_variants(current: dict) -> list[dict]:
     return rows
 
 
+#: (V, THREADS) of the SV_TRIAD build (SV_TRIAD_LIST)
+TRIAD_LIST = ((1, 256), (2, 256), (4, 256), (8, 256), (1, 512), (2, 512),
+              (4, 512), (1, 1024), (2, 1024), (4, 1024))
+
+
+def time_triad_variants(current: dict) -> list[dict]:
+    """The triad variants at every shape, each checked bit for bit against
+    the plain version, timed twice in turns with the others (the lesser
+    time kept), beside the current triad wrapper's and torch.add's device
+    times at the same shape."""
+    say("== triad variants (tools/stream_variants.cu, SV_TRIAD)")
+    libs = build_variants()
+    if ("triad",) not in libs:
+        return []
+    fn_c = libs[("triad",)].sv_triad_launch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for dname, nbytes, passes, n in shapes():
+        x, ys, outs, want = operands(dname, nbytes, 2, 1)
+        dt = 0 if x.dtype == torch.float32 else 1
+        br = mb.default_block_rows(x.shape[0])
+        n_tiles = x.shape[0] // br
+        tile_vecs = br * 128 * x.element_size() // 16
+        runs = []
+        for kind, kname in ((0, "np"), (1, "win")):
+            for v, th in TRIAD_LIST:
+                res = -fn_c(kind, dt, v, th, x.data_ptr(), ys[0].data_ptr(),
+                            outs[0].data_ptr(), n_tiles, tile_vecs, 1,
+                            passes, 0, 1, None)
+                blocks = -(-n_tiles * tile_vecs // (th * v))
+                grid = blocks if kind == 0 else min(blocks, res * sms)
+                args = (kind, dt, v, th, x.data_ptr(), ys[0].data_ptr(),
+                        outs[0].data_ptr(), n_tiles, tile_vecs, 1, passes,
+                        grid, 0)
+
+                def launch(args=args):
+                    err = fn_c(*args, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"triad variant {args[:4]}: "
+                                           f"launch error {err}")
+                name = f"{kname} V{v} T{th}"
+                if kind == 0 and passes > 65535:
+                    continue
+                launch()
+                torch.cuda.synchronize()
+                check(outs, want, f"{name} {dname} {nbytes}")
+                runs.append((name, launch, grid, res))
+        best: dict[str, float] = {}
+        for _ in range(2):
+            for name, launch, _, _ in runs:
+                best[name] = min(best.get(name, math.inf),
+                                 device_ms(launch, n)[0])
+        cur = current.get(("triad", dname, nbytes))
+        lib = current.get(("torch.add", dname, nbytes))
+        for name, _, grid, res in runs:
+            t = best[name]
+            rows.append({"config": name, "dtype": dname, "nbytes": nbytes,
+                         "passes": passes, "grid": grid,
+                         "resident_per_sm": res, "device_ms": t,
+                         "vs_current": t / cur if cur else None,
+                         "vs_library": t / lib if lib else None})
+        top = sorted(best, key=best.get)[:4]
+        say(f"  triad {dname:8s} {nbytes:>11d} B x{passes}  current "
+            f"{cur if cur is None else f'{cur:.5f}'}  torch.add "
+            f"{lib if lib is None else f'{lib:.5f}'}  best: "
+            + "; ".join(f"{k} {best[k]:.5f}" for k in top))
+        del x, ys, outs, want, runs
+        torch.cuda.empty_cache()
+    rank(rows, "vs_current", "the current triad wrapper")
+    return rows
+
+
 def rank(rows: list[dict], field: str, what: str) -> None:
     """Configs by the geometric mean of rows[field] over every point they
     ran at (those that ran at every point only), with the worst ratio."""
@@ -471,7 +565,12 @@ def main() -> int:
     if ARGS.mode == "all":
         current = {(r["kernel"], r["dtype"], r["nbytes"]): r["device_ms"]
                    for r in wrappers}
-        result["variants"] = time_variants(current)
+        current.update({("torch.add", r["dtype"], r["nbytes"]):
+                        r["library_device_ms"] for r in wrappers
+                        if r["kernel"] == "triad"})
+        result["variants"] = (time_triad_variants(current)
+                              if ARGS.sweep == "triad"
+                              else time_variants(current))
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     (OUT / f"{ARGS.label}.json").write_text(json.dumps(result, indent=1))
     (OUT / f"{ARGS.label}.txt").write_text("\n".join(LINES) + "\n")
