@@ -14,7 +14,9 @@ Phases (any failure raises and the script exits non-zero):
      flash_attention, ssd_scan), one ``nvcc`` per source, all together, each
      kernel that spills registers named; the SASS of mxu.cu and flash_attn.cu
      shows tensor-core instructions in their bfloat16 routes and none in
-     their float32 routes.
+     their float32 routes; every kernel of acc.cu and copy.cu holds global
+     loads (LDG, LDGSTS: each load_only kernel's cp.async copies, matched
+     as whole opcodes) and none spills.
   2  every kernel against its plain version on the card, over dtypes, sizes,
      tilings, interleave, unroll and passes, on the benchmark's working set
      (whose sums cancel) and on a non-cancelling ramp input with a relative
@@ -39,15 +41,22 @@ Phases (any failure raises and the script exits non-zero):
      --prompt-len 512 --gen 16`` at full width (9 flash and 54 SSD launches
      in its one prefill, no membench launch), then in process the kernel
      route's prefill against the plain route's, and two decode steps.
-  4  the measurement is real: doubling ``passes`` doubles the time, no GB/s
-     above the card's memory rate at 2 GiB, mxu below the float32 peak and,
+  4  the measurement is real: doubling ``passes`` doubles the time (also
+     for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
+     memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
+     an SM) at any size, mxu below the float32 peak and,
      on the bfloat16 working set, below the bf16 tensor-core peak; the chase
      at least 5 ns per dependent step, loaded latency not below idle.
   5  one JSON line listing every kernel with its time, its plain version's,
      the library call's, and its bound (flash_attn and ssd_scan at the
-     serving shapes); every membench kernel and rw ladder member, and
-     flash_attn, and their library calls, also by device time (the calls
-     enqueued behind a device-side sleep).
+     serving shapes; bytes at the SMs' load/store rate where a call's
+     buffers fit the L2, at the HBM rate above it, ``bytes_bound``); every
+     membench kernel and rw ladder member, and flash_attn, and their library
+     calls, also by device time (the calls enqueued behind a device-side
+     sleep); the membench kernels and the rw ladder also at the Runner's
+     small points, 32 KiB x 2048 passes and 1 MiB x 64, float32, each held
+     against its plain version there, at 8 passes and (all but fma) at the
+     timed pass count.
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -60,6 +69,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -118,6 +128,17 @@ HBM_BYTES_PER_S = 3.35e12
 # accepts that rounding.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16_tensor": 989e12,
               "tf32_tensor": 495e12}
+# Where a call's buffers fit the L2 together, a timed call finds them on
+# chip (the calls run back to back, and many-pass calls reread them from the
+# SMs' L1s), and the HBM rate is no bound: the bytes time is taken at the
+# SMs' load/store path instead, 128 bytes a clock an SM (32 lanes x 4 bytes:
+# the L1 / shared-memory width of NVIDIA's Volta-to-Hopper SM white papers)
+# x the SM count x the card's top SM clock, read on the card (phase 1).  No
+# byte a kernel loads or stores passes into or out of an SM faster.  The L2
+# itself has no published rate: this bound is loose where the L2 serves.
+SM_PATH_BYTES_PER_CLOCK = 128
+#: {"bytes_per_s": on-chip rate, "l2": L2 bytes}, set by phase 1
+ON_CHIP: dict = {}
 #: where each Pallas kernel of the reference lives (file:line)
 REPLACES = {
     "load_sum": "src/repro/kernels/membench/membench.py:58",
@@ -180,6 +201,18 @@ def ramp_input(x: torch.Tensor) -> torch.Tensor:
     scale = torch.linspace(0.5, 1.5, x.shape[0], dtype=torch.float32,
                            device=x.device)[:, None]
     return (x.abs().to(torch.float32) * scale).to(x.dtype)
+
+
+def exact_input(x: torch.Tensor) -> torch.Tensor:
+    """x's shape and dtype, 1 at the even flat indices and 0 between: every
+    16-byte vector and every tile's element [0,0] holds a one, so a vector
+    or tile left out or read twice moves a sum, and while the sum of a call
+    stays below 2**24 every partial sum is an integer that float32 holds
+    exactly, whatever the order of the adds: load_sum, load_only and the
+    mxu sums must then equal their plain versions to the bit, at any pass
+    count."""
+    flat = torch.arange(x.numel(), device=x.device) % 2 == 0
+    return flat.to(x.dtype).reshape(x.shape)
 
 
 def dense_w(dtype) -> torch.Tensor:
@@ -314,10 +347,49 @@ def phase_device() -> dict:
                                  f"-Xptxas -v log must list its kernels): "
                                  f"{spilled or 'no kernels in the log'}")
     check_tensor_core_routes(built)
+    check_global_loads(built)
     props = torch.cuda.get_device_properties(DEV)
     say(f"SMs {props.multi_processor_count}, grid cap "
         f"{mb.CTAS_PER_SM} CTAs/SM x {props.multi_processor_count}")
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    ON_CHIP.update(bytes_per_s=SM_PATH_BYTES_PER_CLOCK
+                   * props.multi_processor_count * mhz * 1e6,
+                   l2=props.L2_cache_size)
+    say(f"bytes bound of a call whose buffers fit the L2 "
+        f"({props.L2_cache_size} B): {props.multi_processor_count} SMs x "
+        f"{SM_PATH_BYTES_PER_CLOCK} B x {mhz:.0f} MHz = "
+        f"{ON_CHIP['bytes_per_s'] / 1e12:.2f} TB/s; above it "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s (HBM)")
     return {"smi": smi.splitlines()[0]}
+
+
+def bytes_bound(moved: float, footprint: float) -> dict:
+    """The bytes time of a call that moves ``moved`` bytes over buffers of
+    ``footprint`` bytes: at the SMs' load/store path where the buffers fit
+    the L2 (``ON_CHIP``), else at the HBM rate; with the rate it used."""
+    on_chip = footprint <= ON_CHIP["l2"]
+    rate = ON_CHIP["bytes_per_s"] if on_chip else HBM_BYTES_PER_S
+    return {"t_bytes": moved / rate,
+            "bytes_rate": {"level": "sm_load_store" if on_chip else "hbm",
+                           "bytes_per_s": rate}}
+
+
+def bound_fields(b: dict, t_ops: float) -> dict:
+    """``bound_ms`` (the larger of the bytes and operations times),
+    ``bound_by`` and the bytes rate behind it, for a ``kernels`` entry."""
+    t_bytes = b["t_bytes"]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_rate": b["bytes_rate"]}
+
+
+def bound_note(e: dict) -> str:
+    return (f"bound {e['bound_ms']:.4f} ({e['bound_by']}; bytes at "
+            f"{e['bytes_rate']['bytes_per_s'] / 1e12:.2f} TB/s "
+            f"{e['bytes_rate']['level']})")
 
 
 #: kernels (by a fragment of their mangled name) that must, or must not,
@@ -332,26 +404,124 @@ TENSOR_CORE_ROUTES = {
 }
 #: libraries that must build with no spill (redesigned for Hopper with a
 #: register budget: a spill there is a fault of the design)
-NO_SPILL = ("ssd_scan/ssd_scan.cu", "membench/triad.cu")
+NO_SPILL = ("ssd_scan/ssd_scan.cu", "membench/triad.cu", "membench/acc.cu",
+            "membench/copy.cu")
+#: libraries every kernel of which must issue global loads: a load whose
+#: value is never used may be deleted by ptxas (inline asm or not), so the
+#: SASS, not the source, shows that the timed traffic is executed
+GLOBAL_LOADS = (("membench", "acc.cu"), ("membench", "copy.cu"))
+
+
+def sass_of(path: Path) -> dict[str, list[str]]:
+    """Kernel name -> its SASS lines (``cuobjdump -sass``)."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    kernels: dict[str, list[str]] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernels[name] = []
+        elif name:
+            kernels[name].append(line)
+    return kernels
+
+
+def sass_ops(lines: list[str]) -> list[tuple[int, str, str]]:
+    """(address, opcode, instruction) of each SASS instruction: the opcode
+    is the instruction's first word after any predicate, without its
+    modifiers (``@P0 LDG.E.128 R4, ...`` -> ``LDG``)."""
+    ops = []
+    for ln in lines:
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)"
+                     r"([^;]*)", ln)
+        if m:
+            ops.append((int(m.group(1), 16), m.group(2),
+                        m.group(2) + m.group(3)))
+    return ops
+
+
+#: the opcodes of a global load: a load into registers, and cp.async's
+#: global -> shared copy (not LDGDEPBAR, which only waits for copies)
+GLOBAL_LOAD_OPS = ("LDG", "LDGSTS")
+
+
+def loads_in_loops(ops: list[tuple[int, str, str]]) -> int:
+    """Global loads of a kernel's SASS that lie inside a loop: between a
+    backward branch and its target."""
+    loads, loops = [], []
+    for addr, op, ins in ops:
+        if op in GLOBAL_LOAD_OPS:
+            loads.append(addr)
+        b = re.findall(r"0x([0-9a-f]+)", ins) if op == "BRA" else None
+        if b and int(b[-1], 16) <= addr:
+            loops.append((int(b[-1], 16), addr))
+    return sum(any(lo <= a <= hi for lo, hi in loops) for a in loads)
+
+
+def acc_mix_of(name: str) -> int | None:
+    """The MIX template argument of an acc.cu kernel's mangled name
+    (``acc_win<T, U, K, MIX, ...>``, ``acc_np<T, K, MIX, ...>``; 0 load_sum,
+    1 load_only, 2 fma), None for another kernel."""
+    m = re.search(r"(acc_win|acc_np)I(?:f|13__nv_bfloat16)((?:Li-?\d+E)+)",
+                  name)
+    if not m:
+        return None
+    ints = [int(v) for v in re.findall(r"Li(-?\d+)E", m.group(2))]
+    return ints[2] if m.group(1) == "acc_win" else ints[1]
+
+
+def check_global_loads(built: dict) -> None:
+    """Raise unless every kernel of GLOBAL_LOADS issues global loads (LDG
+    or LDGSTS, matched as whole opcodes), the persistent ones (``*_win``,
+    whose pass loop is inside) in a loop, and each of acc.cu's load_only
+    kernels issues its cp.async copies (LDGSTS); print the counts and how
+    many loads are 16 bytes wide."""
+    for pkg, src in GLOBAL_LOADS:
+        kernels = sass_of(built[pkg][src])
+        if not kernels:
+            raise AssertionError(f"{pkg}/{src}: no kernel in the SASS")
+        counts, load_only = {}, 0
+        for name, lines in kernels.items():
+            ops = sass_ops(lines)
+            ldg = sum(op == "LDG" for _, op, _ in ops)
+            ldgsts = sum(op == "LDGSTS" for _, op, _ in ops)
+            wide = sum(op in GLOBAL_LOAD_OPS and ".128" in ins
+                       for _, op, ins in ops)
+            counts[name] = (ldg, ldgsts, wide)
+            if ldg + ldgsts == 0:
+                raise AssertionError(f"{pkg}/{src}: kernel {name} issues no "
+                                     f"global load (LDG / LDGSTS)")
+            if "_win" in name and not loads_in_loops(ops):
+                raise AssertionError(f"{pkg}/{src}: persistent kernel {name} "
+                                     f"has no global load inside a loop")
+            if src == "acc.cu" and acc_mix_of(name) == 1:
+                load_only += 1
+                if not ldgsts:
+                    raise AssertionError(
+                        f"acc.cu: load_only kernel {name} issues no cp.async "
+                        f"copy (LDGSTS): its data movement is gone")
+        if src == "acc.cu" and not load_only:
+            raise AssertionError("acc.cu: no load_only kernel found in the "
+                                 "SASS by its mangled name")
+        say(f"  {pkg}/{src}: {len(counts)} kernels, each with global loads "
+            f"(the persistent ones inside their loops); "
+            f"LDG per kernel {min(c[0] for c in counts.values())}.."
+            f"{max(c[0] for c in counts.values())} (16-byte loads "
+            f"{min(c[2] for c in counts.values())}.."
+            f"{max(c[2] for c in counts.values())}), LDGSTS in "
+            f"{sum(c[1] > 0 for c in counts.values())} kernels"
+            + (f" (all {load_only} load_only kernels)" if load_only else ""))
 
 
 def check_tensor_core_routes(built: dict) -> None:
     """Count tensor-core instructions (HMMA, HGMMA) per kernel in the SASS
     of the built libraries (``cuobjdump -sass``); raise unless every
     bfloat16 route has some and no float32 route has any."""
-    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
     for (pkg, src), want in TENSOR_CORE_ROUTES.items():
-        sass = subprocess.run([str(cuobjdump), "-sass", str(built[pkg][src])],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        counts: dict[str, int] = {}
-        name = None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                name = line.split("Function :")[1].strip()
-                counts[name] = 0
-            elif name and ("HMMA" in line or "HGMMA" in line):
-                counts[name] += 1
+        counts = {name: sum("HMMA" in ln or "HGMMA" in ln for ln in lines)
+                  for name, lines in sass_of(built[pkg][src]).items()}
         for frag, tensor in want.items():
             hits = {n: c for n, c in counts.items() if frag in n}
             if not hits or any((c > 0) != tensor for c in hits.values()):
@@ -386,7 +556,12 @@ def _hold(kernel, label, x, y, w, block_rows, streams, passes, unroll,
 
 def phase_kernels(quick: bool) -> None:
     say("== phase 2: kernels against their plain versions on the card")
-    sizes = (16 * KiB, 128 * KiB) if quick else (16 * KiB, 128 * KiB, 64 * MiB)
+    # 16 MiB: acc.cu and copy.cu run their persistent loop with several
+    # blocks a CTA (acc_walk, acc_linear, copy_win's group loop) at every
+    # tiling, interleave and stream count below (the smaller sizes take one
+    # block a CTA, acc_fixed / copy_fixed); 64 MiB: the non-persistent grid
+    sizes = ((16 * KiB, 128 * KiB) if quick
+             else (16 * KiB, 128 * KiB, 16 * MiB, 64 * MiB))
     worst: dict[str, tuple] = {}
     n_cases = 0
     for dname, dtype in DTYPES.items():
@@ -409,7 +584,7 @@ def phase_kernels(quick: bool) -> None:
                     for kernel in BANDWIDTH_KERNELS:
                         if w is dense and kernel != "mxu":
                             continue          # the dense operand is mxu's only
-                        ks = ((1, 2, 4) if kernel in ("load_sum", "copy")
+                        ks = ((1, 2, 4, 8) if kernel in ("load_sum", "copy")
                               else (1,))
                         for interleave in ks:
                             if block_rows % interleave:
@@ -541,7 +716,12 @@ def rw_value(x, reads: int) -> torch.Tensor:
 
 def phase_rw_chase(quick: bool) -> None:
     say("== phase 2b: rw and chase against their plain versions on the card")
-    sizes = (16 * KiB, 128 * KiB) if quick else (16 * KiB, 128 * KiB, 64 * MiB)
+    # 16 MiB: acc.cu and copy.cu run their persistent loop with several
+    # blocks a CTA (acc_walk, acc_linear, copy_win's group loop) at every
+    # tiling, interleave and stream count below (the smaller sizes take one
+    # block a CTA, acc_fixed / copy_fixed); 64 MiB: the non-persistent grid
+    sizes = ((16 * KiB, 128 * KiB) if quick
+             else (16 * KiB, 128 * KiB, 16 * MiB, 64 * MiB))
     n_rw = 0
     for dname, dtype in DTYPES.items():
         for nbytes in sizes:
@@ -1366,6 +1546,15 @@ def work(kernel: str, x) -> tuple[float, float]:
 # phase 4 — the measurement is real
 # ---------------------------------------------------------------------------
 
+#: the kernels whose walk is cut into vector blocks (acc.cu, copy.cu), held
+#: to the doubling rule at 32 KiB and 1 MiB too
+SMALL_POINT_KERNELS = ("load_sum", "load_only", "fma", "copy")
+#: the Runner's small points (float32 bytes, passes a call) phase 5 times
+SMALL_POINTS = ((32 * KiB, 2048), (1 * MiB, 64))
+#: buffers of x's size a call of each kernel reads or writes (its footprint
+#: for ``bytes_bound``; mxu's 128 x 128 operand is left out)
+BUFFERS = {"load_sum": 1, "load_only": 1, "fma": 1, "mxu": 1, "copy": 2,
+           "triad": 3}
 #: a timed call of phase 4 must last at least this long, so that the host's
 #: share of a call (two allocations, two launches: tens of microseconds) is
 #: small against the kernel's
@@ -1376,6 +1565,14 @@ def phase_real(quick: bool) -> None:
     """Every first-slice kernel on the float32 working set, and mxu on the
     bfloat16 one too: its tensor-core route is held to the bf16 peak."""
     say("== phase 4: the measurement is real")
+    # the vector-block kernels at the Runner's small points, where a buffer
+    # spans a few SMs and a pass takes tens of nanoseconds
+    for nbytes in (32 * KiB,) if quick else (32 * KiB, 1 * MiB):
+        x = working_set(nbytes, device=DEV)
+        out = torch.empty_like(x)
+        for kernel in SMALL_POINT_KERNELS:
+            real_point(kernel, "float32", nbytes, x, None, None, out, 5)
+        del x, out
     sizes = (16 * MiB,) if quick else (16 * MiB, 2 * GiB)
     for dname, kernels in (("float32", BANDWIDTH_KERNELS),
                            ("bfloat16", ("mxu",))):
@@ -1407,6 +1604,7 @@ def real_point(kernel: str, dname: str, nbytes: int, x, y, w, out,
         f"{2 * passes}: {t1:.4f} -> {t2:.4f} ms  ratio {ratio:.3f}  "
         f"{gbps:.1f} GB/s  {tflops:.2f} TFLOP/s")
     check_ratio(f"{kernel} {dname} at {nbytes} B", t1, t2)
+    check_on_chip_rate(f"{kernel} {dname} at {nbytes} B", gbps)
     if nbytes >= 2 * GiB and gbps > HBM_BYTES_PER_S / 1e9 * 1.02:
         raise AssertionError(
             f"{kernel} {dname} at {nbytes} B reports {gbps:.1f} GB/s, above "
@@ -1435,6 +1633,16 @@ def doubled(make_fn, n: int, min_ms: float = REAL_MIN_MS
     return passes, t1, t2
 
 
+def check_on_chip_rate(what: str, gbps: float) -> None:
+    """No byte enters or leaves an SM faster than its load/store path
+    (``ON_CHIP``): a point above that rate did not execute its traffic."""
+    if gbps > ON_CHIP["bytes_per_s"] / 1e9 * 1.02:
+        raise AssertionError(
+            f"{what} reports {gbps:.1f} GB/s, above the SMs' load/store "
+            f"rate {ON_CHIP['bytes_per_s'] / 1e9:.1f} GB/s: some traffic is "
+            f"not executed")
+
+
 def check_ratio(what: str, t1: float, t2: float) -> None:
     if not 1.7 <= t2 / t1 <= 2.3:
         raise AssertionError(
@@ -1461,6 +1669,7 @@ def phase_real_rw_chase(quick: bool) -> None:
                 f"{2 * passes}: {t1:.4f} -> {t2:.4f} ms  ratio "
                 f"{t2 / t1:.3f}  {gbps:.1f} GB/s")
             check_ratio(f"rw_{reads}to{writes} at {nbytes} B", t1, t2)
+            check_on_chip_rate(f"rw_{reads}to{writes} at {nbytes} B", gbps)
             if nbytes >= 2 * GiB and gbps > HBM_BYTES_PER_S / 1e9 * 1.02:
                 raise AssertionError(
                     f"rw_{reads}to{writes} at {nbytes} B reports {gbps:.1f} "
@@ -1508,11 +1717,15 @@ def phase_real_rw_chase(quick: bool) -> None:
 
 def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
     say("== phase 5: kernel times, plain versions, library calls, bounds")
-    shapes = ([("float32", 16 * MiB)] if quick else
-              [("float32", 16 * MiB), ("float32", 2 * GiB),
-               ("bfloat16", 2 * GiB)])
+    # (dtype, bytes, passes a call): the one-pass shapes, then the Runner's
+    # small points, where many passes a call time the cache level
+    shapes = ([("float32", 16 * MiB, 1), ("float32", 32 * KiB, 2048)]
+              if quick else
+              [("float32", 16 * MiB, 1), ("float32", 2 * GiB, 1),
+               ("bfloat16", 2 * GiB, 1)]
+              + [("float32", nb, ps) for nb, ps in SMALL_POINTS])
     entries = []
-    for dname, nbytes in shapes:
+    for dname, nbytes, passes in shapes:
         dtype = DTYPES[dname]
         x = working_set(nbytes, dtype=dtype, device=DEV)
         y, out = x * 0.5, torch.empty_like(x)
@@ -1520,17 +1733,18 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
         xr = ramp_input(x)
         yr, wd = xr.flip(0) * 0.5, dense_w(dtype)
         br = mb.default_block_rows(x.shape[0])
-        n = 20 if nbytes <= 16 * MiB else 3
+        n = 5 if passes > 1 else 20 if nbytes <= 16 * MiB else 3
         plain = {
-            "load_sum": lambda: mb.plain_load_sum(x),
-            "load_only": lambda: mb.plain_load_only(x, br),
-            "fma": lambda: mb.plain_fma(x, FMA_DEPTH),
-            "mxu": lambda: mb.plain_mxu(x, w, br),
-            "copy": lambda: mb.plain_copy(x, out),
-            "triad": lambda: mb.plain_triad(x, y, out),
+            "load_sum": lambda: mb.plain_load_sum(x, passes),
+            "load_only": lambda: mb.plain_load_only(x, br, passes),
+            "fma": lambda: mb.plain_fma(x, FMA_DEPTH, passes),
+            "mxu": lambda: mb.plain_mxu(x, w, br, passes),
+            "copy": lambda: mb.plain_copy(x, out, passes),
+            "triad": lambda: mb.plain_triad(x, y, out, passes),
         }
-        # one PyTorch call computing the same function, where there is one;
-        # timed here as a yardstick and used nowhere in the package
+        # one PyTorch call computing the same function, where there is one
+        # (none computes many passes); timed here as a yardstick and used
+        # nowhere in the package
         library = {
             "load_sum": lambda: x.sum(dtype=torch.float32),
             "load_only": None,
@@ -1538,30 +1752,42 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
             "mxu": lambda: torch.matmul(x, w),
             "copy": lambda: out.copy_(x),
             "triad": lambda: torch.add(x, y, alpha=1.5, out=out),
-        }
+        } if passes == 1 else dict.fromkeys(BANDWIDTH_KERNELS)
         for kernel in BANDWIDTH_KERNELS:
             # held on the working set the timed runs use (its sums cancel:
             # absolute bound) and on the ramp input with mxu's dense operand
             # (relative bound; the error and tolerance the line reports)
-            label = f"{dname} {nbytes}B"
-            _hold(kernel, label + " cycle", x, y, w, br, 1, 1, 1, 1, True)
+            # (at most 8 passes: both sides add a pass's value passes
+            # times, and from one rounding binade to the next such a sum
+            # rounds the same way each time, up to passes x 2**-26 of the
+            # value on either side; at 8 passes a vector of the 2048 of a
+            # 32 KiB buffer left out or read twice still moves the sum by
+            # 50x SUM_RTOL); at the timed pass count too, by
+            # hold_all_passes
+            hp = min(passes, 8)
+            label = f"{dname} {nbytes}B x{hp}"
+            _hold(kernel, label + " cycle", x, y, w, br, 1, hp, 1, 1, True)
             err, tol, mag = _hold(kernel, label + " ramp", xr, yr, wd, br,
-                                  1, 1, 1, 1, False)
-            ms, host_ms = time_both_ms(kernel_fn(kernel, x, y, w, out, 1), n)
+                                  1, hp, 1, 1, False)
+            if passes > hp:
+                hold_all_passes(kernel, x, xr, yr, wd, br, passes)
+            fn = kernel_fn(kernel, x, y, w, out, passes)
+            ms, host_ms = time_both_ms(fn, n)
             plain_ms = time_ms(plain[kernel], n)
             lib = library[kernel]
             library_ms = time_ms(lib, n) if lib is not None else None
             # also by device time, which the host's share of a short call
             # does not blur
-            dev = {"device_ms": device_ms(kernel_fn(kernel, x, y, w, out, 1),
-                                          n),
+            dev = {"device_ms": device_ms(fn, n),
                    "library_device_ms": (device_ms(lib, n)
                                          if lib is not None else None)}
-            nb, nf = work(kernel, x)
+            nb, nf = (passes * v for v in work(kernel, x))
             peak = (PEAK_FLOPS["bfloat16_tensor"]
                     if kernel == "mxu" and dname == "bfloat16"
                     else PEAK_FLOPS["float32"])
-            t_bytes, t_ops = nb / HBM_BYTES_PER_S, nf / peak
+            b = bytes_bound(nb, BUFFERS[kernel] * x.numel()
+                            * x.element_size())
+            t_bytes, t_ops = b["t_bytes"], nf / peak
             entries.append({
                 "name": kernel, "route": "cuda",
                 "source": "src/repro_torch/kernels/membench/csrc/"
@@ -1570,28 +1796,55 @@ def phase_kernels_line(counts: dict[str, int], quick: bool) -> dict:
                 "launches": counts.get(kernel, 0),
                 "max_abs_err": err, "tolerance": tol, "expected_abs": mag,
                 "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                **bound_fields(b, t_ops),
                 "library_ms": library_ms, **dev,
                 **({"bound_ms_tf32": max(
                     t_bytes, nf / PEAK_FLOPS["tf32_tensor"]) * 1e3}
                    if kernel == "mxu" and dname == "float32" else {}),
                 "shape": list(x.shape), "dtype": dname, "nbytes": nbytes,
-                "block_rows": br, "passes": 1,
+                "block_rows": br, "passes": passes,
             })
             e = entries[-1]
-            say(f"  {kernel:9s} {dname:8s} {nbytes:>11d} B  ms {ms:.4f}  "
-                f"(host {host_ms:.4f})  bound {e['bound_ms']:.4f} "
-                f"({e['bound_by']})  plain {plain_ms:.4f}  library "
+            say(f"  {kernel:9s} {dname:8s} {nbytes:>11d} B x{passes:<4d} "
+                f"ms {ms:.4f}  "
+                f"(host {host_ms:.4f})  {bound_note(e)}  plain "
+                f"{plain_ms:.4f}  library "
                 f"{'-' if library_ms is None else f'{library_ms:.4f}'}  "
                 f"err {err:.2e} of {mag:.3e} (tolerance {tol:.2e})"
                 + device_note(dev))
-        entries += rw_entries(x, xr, dname, nbytes, n, counts["rw"])
+        entries += rw_entries(x, xr, dname, nbytes, n, counts["rw"],
+                              passes)
         del x, y, out, xr, yr
         torch.cuda.empty_cache()
     for nbytes in (128 * KiB,) if quick else (128 * KiB, 16 * MiB):
         entries.append(chase_entry(nbytes, counts["chase"]))
     return {"kernels": entries}
+
+
+def hold_all_passes(kernel: str, x, xr, yr, wd, br: int, passes: int
+                    ) -> None:
+    """Hold a kernel against its plain version at the timed pass count of
+    a many-pass point, the very launch that is timed: copy and triad on the
+    ramp input (their output does not depend on the pass count), load_sum,
+    load_only and mxu exactly on ``exact_input`` (fma's chain has no exact
+    input: it is held at 8 passes only)."""
+    if kernel in ("copy", "triad"):
+        _hold(kernel, f"{x.numel() * x.element_size()}B x{passes} ramp", xr,
+              yr, wd, br, 1, passes, 1, 1, False)
+        return
+    if kernel == "fma":
+        return
+    xe = exact_input(x)
+    if not x.numel() // 2 * passes < 2**24:
+        raise AssertionError(f"{kernel}: {passes} passes over {x.numel()} "
+                             f"elements leave float32's exact integers")
+    eye = torch.eye(mb.LANES, dtype=x.dtype, device=DEV)
+    got, want = run_pair(kernel, xe, None, eye, br, 1, passes, 1, 1)
+    sync()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"{kernel} {x.numel() * x.element_size()}B x{passes} exact "
+            f"input: {got.tolist()} vs plain {want.tolist()}, must be equal")
 
 
 def device_note(dev: dict) -> str:
@@ -1600,10 +1853,11 @@ def device_note(dev: dict) -> str:
             f"{'-' if lib is None else f'{lib:.4f}'}")
 
 
-def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int
-               ) -> list[dict]:
-    """One ``kernels`` entry per member of the rw ladder on x (one sweep at
-    the default tiling), each held bit for bit on the ramp input xr."""
+def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int,
+               passes: int = 1) -> list[dict]:
+    """One ``kernels`` entry per member of the rw ladder on x (``passes``
+    sweeps a call at the default tiling), each held bit for bit on the ramp
+    input xr."""
     br = mb.default_block_rows(x.shape[0])
     entries = []
     for reads, writes in RW_LADDER:
@@ -1611,7 +1865,7 @@ def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int
         want = mb.plain_rw(xr, *yrs, writes=1)[0].to(torch.float32)
         err = max(float((o.to(torch.float32) - want).abs().max())
                   for o in mb.rw(xr, *yrs, reads=reads, writes=writes,
-                                 block_rows=br))
+                                 block_rows=br, passes=passes))
         if err != 0.0:
             raise AssertionError(f"rw_{reads}to{writes} {dname} {nbytes}B "
                                  f"ramp: max abs err {err}, tolerance 0")
@@ -1619,39 +1873,41 @@ def rw_entries(x, xr, dname: str, nbytes: int, n: int, launches: int
         ys = im.rw_streams(x, reads)[1:]
         outs = tuple(torch.empty_like(x) for _ in range(writes))
         ms, host_ms = time_both_ms(lambda: mb.rw(
-            x, *ys, reads=reads, writes=writes, outs=outs, block_rows=br), n)
+            x, *ys, reads=reads, writes=writes, outs=outs, block_rows=br,
+            passes=passes), n)
         plain_ms = time_ms(lambda: mb.plain_rw(x, *ys, writes=writes,
-                                               outs=outs), n)
+                                               outs=outs, passes=passes), n)
         # one PyTorch call computing the same function, where there is one
         lib = {(1, 1): lambda: outs[0].copy_(x),
                (2, 1): lambda: torch.add(x, ys[0], alpha=1.5, out=outs[0]),
-               }.get((reads, writes))
+               }.get((reads, writes)) if passes == 1 else None
         library_ms = time_ms(lib, n) if lib is not None else None
         dev = {"device_ms": device_ms(lambda: mb.rw(
                    x, *ys, reads=reads, writes=writes, outs=outs,
-                   block_rows=br), n),
+                   block_rows=br, passes=passes), n),
                "library_device_ms": (device_ms(lib, n)
                                      if lib is not None else None)}
         mix = get_mix(rw_name(reads, writes))
-        nb = mix.bytes_per_pass(x.numel() * x.element_size())
-        t_bytes = nb / HBM_BYTES_PER_S
-        t_ops = mix.flops_per_pass(x.numel()) / PEAK_FLOPS["float32"]
+        nb = mix.bytes_per_pass(x.numel() * x.element_size()) * passes
+        b = bytes_bound(nb, (reads + writes) * x.numel() * x.element_size())
+        t_ops = (mix.flops_per_pass(x.numel()) * passes
+                 / PEAK_FLOPS["float32"])
         entries.append({
             "name": "rw", "mix": mix.name, "route": "cuda",
             "source": "src/repro_torch/kernels/membench/csrc/rw.cu",
             "replaces": REPLACES["rw"], "launches": launches,
             "max_abs_err": err, "tolerance": 0.0,
             "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound_fields(b, t_ops),
             "library_ms": library_ms, **dev,
             "shape": list(x.shape), "dtype": dname, "nbytes": nbytes,
-            "block_rows": br, "passes": 1,
+            "block_rows": br, "passes": passes,
         })
         e = entries[-1]
-        say(f"  {mix.name:9s} {dname:8s} {nbytes:>11d} B  ms {ms:.4f}  "
-            f"(host {host_ms:.4f})  bound {e['bound_ms']:.4f} "
-            f"({e['bound_by']})  plain {plain_ms:.4f}  library "
+        say(f"  {mix.name:9s} {dname:8s} {nbytes:>11d} B x{passes:<4d} "
+            f"ms {ms:.4f}  "
+            f"(host {host_ms:.4f})  {bound_note(e)}  plain "
+            f"{plain_ms:.4f}  library "
             f"{'-' if library_ms is None else f'{library_ms:.4f}'}  "
             f"err {err:.1f}" + device_note(dev))
         del ys, outs
@@ -1663,7 +1919,7 @@ def chase_entry(nbytes: int, launches: int) -> dict:
     ``nbytes`` (one pass at the default tiling), held exactly against its
     plain version on an off-cycle permutation.  Its bound is the load
     latency, which no data-sheet rate states: ``bound_ms`` is the bytes rule
-    (the int32 buffer read once at the memory rate), far below it, and
+    (the int32 buffer read once, ``bytes_bound``), far below it, and
     ``ns_per_step`` is what the walk measured."""
     x = working_set(nbytes, device=DEV)
     br = mb.default_block_rows(x.shape[0])
@@ -1683,7 +1939,7 @@ def chase_entry(nbytes: int, launches: int) -> dict:
         "replaces": REPLACES["chase"], "launches": launches,
         "max_abs_err": abs(got - want), "tolerance": 0.0, "expected_abs": want,
         "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-        "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        **bound_fields(bytes_bound(nb, nb), 0.0),
         "bound_note": "load latency, one dependent load per step; the bytes "
                       "rule is far below it",
         "ns_per_step": ms * 1e6 / perm.numel(),
@@ -1692,8 +1948,8 @@ def chase_entry(nbytes: int, launches: int) -> dict:
         "block_rows": br, "passes": 1,
     }
     say(f"  chase     int32    {nbytes:>11d} B  ms {ms:.4f}  (host "
-        f"{host_ms:.4f})  {e['ns_per_step']:.3f} ns/step  bound "
-        f"{e['bound_ms']:.4f} (bytes)  plain {plain_ms:.4f}  library -  "
+        f"{host_ms:.4f})  {e['ns_per_step']:.3f} ns/step  "
+        f"{bound_note(e)}  plain {plain_ms:.4f}  library -  "
         f"err {e['max_abs_err']:.1f} of {want:.1f}")
     return e
 
@@ -1707,9 +1963,10 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
     here and used nowhere in the port; the SSD has no single library call),
     and the bound.  Bounds: operations per the reference's
     ``flops`` at the card's peak for the input type (bf16: 989 TFLOP/s),
-    against each input read once and each output written once at the
-    memory rate (B and C of the SSD are counted as the storage their
-    stride-0 views cover)."""
+    against each input read once and each output written once
+    (``bytes_bound``: both fit the L2, so at the SMs' load/store path; B
+    and C of the SSD are counted as the storage their stride-0 views
+    cover)."""
     entries = []
     q, k, v = flash_inputs(*FLASH_SERVE, torch.bfloat16, seed=80)
     ms, host_ms = time_both_ms(lambda: fa.flash_attention(q, k, v), 20)
@@ -1722,7 +1979,7 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
            "library_device_ms": device_ms(sdpa, 20)}
     nb = 2 * (q.numel() + k.numel() + v.numel()) + 2 * q.numel()
     nf = fa_ops.flops(q, k, True)
-    t_bytes, t_ops = nb / HBM_BYTES_PER_S, nf / PEAK_FLOPS["bfloat16_tensor"]
+    b, t_ops = bytes_bound(nb, nb), nf / PEAK_FLOPS["bfloat16_tensor"]
     entries.append({
         "name": "flash_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn.cu",
@@ -1730,8 +1987,7 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
         "launches": counts.get("flash_attn", 0),
         "max_abs_err": errs["flash_attn"], "tolerance": FLASH_TOL["bfloat16"],
         "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **bound_fields(b, t_ops),
         "library_ms": library_ms, **dev, "flops": nf, "bytes": nb,
         "shape": list(FLASH_SERVE), "dtype": "bfloat16", "causal": True,
     })
@@ -1750,7 +2006,7 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
           + dA.numel() * 4 + 2 * 2 * SSD_SERVE[0] * S * N     # dA, B, C
           + BH * N * P * 4)                                   # state out
     nf = ssd_ops.flops(BH, S, P, N, chunk)
-    t_bytes, t_ops = nb / HBM_BYTES_PER_S, nf / PEAK_FLOPS["bfloat16_tensor"]
+    b, t_ops = bytes_bound(nb, nb), nf / PEAK_FLOPS["bfloat16_tensor"]
     entries.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -1758,17 +2014,16 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
         "launches": counts.get("ssd_scan", 0),
         "max_abs_err": errs["ssd_scan"], "tolerance": SSD_TOL,
         "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **bound_fields(b, t_ops),
         "library_ms": None, **dev, "flops": nf, "bytes": nb,
         "shape": list(SSD_SERVE), "dtype": "bfloat16",
     })
     for e in entries:
         lib = "-" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
         say(f"  {e['name']:10s} {e['dtype']:8s} {e['shape']}  ms "
-            f"{e['ms']:.4f}  (host {e['host_ms']:.4f})  bound "
-            f"{e['bound_ms']:.4f} ({e['bound_by']}; {e['flops'] / 1e9:.2f} "
-            f"GFLOP, {e['bytes'] / 1e6:.2f} MB)  plain {e['plain_ms']:.4f}  "
+            f"{e['ms']:.4f}  (host {e['host_ms']:.4f})  {bound_note(e)} "
+            f"({e['flops'] / 1e9:.2f} GFLOP, {e['bytes'] / 1e6:.2f} MB)  "
+            f"plain {e['plain_ms']:.4f}  "
             f"library {lib}  err {e['max_abs_err']:.2e}"
             + (f"  device {e['device_ms']:.4f}" if "device_ms" in e else "")
             + (f" vs library {e['library_device_ms']:.4f}"

@@ -9,8 +9,8 @@
 //  * The reference's grid runs in order on one core and adds into one
 //    revisited (1,1) block.  Here CTAs run concurrently, so each CTA keeps a
 //    float partial in registers over all its tiles and passes, writes it to a
-//    scratch vector, and a one-CTA second kernel (fold_partials) folds the
-//    vector in a fixed order.  No float atomics: the result is bit-identical
+//    scratch vector, and a second kernel (fold_chunks) folds the vector in
+//    a fixed order.  No float atomics: the result is bit-identical
 //    from run to run.
 //  * The pass loop is inside the kernel (one launch moves passes x buffer),
 //    because a launch costs far more than a cache-resident pass.  The
@@ -135,14 +135,21 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// second stage: out[o] = sum of partials[o * n .. o * n + n) in a fixed order
+// a fold stage: out[o] = sum of p[o * chunk ..) (at most chunk of them,
+// fewer in the last CTA), in a fixed order; a thread's four loads are
+// issued together
 __global__ void __launch_bounds__(kThreads)
-fold_partials(const float* partials, int n, float* out) {
-  const float* p = partials + (size_t)blockIdx.x * n;
-  float v = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads) v += p[i];
-  v = block_sum(v);
-  if (threadIdx.x == 0) out[blockIdx.x] = v;
+fold_chunks(const float* p, long long n, long long chunk, float* out) {
+  const long long lo = (long long)blockIdx.x * chunk;
+  const long long hi = lo + chunk < n ? lo + chunk : n;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (long long i = lo + threadIdx.x; i < hi; i += 4 * kThreads) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i + j * kThreads < hi) v[j] += p[i + j * kThreads];
+  }
+  const float s = block_sum((v[0] + v[1]) + (v[2] + v[3]));
+  if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
 }  // namespace mb

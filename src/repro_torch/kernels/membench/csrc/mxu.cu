@@ -298,7 +298,8 @@ static int launch_mxu(const void* x, const void* w, float* partials,
 #undef MB_MXU
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mb::fold_partials<<<2, mb::kThreads, 0, st>>>(partials, grid, out);
+  mb::fold_chunks<<<2, mb::kThreads, 0, st>>>(partials, 2LL * grid, grid,
+                                                out);
   return (int)cudaGetLastError();
 }
 

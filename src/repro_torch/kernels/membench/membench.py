@@ -26,14 +26,17 @@ For a CUDA tensor it launches the kernel or raises: no fallback.  Each
 wrapper adds one to ``launch_counts[name]`` where it launches its kernel, and
 nowhere else.
 
-Grid: ``G = min(n_tiles, CTAS_PER_SM * SM count)`` CTAs of 256 threads (mxu:
-as many as stay resident, ``mxu_launch_plan``); CTA ``c`` owns walk steps
-``c, c+G, ...`` in every pass.  Triad cuts the walk into blocks of
-consecutive vectors instead (``triad_launch_plan``): a non-persistent grid
-above the L2, a persistent one at and below it.  The chase is the
-exception: one thread walks every tile, so that one dependent chain runs at
-a time, and each pass is a launch of its own, so that every pass starts
-from the same cache state (``csrc/chase.cu``).
+Grid: rw and mxu own whole tiles: ``G = min(n_tiles, CTAS_PER_SM * SM
+count)`` CTAs of 256 threads (mxu: as many as stay resident,
+``mxu_launch_plan``), CTA ``c`` owns walk steps ``c, c+G, ...`` in every
+pass.  load_sum, load_only, fma, copy and triad cut the walk into blocks of
+consecutive 16-byte vectors instead (``acc_launch_plan``,
+``copy_launch_plan``, ``triad_launch_plan``; ``csrc/walk.cuh``): a
+non-persistent grid above the L2, a persistent one at and below it, so that
+a buffer of one tile spans many SMs.  The chase is the exception: one thread
+walks every tile, so that one dependent chain runs at a time, and each pass
+is a launch of its own, so that every pass starts from the same cache state
+(``csrc/chase.cu``).
 """
 from __future__ import annotations
 
@@ -89,14 +92,16 @@ def reset_launch_counts() -> None:
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = KernelLibrary("membench", Path(__file__).resolve().parent / "csrc", {
     # mix dtype x partials out n_tiles block_rows streams passes unroll
-    # interleave depth grid stream
+    # interleave depth shape grid stream
     "acc.cu": ("membench_acc",
-               [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+               [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # dtype x w partials out n_tiles block_rows streams passes unroll grid
     # stream
     "mxu.cu": ("membench_mxu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    # x out n_tiles tile_bytes streams passes unroll interleave grid stream
-    "copy.cu": ("membench_copy", [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _P]),
+    # x out n_tiles tile_bytes streams passes unroll interleave shape grid
+    # stream
+    "copy.cu": ("membench_copy",
+                [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P]),
     # dtype b c out n_tiles block_rows streams passes unroll shape grid
     # stream
     "triad.cu": ("membench_triad",
@@ -107,7 +112,8 @@ LIBRARY = KernelLibrary("membench", Path(__file__).resolve().parent / "csrc", {
               [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # perm out n_tiles tile_elems streams accumulate stream
     "chase.cu": ("membench_chase", [_P, _P, _I, _I, _I, _I, _P]),
-}, headers=("membench_common.cuh", "stream.cuh", "../../tensor_core.cuh"))
+}, headers=("membench_common.cuh", "walk.cuh", "stream.cuh",
+            "../../tensor_core.cuh"))
 CSRC = LIBRARY.csrc
 #: source -> loaded library (empty until the first launch on a card)
 _libs = LIBRARY.libs
@@ -264,6 +270,85 @@ def triad_launch_plan(n_tiles: int, tile_bytes: int, sms: int,
             "block_vecs": _THREADS}
 
 
+#: csrc/acc.cu and csrc/copy.cu: (threads a CTA, positions a thread a block,
+#: resident CTAs an SM) of the persistent shape, and (threads, positions a
+#: thread) of the non-persistent one (acc.cu compiles it for kAccNpCtas
+#: CTAs an SM; its grid is the blocks of a pass either way)
+ACC_WIN = (256, 1, 4)
+ACC_NP = (256, 4)
+COPY_WIN = (256, 1, 4)
+COPY_NP = (256, 1)
+#: csrc/acc.cu: partials a CTA of the first of its two fold stages
+FOLD_CHUNK = 1024
+#: fma chain links a byte of the buffer from which acc.cu keeps the
+#: persistent grid above the L2 (bfloat16 at depth 8 has 4 and lost 7 % on
+#: the non-persistent grid; float32 at depth 8 has 2 and gained 1.5-3 %:
+#: tools/stream_variants.py --sweep acc on an H100)
+FMA_PERSISTENT_PER_BYTE = 4
+
+
+def _block_plan(positions: int, persistent: bool, win: tuple, np_: tuple,
+                sms: int) -> dict:
+    """The grid of a vector-block walk (``csrc/walk.cuh``) over
+    ``positions`` positions a pass: ``shape`` 0 (persistent: ``grid``
+    resident CTAs take blocks c, c + grid, ... in every pass) or 1
+    (non-persistent: ``grid`` blocks a pass, the pass the slow grid
+    dimension); ``block`` positions a block, ``threads`` a CTA."""
+    if persistent:
+        threads, vecs, ctas = win
+        per = threads * vecs
+        return {"shape": 0, "grid": min(-(-positions // per), ctas * sms),
+                "block": per, "threads": threads}
+    threads, vecs = np_
+    per = threads * vecs
+    return {"shape": 1, "grid": -(-positions // per), "block": per,
+            "threads": threads}
+
+
+def _win(win: tuple, interleave: int) -> tuple:
+    """The persistent shape at ``interleave``: K >= 4 holds K vectors a
+    position and is compiled for half the CTAs an SM."""
+    threads, vecs, ctas = win
+    return threads, vecs, ctas // 2 if interleave >= 4 else ctas
+
+
+@functools.lru_cache(maxsize=256)
+def acc_launch_plan(n_tiles: int, tile_bytes: int, interleave: int, sms: int,
+                    l2: int, links_per_byte: float = 0.0) -> dict:
+    """The grid of csrc/acc.cu (load_sum, load_only, fma): persistent while
+    the buffer fits the L2 of ``l2`` bytes, non-persistent above it, but for
+    an fma chain of ``links_per_byte`` >= FMA_PERSISTENT_PER_BYTE (depth /
+    element size), which stays persistent: its chains keep the float32
+    units about as busy as its loads keep the memory, and CTAs that retire
+    after one block overlap the two less.  With interleave = K a position
+    is K vectors (one in each row chunk of a tile); K >= 4 is compiled for
+    half the persistent CTAs an SM."""
+    positions = n_tiles * tile_bytes // 16 // interleave
+    fits = (n_tiles * tile_bytes <= l2
+            or links_per_byte >= FMA_PERSISTENT_PER_BYTE)
+    return _block_plan(positions, fits, _win(ACC_WIN, interleave), ACC_NP,
+                       sms)
+
+
+@functools.lru_cache(maxsize=256)
+def copy_launch_plan(n_tiles: int, tile_bytes: int, interleave: int,
+                     sms: int, l2: int) -> dict:
+    """The grid of csrc/copy.cu: persistent while the two buffers fit the
+    L2 of ``l2`` bytes, non-persistent above it (positions as in
+    ``acc_launch_plan``, and so is the persistent grid)."""
+    positions = n_tiles * tile_bytes // 16 // interleave
+    return _block_plan(positions, 2 * n_tiles * tile_bytes <= l2,
+                       _win(COPY_WIN, interleave), COPY_NP, sms)
+
+
+def acc_scratch(plan: dict, passes: int) -> int:
+    """Floats of csrc/acc.cu's partials scratch: one partial a CTA
+    (persistent) or per block and pass (non-persistent), then the first fold
+    stage's output."""
+    n = plan["grid"] * (passes if plan["shape"] == 1 else 1)
+    return n + -(-n // FOLD_CHUNK)
+
+
 #: the launch plan of csrc/mxu.cu per dtype (mirrors its route constants):
 #: CTAs resident per SM, and dynamic shared memory per CTA — float32: w
 #: (64 KiB) and two 128-row chunks of x; bfloat16: two 128-row chunks (w
@@ -382,13 +467,16 @@ def plain_chase(perm, block_rows: int, streams: int = 1,
 
 def _acc(name: str, x, n_tiles, block_rows, streams, passes, unroll,
          interleave, depth) -> torch.Tensor:
-    grid = grid_size(n_tiles, x.device)
-    partials = torch.empty(grid, dtype=torch.float32, device=x.device)
+    plan = acc_launch_plan(n_tiles, block_rows * LANES * x.element_size(),
+                           interleave, sm_count(x.device), l2_bytes(x.device),
+                           depth / x.element_size())
+    partials = torch.empty(acc_scratch(plan, passes), dtype=torch.float32,
+                           device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     err = _launch(_entry(SOURCES[name]), x, _ACC_MIX_CODE[name],
                   _DTYPE_CODE[x.dtype], x.data_ptr(), partials.data_ptr(),
                   out.data_ptr(), n_tiles, block_rows, streams, passes,
-                  unroll, interleave, depth, grid)
+                  unroll, interleave, depth, plan["shape"], plan["grid"])
     launch_counts[name] += 1
     _raise_on(err, name)
     return out
@@ -467,9 +555,12 @@ def copy(x, out=None, *, block_rows: int, streams: int = 1, passes: int = 1,
         return plain_copy(x, out, passes)
     if out is None:
         out = torch.empty_like(x)
+    tile_bytes = block_rows * LANES * x.element_size()
+    plan = copy_launch_plan(n_tiles, tile_bytes, interleave,
+                            sm_count(x.device), l2_bytes(x.device))
     err = _launch(_entry(SOURCES["copy"]), x, x.data_ptr(), out.data_ptr(),
-                  n_tiles, block_rows * LANES * x.element_size(), streams,
-                  passes, unroll, interleave, grid_size(n_tiles, x.device))
+                  n_tiles, tile_bytes, streams, passes, unroll, interleave,
+                  plan["shape"], plan["grid"])
     launch_counts["copy"] += 1
     _raise_on(err, "copy")
     return out

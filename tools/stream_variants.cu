@@ -1,10 +1,11 @@
 // Design variants of the streaming membench kernels (csrc/copy.cu,
-// csrc/rw.cu and csrc/triad.cu), for timing on the card by
+// csrc/rw.cu, csrc/triad.cu and csrc/acc.cu), for timing on the card by
 // tools/stream_variants.py, which builds this file with
 // -I src/repro_torch/kernels/membench/csrc: once per cache-hint pair
 // (-DSV_LD=n -DSV_ST=n) for the first sweep, with -DSV_LEAN once per hint
-// set (-DSV_HINT=n) for the second and third, and with -DSV_TRIAD for the
-// triad sweep (its variants are described at SV_TRIAD below).
+// set (-DSV_HINT=n) for the second and third, with -DSV_TRIAD for the triad
+// sweep and with -DSV_ACC for the acc and copy sweeps (their variants are
+// described at SV_TRIAD and SV_ACC below).
 //
 // Second and third sweeps (SV_LEAN): sv_lean<T, R, V, CTAS> runs the pass
 // body of csrc/stream.cuh (the one rw.cu runs) with V vectors a thread in
@@ -200,6 +201,145 @@ extern "C" int sv_triad_launch(int kind, int dtype, int vecs, int threads,
               s, occupancy_only);
   SV_TRIAD_LIST(SV_TRIAD_CASE)
 #undef SV_TRIAD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+#elif defined(SV_ACC)
+
+// acc and copy variants (SV_ACC): the kernels of csrc/acc.cu and
+// csrc/copy.cu themselves (included below), instantiated at other grid
+// shapes than the wrappers launch: THREADS threads a CTA taking blocks of
+// THREADS x V positions (64 to 2048 vectors), persistent (kind 0, the
+// pass loop inside, compiled for CTAS resident CTAs an SM) or non-persistent
+// (kind 1, the pass on grid.y), both compiled for CTAS resident CTAs an SM;
+// unroll 1, interleave 1, streams 1.
+#include "acc.cu"
+#include "copy.cu"
+
+// (THREADS, V, CTAS) of the acc and copy variants
+#define SV_ACC_LIST(X)                                                      \
+  X(64, 1, 16) X(256, 1, 4) X(256, 1, 8) X(256, 2, 4) X(256, 4, 4)          \
+  X(256, 4, 8) X(256, 8, 2) X(256, 16, 2) X(1024, 1, 2)
+
+namespace sv {
+
+template <typename K>
+static int resident(K kernel, int threads) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0);
+  return -n;
+}
+
+// kind 2: acc.cu's persistent kernel without its acc_linear branch (every
+// case on the cursor walk of acc_fixed / acc_walk), to time what that
+// branch is worth where it runs (interleave 1, streams 1, more blocks a
+// pass than CTAs: 16 MiB, and bfloat16 fma above the L2)
+template <typename T, int MIX, int TH, int V, int CTAS>
+__global__ void __launch_bounds__(TH, CTAS)
+acc_win_walk(const char* x, float* partials, int n_tiles, int tile_vecs,
+             int passes, int depth) {
+  using namespace mb;
+  const VecWalk w(n_tiles, tile_vecs, 1, 1);
+  CopyRing<TH, ring_stages(kLoadOnlyStages, TH)> ring;
+  float acc[1] = {0.0f};
+  const WinCursor<TH, V> cur(w);
+  if (WinCursor<TH, V>::fixed(w))
+    acc_fixed<T, 1, 1, MIX, V>(x, w, cur.first, acc, passes, depth, ring);
+  else
+    acc_walk<T, 1, 1, MIX>(x, w, cur, acc, passes, depth, ring);
+  if constexpr (MIX == kLoadOnly) ring.drain();
+  const float s = cta_total<1, TH>(acc);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+}
+
+// mix 0 load_sum, 1 load_only, 2 fma (into partials, folded into out),
+// 3 copy (x into out)
+template <typename T, int MIX, int TH, int V, int CTAS>
+static int acc_variant(int kind, const mb::AccArgs& a, float* out,
+                       int occupancy_only) {
+  using namespace mb;
+  if (occupancy_only)
+    return kind == 0   ? resident(acc_win<T, 1, 1, MIX, TH, V, CTAS>, TH)
+           : kind == 2 ? resident(acc_win_walk<T, MIX, TH, V, CTAS>, TH)
+                       : resident(acc_np<T, 1, MIX, TH, V, CTAS>, TH);
+  long long n = a.grid;
+  if (kind == 0) {
+    launch_win<T, 1, 1, MIX, TH, V, CTAS>(a);
+  } else if (kind == 2) {
+    acc_win_walk<T, MIX, TH, V, CTAS><<<a.grid, TH, 0, a.st>>>(
+        a.x, a.partials, a.n_tiles, a.tile_vecs, a.passes, a.depth);
+  } else {
+    const int err = launch_np<T, 1, MIX, TH, V, CTAS>(a);
+    if (err) return err;
+    n *= a.passes;
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return mb::fold(a.partials, n, out, a.st);    // not sv::fold
+}
+
+template <int TH, int V, int CTAS>
+static int copy_variant(int kind, const mb::CopyArgs& a,
+                        int occupancy_only) {
+  using namespace mb;
+  if (kind == 2) return (int)cudaErrorInvalidValue;   // acc only
+  if (occupancy_only)
+    return kind == 0 ? resident(copy_win<1, 1, TH, V, CTAS>, TH)
+                     : resident(copy_np<1, TH, V>, TH);
+  if (kind == 0) {
+    launch_copy_win<1, 1, TH, V, CTAS>(a);
+  } else {
+    const int err = launch_copy_np<1, TH, V>(a);
+    if (err) return err;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int TH, int V, int CTAS>
+static int variant_t(int kind, int mix, const mb::AccArgs& a, void* out,
+                     int occupancy_only) {
+  switch (mix) {
+    case 0: return acc_variant<T, mb::kLoadSum, TH, V, CTAS>(
+        kind, a, static_cast<float*>(out), occupancy_only);
+    case 1: return acc_variant<T, mb::kLoadOnly, TH, V, CTAS>(
+        kind, a, static_cast<float*>(out), occupancy_only);
+    case 2: return acc_variant<T, mb::kFma, TH, V, CTAS>(
+        kind, a, static_cast<float*>(out), occupancy_only);
+    case 3: {
+      const mb::CopyArgs c{a.x, static_cast<char*>(out), a.n_tiles,
+                           a.tile_vecs, a.streams, a.passes, a.grid, a.st};
+      return copy_variant<TH, V, CTAS>(kind, c, occupancy_only);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace sv
+
+// kind 0 persistent (grid CTAs), 1 non-persistent (grid = the blocks of a
+// pass), 2 persistent without acc_linear (acc mixes only).  mix 0
+// load_sum, 1 load_only, 2 fma (partials: float scratch of n + ceil(n /
+// 1024) for n = grid, or grid * passes for kind 1; out: float[1]),
+// 3 copy (out: the output buffer; copy ignores dtype).  dtype 0 float32,
+// 1 bfloat16.  occupancy_only != 0: launch nothing, return minus the
+// resident CTAs an SM.  A (THREADS, V, CTAS) not in the list:
+// cudaErrorInvalidValue.
+extern "C" int sv_acc_launch(int kind, int mix, int dtype, int threads,
+                             int vecs, int ctas, const void* x,
+                             float* partials, void* out, int n_tiles,
+                             int tile_vecs, int passes, int depth, int grid,
+                             int occupancy_only, void* stream) {
+  const mb::AccArgs a{static_cast<const char*>(x), partials, n_tiles,
+                      tile_vecs, 1, passes, depth, grid,
+                      static_cast<cudaStream_t>(stream)};
+#define SV_ACC_CASE(TH, V, C)                                               \
+  if (threads == TH && vecs == V && ctas == C)                              \
+    return dtype == 0                                                       \
+        ? sv::variant_t<float, TH, V, C>(kind, mix, a, out, occupancy_only) \
+        : sv::variant_t<__nv_bfloat16, TH, V, C>(kind, mix, a, out,         \
+                                                 occupancy_only);
+  SV_ACC_LIST(SV_ACC_CASE)
+#undef SV_ACC_CASE
   return (int)cudaErrorInvalidValue;
 }
 

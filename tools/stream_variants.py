@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Device times of the streaming membench kernels (``csrc/copy.cu``,
-``csrc/rw.cu``, ``csrc/triad.cu``) and of their design variants, on one
-NVIDIA GPU.
+``csrc/rw.cu``, ``csrc/triad.cu``, ``csrc/acc.cu``) and of their design
+variants, on one NVIDIA GPU.
 
     python3 tools/stream_variants.py                   # wrappers + variants
     python3 tools/stream_variants.py --mode wrappers --src DIR --label NAME
     python3 tools/stream_variants.py --quick           # no 2 GiB shapes
     python3 tools/stream_variants.py --sweep triad     # triad and its variants
+    python3 tools/stream_variants.py --sweep acc       # acc.cu, its variants
+    python3 tools/stream_variants.py --sweep copy      # copy.cu, its variants
 
-``wrappers``: ``membench.copy``, ``membench.rw`` over the R:W ladder and
-``membench.triad`` (beside rw_2to1, which computes the same function) of
-the package under ``--src`` (default: this checkout's ``src``), with the
-library calls ``out.copy_(x)`` and ``torch.add(x, y, alpha=1.5, out=out)``
+``wrappers``: ``membench.copy``, ``membench.rw`` over the R:W ladder,
+``membench.triad`` (beside rw_2to1, which computes the same function) and
+``membench.load_sum`` / ``load_only`` / ``fma`` (depth 8) of the package
+under ``--src`` (default: this checkout's ``src``), with the library calls
+``out.copy_(x)``, ``torch.add(x, y, alpha=1.5, out=out)`` and ``x.sum``
 beside them, at 32 KiB and 1 MiB float32 (2048 and 64 passes a call, so
 that the cache level and not the launch is timed) and at 16 MiB and 2 GiB in
 float32 and bfloat16 (one pass, as ``chip_smoke.py`` phase 5 times them).
@@ -43,7 +46,15 @@ blocks of THREADS x V vectors in address order, one block per piece and the
 pass the slow grid dimension; ``win``: a persistent grid of every CTA that
 stays resident taking the same blocks c, c + G, ..., so that the CTAs in
 flight cover one compact window), for V in 1, 2, 4, 8 and THREADS in 256,
-512, 1024, against ``membench.triad`` and ``torch.add``.  Each config is timed twice, in turns with the
+512, 1024, against ``membench.triad`` and ``torch.add``.  ``acc`` and
+``copy`` (alone: the wrappers are then timed for those kernels only): the
+kernels of ``csrc/acc.cu`` (load_sum, load_only, fma) or ``csrc/copy.cu``
+built at other grid shapes (the ``SV_ACC`` build: blocks of 64 to 4096
+vectors, ``ACC_LIST``, persistent ``win`` and non-persistent ``np``; the
+persistent 256-thread shape also on 1 and 2 CTAs an SM, ``G1`` / ``G2``,
+and, for acc, ``walk T256 V1 C4``: the persistent kernel without its
+``acc_linear`` branch), against the current wrappers; ``--configs`` keeps
+only the named ones.  Each config is timed twice, in turns with the
 others, and keeps its lesser time; configs whose launches are the same at a
 shape are timed once.
 
@@ -99,10 +110,14 @@ def parse_args():
                     help="the src/ directory whose repro_torch is timed")
     ap.add_argument("--label", default="change")
     ap.add_argument("--sweep", choices=("first", "second", "third", "all",
-                                        "triad"),
+                                        "triad", "acc", "copy"),
                     default="all")
     ap.add_argument("--quick", action="store_true",
                     help="leave out the 2 GiB shapes")
+    ap.add_argument("--configs", default="",
+                    help="--sweep acc / copy: time only these variants "
+                         "(comma-separated names as the sweep prints them, "
+                         "e.g. 'win T256 V1 C4,walk T256 V1 C4')")
     ap.add_argument("--out-dir", default=str(ROOT / "artifacts" /
                                              "stream_variants"))
     return ap.parse_args()
@@ -182,11 +197,72 @@ def check(outs, want, what: str) -> None:
 # the wrappers of the package under --src
 # ---------------------------------------------------------------------------
 
+FMA_DEPTH = 8
+ACC_KERNELS = ("load_sum", "load_only", "fma")
+
+
+def acc_call(kernel: str, x, br: int, passes: int):
+    kw = dict(block_rows=br, passes=passes)
+    return {"load_sum": lambda: mb.load_sum(x, **kw),
+            "load_only": lambda: mb.load_only(x, **kw),
+            "fma": lambda: mb.fma(x, FMA_DEPTH, **kw)}[kernel]
+
+
+def check_acc(kernel: str, got, x, br: int, passes: int, what: str) -> None:
+    """A result of load_sum / load_only / fma against its plain version: on
+    the working set the sums of load_sum and fma cancel (an absolute bound,
+    the reference's n * 1e-7 * 1.3 per sweep and link), load_only's do not
+    (1e-5 of the value)."""
+    want = {"load_sum": lambda: mb.plain_load_sum(x, passes),
+            "load_only": lambda: mb.plain_load_only(x, br, passes),
+            "fma": lambda: mb.plain_fma(x, FMA_DEPTH, passes)}[kernel]()
+    if kernel == "load_only":
+        tol = 1e-5 * abs(float(want))
+    else:
+        link = FMA_DEPTH if kernel == "fma" else 1
+        tol = max(x.numel() * 1e-7 * 1.3 * passes * link, 1e-4)
+    if not abs(float(got) - float(want)) <= tol:
+        raise AssertionError(f"{what}: {float(got)} against the plain "
+                             f"version's {float(want)} (tolerance {tol})")
+
+
+def time_acc_wrappers(dname, nbytes, passes, n) -> list[dict]:
+    x = working_set(nbytes, dtype=getattr(torch, dname), device=DEV)
+    br = mb.default_block_rows(x.shape[0])
+    lib = (lambda: x.sum(dtype=torch.float32)) if passes == 1 else None
+    lt = [device_ms(lib, n)[0] for _ in range(2)] if lib else None
+    rows = []
+    for kernel in ACC_KERNELS:
+        fn = acc_call(kernel, x, br, passes)
+        hp = min(passes, 8)       # checked at <= 8 passes, as phase 5 does
+        check_acc(kernel, acc_call(kernel, x, br, hp)(), x, br, hp,
+                  f"{kernel} {dname} {nbytes}")
+        t = [device_ms(fn, n) for _ in range(2)]
+        r = {"label": ARGS.label, "kernel": kernel, "dtype": dname,
+             "nbytes": nbytes, "passes": passes,
+             "device_ms": min(a for a, _ in t),
+             "host_ms": min(b for _, b in t),
+             "library_device_ms": min(lt) if lt else None,
+             "bound_ms": x.numel() * x.element_size() * passes / 3.35e12
+             * 1e3}
+        rows.append(r)
+        say(f"  {kernel:9s} {dname:8s} {nbytes:>11d} B x{passes:<5d} "
+            f"device {r['device_ms']:.5f} ms  host {r['host_ms']:.5f}  "
+            "x.sum " + ("-" if lt is None else f"{r['library_device_ms']:.5f}")
+            + f"  bound {r['bound_ms']:.5f}")
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
 def time_wrappers() -> list[dict]:
     say(f"== wrappers of {ARGS.src} ({ARGS.label})")
     rows = []
-    ladder = ((2, 1),) if ARGS.sweep == "triad" else LADDER
+    ladder = {"triad": ((2, 1),), "acc": (), "copy": ((1, 1),)}.get(
+        ARGS.sweep, LADDER)
     for dname, nbytes, passes, n in shapes():
+        if ARGS.sweep not in ("triad", "copy"):
+            rows += time_acc_wrappers(dname, nbytes, passes, n)
         for reads, writes in ladder:
             x, ys, outs, want = operands(dname, nbytes, reads, writes)
             br = mb.default_block_rows(x.shape[0])
@@ -196,6 +272,8 @@ def time_wrappers() -> list[dict]:
             if (reads, writes) == (1, 1):
                 calls["copy"] = lambda: mb.copy(x, outs[0], block_rows=br,
                                                 passes=passes)
+                if ARGS.sweep == "copy":
+                    del calls["rw"]
             if (reads, writes) == (2, 1):
                 calls["triad"] = lambda: mb.triad(x, ys[0], outs[0],
                                                   block_rows=br,
@@ -250,12 +328,15 @@ def build_variants() -> dict:
         keys += [("lean", h) for h in HINT_NAMES if ("lean", h) not in keys]
     if ARGS.sweep == "triad":
         keys = [("triad",)]
+    if ARGS.sweep in ("acc", "copy"):
+        keys = [("acc",)]
     t0 = time.perf_counter()
     procs = {}
     for key in keys:
         so = out / f"stream_variants-{'-'.join(map(str, key))}.so"
         defs = ([f"-DSV_LD={key[1]}", f"-DSV_ST={key[2]}"] if key[0] == "first"
                 else ["-DSV_TRIAD"] if key[0] == "triad"
+                else ["-DSV_ACC"] if key[0] == "acc"
                 else ["-DSV_LEAN", f"-DSV_HINT={key[1]}"])
         cmd = [nvcc, *NVCC_FLAGS, f"-I{csrc}", *defs, "-o", str(so),
                str(ROOT / "tools" / "stream_variants.cu")]
@@ -273,6 +354,8 @@ def build_variants() -> dict:
         if key[0] == "triad":
             lib.sv_triad_launch.argtypes = [I, I, I, I, P, P, P] + [I] * 6 \
                 + [P]
+        elif key[0] == "acc":
+            lib.sv_acc_launch.argtypes = [I] * 6 + [P, P, P] + [I] * 6 + [P]
         elif key[0] == "first":
             lib.sv_rw_launch.argtypes = [I, I, I, P, P, I, I, I, I, I, I, I, P]
             lib.sv_bulk_launch.argtypes = [I, I, P, P, I, I, LL, I, I, I, I,
@@ -534,6 +617,115 @@ def time_triad_variants(current: dict) -> list[dict]:
     return rows
 
 
+#: (threads a CTA, positions a thread a block, CTAs an SM) of the SV_ACC
+#: build (SV_ACC_LIST): blocks of 64 to 4096 vectors
+ACC_LIST = ((64, 1, 16), (256, 1, 4), (256, 1, 8), (256, 2, 4), (256, 4, 4),
+            (256, 4, 8), (256, 8, 2), (256, 16, 2), (1024, 1, 2))
+ACC_MIX_CODE = {"load_sum": 0, "load_only": 1, "fma": 2, "copy": 3}
+
+
+def time_acc_variants(current: dict) -> list[dict]:
+    """The acc (or copy) variants at every shape, each checked against the
+    plain version (copy bit for bit), timed twice in turns with the others
+    (the lesser time kept), beside the current wrapper's device time at the
+    same shape.  ``np`` runs the passes of a many-pass point side by side:
+    it is not what the persistent shape measures there."""
+    say(f"== {ARGS.sweep} variants (tools/stream_variants.cu, SV_ACC)")
+    libs = build_variants()
+    if ("acc",) not in libs:
+        return []
+    fn_c = libs[("acc",)].sv_acc_launch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels = ("copy",) if ARGS.sweep == "copy" else ACC_KERNELS
+    rows = []
+    for dname, nbytes, passes, n in shapes():
+        x = working_set(nbytes, dtype=getattr(torch, dname), device=DEV)
+        out = torch.empty_like(x)
+        dt = 0 if x.dtype == torch.float32 else 1
+        br = mb.default_block_rows(x.shape[0])
+        n_tiles = x.shape[0] // br
+        tile_vecs = br * 128 * x.element_size() // 16
+        for kernel in kernels:
+            code = ACC_MIX_CODE[kernel]
+            runs = []
+            # (kind, threads, V, CTAs, grid cap in CTAs an SM): the
+            # persistent 256 x 1 shape also on 1 and 2 CTAs an SM
+            cases = [(kind, th, v, ctas, None) for kind in (0, 1)
+                     for th, v, ctas in ACC_LIST]
+            cases += [(0, 256, 1, 4, g) for g in (1, 2)]
+            if kernel != "copy":
+                # the persistent kernel without its acc_linear branch
+                cases.append((2, 256, 1, 4, None))
+            for kind, th, v, ctas, cap in cases:
+                kname = ("win", "np", "walk")[kind]
+                name = f"{kname} T{th} V{v} C{ctas}" + (
+                    f" G{cap}" if cap else "")
+                if ARGS.configs and name not in ARGS.configs.split(","):
+                    continue
+                res = -fn_c(kind, code, dt, th, v, ctas, x.data_ptr(),
+                            None, None, n_tiles, tile_vecs, passes,
+                            FMA_DEPTH, 0, 1, None)
+                blocks = -(-n_tiles * tile_vecs // (th * v))
+                grid = blocks if kind == 1 else min(
+                    blocks, (cap or res) * sms)
+                parts = grid * (passes if kind == 1 else 1)
+                partials = torch.empty(parts + -(-parts // 1024),
+                                       dtype=torch.float32, device=DEV)
+                res_t = torch.empty((), dtype=torch.float32, device=DEV)
+                dst = out if kernel == "copy" else res_t
+                args = (kind, code, dt, th, v, ctas, x.data_ptr(),
+                        partials.data_ptr(), dst.data_ptr(), n_tiles,
+                        tile_vecs, passes, FMA_DEPTH, grid, 0)
+                # checked at <= 8 passes (chip_smoke.py phase 5 says
+                # why), timed at the shape's
+                hp = min(passes, 8)
+                held = args[:11] + (hp,) + args[12:]
+
+                def launch(args=args):
+                    err = fn_c(*args,
+                               torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"acc variant {args[:6]}: "
+                                           f"launch error {err}")
+                launch(held)
+                torch.cuda.synchronize()
+                what = f"{kernel} {name} {dname} {nbytes}"
+                if kernel == "copy":
+                    if not torch.equal(out, x):
+                        raise AssertionError(f"{what}: output differs "
+                                             f"from x")
+                    out.zero_()
+                else:
+                    check_acc(kernel, res_t, x, br, hp, what)
+                runs.append((name, launch, grid, res,
+                             (partials, res_t)))
+            best: dict[str, float] = {}
+            for _ in range(2):
+                for name, launch, *_ in runs:
+                    best[name] = min(best.get(name, math.inf),
+                                     device_ms(launch, n)[0])
+            cur = current.get((kernel, dname, nbytes))
+            for name, _, grid, res, _ in runs:
+                t = best[name]
+                rows.append({"config": f"{kernel} {name}", "kernel": kernel,
+                             "dtype": dname, "nbytes": nbytes,
+                             "passes": passes, "grid": grid,
+                             "resident_per_sm": res, "device_ms": t,
+                             "vs_current": t / cur if cur else None})
+            top = sorted(best, key=best.get)[:4]
+            say(f"  {kernel:9s} {dname:8s} {nbytes:>11d} B x{passes}  "
+                f"current {cur if cur is None else f'{cur:.5f}'}  best: "
+                + "; ".join(f"{k} {best[k]:.5f}" for k in top))
+            del runs
+        del x, out
+        torch.cuda.empty_cache()
+    for kernel in kernels:
+        rank([dict(r, config=r["config"].split(" ", 1)[1]) for r in rows
+              if r["kernel"] == kernel], "vs_current",
+             f"the current {kernel} wrapper")
+    return rows
+
+
 def rank(rows: list[dict], field: str, what: str) -> None:
     """Configs by the geometric mean of rows[field] over every point they
     ran at (those that ran at every point only), with the worst ratio."""
@@ -568,9 +760,10 @@ def main() -> int:
         current.update({("torch.add", r["dtype"], r["nbytes"]):
                         r["library_device_ms"] for r in wrappers
                         if r["kernel"] == "triad"})
-        result["variants"] = (time_triad_variants(current)
-                              if ARGS.sweep == "triad"
-                              else time_variants(current))
+        result["variants"] = (
+            time_triad_variants(current) if ARGS.sweep == "triad"
+            else time_acc_variants(current) if ARGS.sweep in ("acc", "copy")
+            else time_variants(current))
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     (OUT / f"{ARGS.label}.json").write_text(json.dumps(result, indent=1))
     (OUT / f"{ARGS.label}.txt").write_text("\n".join(LINES) + "\n")
