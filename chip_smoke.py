@@ -41,6 +41,13 @@ Phases (any failure raises and the script exits non-zero):
      --prompt-len 512 --gen 16`` at full width (9 flash and 54 SSD launches
      in its one prefill, no membench launch), then in process the kernel
      route's prefill against the plain route's, and two decode steps.
+     3e: ``python -m repro_torch.bench characterize --smoke --backend cuda
+     --compare nvidia-h100-sxm`` (host-paced: the reference's preset), then
+     a device-paced characterization through the API (the ``--full``
+     preset's mixes and grid at CHARACTERIZE_TARGET_BYTES a call, every
+     call >= 1 ms, >= 2 levels) and a device-paced copy sweep on the same
+     grid, acc.cu / copy.cu launches equal to points x (reps + warmup) in
+     each, then ``history`` and a self-``diff`` of the ledger.
   4  the measurement is real: doubling ``passes`` doubles the time (also
      for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
      memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
@@ -70,6 +77,7 @@ import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -92,9 +100,14 @@ from repro_torch.bench import cli  # noqa: E402
 from repro_torch.bench.mixes import (GEN_SWEEPS_PER_PASS,  # noqa: E402
                                      get_mix, rw_name)
 from repro_torch.bench.result import BenchResult  # noqa: E402
+from repro_torch.bench.runner import Runner  # noqa: E402
+from repro_torch.characterize import (FittedMachineModel,  # noqa: E402
+                                      adaptive_sweep, characterize,
+                                      render_markdown)
 from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.core import instruction_mix as im  # noqa: E402
 from repro_torch.core.buffers import working_set  # noqa: E402
+from repro_torch.core.machine_model import get_spec  # noqa: E402
 from repro_torch.kernels.build import build_libraries, find_nvcc  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -1467,6 +1480,212 @@ def phase_serve_path(quick: bool) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 3e — the characterize path
+# ---------------------------------------------------------------------------
+
+#: bytes a timed call of the device-paced characterization moves (the
+#: Runner's ``target_bytes``): at the SMs' load/store rate (132 x 128 B x
+#: 1980 MHz = 33.5 TB/s on an H100 SXM) such a call lasts >= 1.9 ms, so the
+#: host's tens of microseconds a call stay <= 5 % of every point.  The
+#: reference's presets (3e7 .. 2e8 bytes) give calls of a few microseconds
+#: in the L2, which the host's share outlasts (``PERF.md`` §5).
+CHARACTERIZE_TARGET_BYTES = 6.4e10
+CHARACTERIZE_MIN_S = 1e-3
+#: the kernel whose launches a mix's points count
+ACC_COPY_KERNEL = {"load_sum": "load_sum", "copy": "copy"}
+
+
+def _level_lines(model) -> list[str]:
+    out = []
+    for lvl in model.levels:
+        br = (f"{lvl.capacity_ci[0]}..{lvl.capacity_ci[1]} B"
+              if lvl.capacity_ci else "-")
+        cells = "  ".join(f"{m} {c['gbps']:.1f}"
+                          for m, c in lvl.bandwidth.items())
+        out.append(f"  {lvl.name}: capacity {lvl.capacity_bytes} B, bracket "
+                   f"{br}; GB/s {cells}")
+    return out
+
+
+def _check_launches(mixes: list[str], calls: int, what: str
+                    ) -> dict[str, int]:
+    """The launch counters after a characterization (set to 0 just before
+    it) against the mixes of its points: one launch of the mix's kernel per
+    timed call, ``calls`` = reps + warmup a point, and no other kernel."""
+    counts = dict(mb.launch_counts)
+    want = dict.fromkeys(counts, 0)
+    for mix in mixes:
+        kernel = "fma" if mix.startswith("fma_") else ACC_COPY_KERNEL[mix]
+        want[kernel] += calls
+    say(f"  launches ({what}): {counts}")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected "
+                             f"{want} (points x {calls} calls)")
+    return counts
+
+
+def _check_device_paced(points) -> None:
+    """Every point of a device-paced sweep ran on ``cuda``, lasted at least
+    CHARACTERIZE_MIN_S a call, and stayed under the SMs' load/store rate
+    and under what HBM can feed past the L2."""
+    l2 = ON_CHIP["l2"]
+    for p in points:
+        if p.backend != "cuda":
+            raise AssertionError(f"a {p.backend!r} point: {p}")
+        if p.mean_s < CHARACTERIZE_MIN_S:
+            raise AssertionError(
+                f"{p.mix} at {p.nbytes} B: {p.mean_s * 1e3:.3f} ms a call, "
+                f"under {CHARACTERIZE_MIN_S * 1e3} ms: the host sets its pace")
+        check_on_chip_rate(f"characterize {p.mix} at {p.nbytes} B", p.gbps)
+        # in-order passes over a footprint F > L2 find at most L2 bytes of
+        # each pass on chip: the rest comes from HBM
+        foot = p.nbytes * (2 if p.mix == "copy" else 1)
+        if foot > l2 and p.gbps > (HBM_BYTES_PER_S / 1e9 * foot / (foot - l2)
+                                   * 1.02):
+            raise AssertionError(
+                f"characterize {p.mix} at {p.nbytes} B: {p.gbps:.1f} GB/s, "
+                f"above HBM's rate for a footprint of {foot} B over a "
+                f"{l2} B L2")
+
+
+def phase_characterize_path(quick: bool) -> dict[str, int]:
+    say("== phase 3e: the characterize path (python -m repro_torch.bench "
+        "characterize --smoke --backend cuda; then device-paced)")
+    t0 = time.perf_counter()
+    props = torch.cuda.get_device_properties(DEV)
+    say(f"  L2_cache_size {props.L2_cache_size} B, "
+        f"{props.multi_processor_count} SMs")
+    root = OUT_DIR / "characterize_history"
+    shutil.rmtree(root, ignore_errors=True)
+    h100 = get_spec("nvidia-h100-sxm")
+
+    # a. host-paced: the CLI as users run it, the reference's --smoke preset
+    out = OUT_DIR / "characterize_smoke.json"
+    mb.reset_launch_counts()
+    rc, text = _cli(["characterize", "--smoke", "--backend", "cuda", "--out",
+                     str(out), "--report",
+                     str(OUT_DIR / "characterize_smoke.md"), "--compare",
+                     "nvidia-h100-sxm", "--history-root", str(root),
+                     "--force"])
+    sync()
+    (OUT_DIR / "characterize_smoke.txt").write_text(text)
+    if rc != 0:
+        raise AssertionError(f"characterize --smoke exited {rc}:\n{text}")
+    for heading in ("Detected hierarchy", "Table-1 deltas",
+                    "sysfs prior cross-check"):
+        if heading not in text:
+            raise AssertionError(f"characterize printed no {heading!r}")
+    # host-paced, its GB/s are the host's pace below ~64 MiB and need not
+    # show a level boundary (PERF.md §6): the device-paced run below
+    # is held to >= 2 levels
+    smoke = FittedMachineModel.from_json(out)
+    if smoke.schema_version != 3 or not smoke.levels:
+        raise AssertionError(f"smoke model: schema {smoke.schema_version}, "
+                             f"{len(smoke.levels)} level(s)")
+    [rec] = cli.ledger.read_ledger(root)
+    if rec["backend"] != "cuda" or smoke.provenance["backend"] != "cuda":
+        raise AssertionError(f"smoke ran on {rec['backend']!r}")
+    # one ledger cell per point: each (mix, size) is measured once
+    mixes = [c["mix"] for c in rec["curves"]]
+    smoke_kw = cli.CHARACTERIZE_PRESETS["smoke"][0]
+    counts = _check_launches(mixes, smoke_kw["reps"] + smoke_kw["warmup"],
+                             "characterize --smoke")
+    say(f"  smoke (host-paced, {len(mixes)} points, "
+        f"{time.perf_counter() - t0:.1f} s): {len(smoke.levels)} levels")
+    for line in _level_lines(smoke):
+        say(line)
+
+    # b. device-paced: the --full preset's mixes and grid through the API,
+    # each call long enough that the device sets its pace
+    t1 = time.perf_counter()
+    kw, mixes = cli.CHARACTERIZE_PRESETS["full"]
+    kw = dict(kw, target_bytes=CHARACTERIZE_TARGET_BYTES)
+    if quick:
+        kw.update(coarse_per_decade=2, max_rounds=1)
+    runner = Runner(device=DEV)
+    mb.reset_launch_counts()
+    model, sweep = characterize(mixes, primary=mixes[0], runner=runner,
+                                backend="cuda", register=False, **kw)
+    sync()
+    res = sweep.result
+    full = _check_launches([p.mix for p in res.points],
+                           kw["reps"] + kw["warmup"],
+                           "device-paced characterize")
+    _check_device_paced(res.points)
+    if len(model.levels) < 2:
+        raise AssertionError(f"the device-paced model has "
+                             f"{len(model.levels)} level(s); the card has "
+                             f"at least an on-chip level and HBM")
+    path = OUT_DIR / "characterize_device.json"
+    model.to_json(path)
+    if FittedMachineModel.from_json(path).to_dict() != model.to_dict():
+        raise AssertionError("the fitted model does not round-trip its JSON")
+    res.to_json(OUT_DIR / "characterize_device_result.json")
+    with open(OUT_DIR / "characterize_points.txt", "w") as f:
+        for p in sorted(res.points, key=lambda q: (q.mix, q.nbytes)):
+            f.write(f"{p.mix} {p.nbytes} {p.passes} {p.mean_s * 1e3:.4f} ms "
+                    f"{p.gbps:.2f} GB/s\n")
+    report = render_markdown(model, sweep, h100)
+    (OUT_DIR / "characterize_device.md").write_text(report)
+    say(f"  device-paced ({len(res.points)} points, target_bytes "
+        f"{CHARACTERIZE_TARGET_BYTES:.3g}, {sweep.rounds} rounds, "
+        f"{time.perf_counter() - t1:.1f} s): {len(model.levels)} levels, "
+        f"calls {min(p.mean_s for p in res.points) * 1e3:.3f} .. "
+        f"{max(p.mean_s for p in res.points) * 1e3:.3f} ms")
+    for line in _level_lines(model):
+        say(line)
+    ridge = model.ridge_flops_per_byte
+    say(f"  ridge: {ridge} flop/B"
+        + (f" (fma depth {ridge * 4 / 2:.0f}, float32)" if ridge else ""))
+    # on a CUDA runner the prior is core.machine_model.detect_device's
+    say(f"  prior {model.sysfs_prior['prior_name']}: "
+        f"{model.sysfs_prior['notes']}")
+    for c in model.sysfs_prior["checks"]:
+        say(f"  prior {c['prior']} {c['size_bytes']} B: "
+            + (f"inside {c['bracket']}" if c["within_bracket"] else
+               f"outside, nearest detected {c.get('nearest_detected')}"))
+    say("  " + report.replace("\n", "\n  "))
+
+    # copy, which drives the --smoke preset's detection, device-paced on the
+    # same grid: two buffers a point, so its boundary is expected near half
+    # the L2
+    mb.reset_launch_counts()
+    copy_sweep = adaptive_sweep("copy", runner=runner, backend="cuda", **kw)
+    sync()
+    copied = _check_launches([p.mix for p in copy_sweep.result.points],
+                             kw["reps"] + kw["warmup"],
+                             "device-paced copy sweep")
+    _check_device_paced(copy_sweep.result.points)
+    for k, v in copied.items():
+        counts[k] += v + full[k]
+    with open(OUT_DIR / "characterize_points.txt", "a") as f:
+        for p in sorted(copy_sweep.result.points, key=lambda q: q.nbytes):
+            f.write(f"copy-sweep {p.nbytes} {p.passes} "
+                    f"{p.mean_s * 1e3:.4f} ms {p.gbps:.2f} GB/s\n")
+    say(f"  device-paced copy sweep ({copy_sweep.n_points} points, "
+        f"{copy_sweep.rounds} rounds): "
+        f"{copy_sweep.detection.n_levels} levels")
+    for lvl in copy_sweep.detection.levels:
+        say(f"  {lvl.name}: bracket {lvl.capacity_ci}, {lvl.gbps:.1f} GB/s")
+
+    # c. history lists both records; the device-paced one diffs clean
+    cli.ledger.append_record(res, cmd="characterize", root=root)
+    rc, text = _cli(["history", "--history-root", str(root)])
+    rows = [l for l in text.splitlines() if l.split()[:1]
+            and l.split()[0].isdigit()]
+    say("  " + text.rstrip().replace("\n", "\n  "))
+    if rc != 0 or len(rows) != 2:
+        raise AssertionError(f"history exited {rc} with {len(rows)} records")
+    rc, text = _cli(["diff", "--baseline", "-1", "--current", "-1",
+                     "--history-root", str(root)])
+    say("  " + text.rstrip().splitlines()[-1])
+    if rc != 0 or " 0 regression(s)" not in text:
+        raise AssertionError(f"diff of the record with itself exited {rc}")
+    say(f"  phase 3e: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # timing helpers (CUDA events) for phases 4 and 5
 # ---------------------------------------------------------------------------
 
@@ -2053,10 +2272,14 @@ def main(argv=None) -> int:
     counts["rw"] = phase_rw_path(args.quick)["rw"]
     counts["chase"] = phase_latency_path(args.quick)["chase"]
     counts.update(phase_serve_path(args.quick))
+    characterized = phase_characterize_path(args.quick)
     phase_real(args.quick)
     phase_real_rw_chase(args.quick)
     line = phase_kernels_line(counts, args.quick)
     line["kernels"] += model_kernel_entries(counts, errs)
+    for e in line["kernels"]:
+        if e["name"] in ("load_sum", "fma", "copy"):
+            e["launches_characterize"] = characterized[e["name"]]
     say(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
     say(info["smi"])
     say(json.dumps(line))

@@ -1,21 +1,29 @@
-"""``python -m repro_torch.bench`` — run / list-mixes / compare / latency.
+"""``python -m repro_torch.bench`` — run / list-mixes / compare /
+characterize / latency / history / diff.
 
     run         execute a BenchSpec (flags or --spec JSON), print + save the
                 schema-versioned result JSON
     list-mixes  the shared mix registry with its bytes/flops accounting
     compare     the same spec on several backends, side by side
+    characterize  adaptive fine-granularity sweep -> detected topology ->
+                FittedMachineModel JSON + markdown report
+                (repro_torch.characterize)
     latency     loaded-latency surface: the latency_chase probe across the
                 load axis -> bandwidth-latency curve + knee fit
+    history     list the persistent run ledger (BENCH_history/); --add
+                ingests a saved result JSON as a record (repro_torch.obs.ledger)
+    diff        noise-aware bandwidth comparison against a ledger baseline
+                (characterize.detect two-sample test); exit 2 on regression
 
 Every command that measures takes ``--device`` (default ``cuda``; with no
 CUDA device present the default raises — pass ``--device cpu`` to run the
-plain PyTorch versions on the CPU).  ``run`` and ``latency`` take ``--trace
-PATH`` (span tracing -> Perfetto JSON), append a ledger record unless
-``--no-ledger``, and refuse to overwrite an existing ``--out`` file unless
-``--force``.
+plain PyTorch versions on the CPU).  ``run``, ``characterize`` and
+``latency`` take ``--trace PATH`` (span tracing -> Perfetto JSON), append a
+ledger record unless ``--no-ledger``, and refuse to overwrite an existing
+``--out``/``--report`` file unless ``--force``.
 
-Counterpart of ``repro.bench.cli``; its other sub-commands (characterize,
-istream, audit, launch, history, diff) have none here yet.
+Counterpart of ``repro.bench.cli``; its other sub-commands (istream, audit,
+launch) have none here yet.
 """
 from __future__ import annotations
 
@@ -216,6 +224,64 @@ def cmd_compare(args) -> int:
     return 1 if mismatch else 0
 
 
+#: ``characterize``'s presets, the reference's: sweep keywords of
+#: ``characterize.characterize`` and the mixes (the first drives detection).
+#: ``smoke``: copy drives detection — its store stream keeps the big-size
+#: points memory-bound, so the cache cliffs are sharpest where the coarse
+#: grid is thinnest (and its resolution is at least 0.35).
+CHARACTERIZE_PRESETS = {
+    "smoke": (dict(lo=16 * 2**10, hi=64 * 2**20, coarse_per_decade=2,
+                   max_rounds=2, reps=5, warmup=1, target_bytes=3e7),
+              ("copy", "load_sum")),
+    "full": (dict(coarse_per_decade=4, reps=10, warmup=2, target_bytes=2e8,
+                  hi=256 * 2**20),
+             ("load_sum", "copy", "fma_1", "fma_2", "fma_8", "fma_32",
+              "fma_64")),
+    "default": (dict(coarse_per_decade=3, reps=5, warmup=1,
+                     target_bytes=5e7),
+                ("load_sum", "copy", "fma_8", "fma_32")),
+}
+
+
+def cmd_characterize(args) -> int:
+    """Measurement-driven machine characterization: adaptive fine-granularity
+    sweep -> change-point detection -> FittedMachineModel + report (see
+    repro_torch.characterize).  ``--smoke`` is the fast preset (coarse grid,
+    one refinement round); ``--full`` the paper-grade sweep.  The presets
+    are the reference's; on a CUDA device the prior is the card's
+    (``core.machine_model.detect_device``), elsewhere the host's sysfs."""
+    from repro_torch.characterize import (characterize, render_markdown,
+                                          write_report)
+    from repro_torch.core.machine_model import get_spec
+
+    _check_overwrite(args, "out", "report")
+    runner = Runner(device=args.device)     # raises without a CUDA device
+    _obs_begin(args)
+    kw: dict = dict(backend=args.backend, resolution=args.resolution,
+                    max_rounds=args.max_rounds)
+    preset = "smoke" if args.smoke else "full" if args.full else "default"
+    sweep_kw, mixes = CHARACTERIZE_PRESETS[preset]
+    kw.update(sweep_kw)
+    if args.smoke:
+        kw["resolution"] = max(args.resolution, 0.35)
+    if args.mixes:
+        mixes = tuple(args.mixes.split(","))
+
+    model, sweep = characterize(mixes=mixes, primary=mixes[0], runner=runner,
+                                **kw)
+    _obs_finish(args, sweep.result, "characterize")
+    documented = get_spec(args.compare) if args.compare else None
+    print(render_markdown(model, sweep, documented))
+    if args.out:
+        model.to_json(args.out)
+        print(f"# saved fitted model (schema v{model.schema_version}, "
+              f"{len(model.levels)} levels) -> {args.out}")
+    if args.report:
+        write_report(model, args.report, sweep, documented)
+        print(f"# saved report -> {args.report}")
+    return 0
+
+
 def cmd_latency(args) -> int:
     """Loaded-latency surface (see characterize.loaded): sweep the
     ``latency_chase`` probe across the ``load`` axis at each working-set
@@ -256,6 +322,57 @@ def cmd_latency(args) -> int:
     return 0
 
 
+def cmd_history(args) -> int:
+    """List the persistent run ledger (see repro_torch.obs.ledger).
+    ``--add`` first ingests a file — a saved ledger record or a full
+    BenchResult JSON (summarized on the fly)."""
+    root = args.history_root
+    if args.add:
+        rec = ledger.resolve_ref(args.add, root=root)
+        path, rec = ledger.append_record(rec, root=root)
+        print(f"# ledger += {rec['spec_digest']} "
+              f"({len(rec.get('curves') or [])} cells) -> {path}")
+    records = ledger.read_ledger(root)
+    if args.json:
+        print(json.dumps(records, indent=1))
+        return 0
+    if not records:
+        print(f"# empty ledger at {ledger.ledger_root(root)}")
+        return 0
+    import datetime
+    print(f"{'idx':>3s} {'when':19s} {'cmd':12s} {'digest':12s} "
+          f"{'backend':11s} {'cells':>5s} mixes")
+    for i, r in enumerate(records):
+        t = datetime.datetime.fromtimestamp(r.get("time_unix_s", 0))
+        print(f"{i:3d} {t:%Y-%m-%d %H:%M:%S} {r.get('cmd', '?'):12s} "
+              f"{r.get('spec_digest', '?'):12s} "
+              f"{str(r.get('backend') or '-'):11s} "
+              f"{len(r.get('curves') or []):5d} "
+              f"{','.join(r.get('mixes') or [])}")
+    return 0
+
+
+def cmd_diff(args) -> int:
+    """Noise-aware bandwidth diff against a ledger baseline (see
+    repro_torch.obs.ledger.diff_records): per curve cell, the two-sample
+    log-bandwidth test of ``characterize.detect.significant_step``.
+    Exit 0 when nothing significantly dropped, 2 on regression."""
+    root = args.history_root
+    base = ledger.resolve_ref(args.baseline, root=root)
+    cur = ledger.resolve_ref(args.current, root=root)
+    report = ledger.diff_records(base, cur, z=args.z,
+                                 tolerance=args.tolerance)
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=1))
+    else:
+        print(report.table())
+    for r in report.regressions:
+        print(f"error: bandwidth regression at {r['cell']}: "
+              f"{r['base_gbps']:.2f} -> {r['cur_gbps']:.2f} GB/s "
+              f"(ratio {r['ratio']:.3f})", file=sys.stderr)
+    return report.exit_code()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.bench",
                                  description=__doc__, allow_abbrev=False,
@@ -280,6 +397,36 @@ def main(argv=None) -> int:
     p_cmp.add_argument("--force", action="store_true",
                        help="overwrite an existing --out file")
     p_cmp.set_defaults(fn=cmd_compare)
+
+    p_chz = sub.add_parser(
+        "characterize",
+        help="adaptive sweep -> detected topology -> fitted machine model",
+        allow_abbrev=False)
+    mode = p_chz.add_mutually_exclusive_group()
+    mode.add_argument("--smoke", action="store_true",
+                      help="fast preset: coarse grid, minimal refinement")
+    mode.add_argument("--full", action="store_true",
+                      help="paper-grade sweep (slow)")
+    p_chz.add_argument("--backend", default="cuda",
+                       help="measurement backend (cuda | torch)")
+    p_chz.add_argument("--resolution", type=float, default=0.10,
+                       help="target relative width of capacity brackets")
+    p_chz.add_argument("--max-rounds", dest="max_rounds", type=int, default=8)
+    p_chz.add_argument("--mixes", "--mix", default=None,
+                       help="comma list; first is the detection-driving mix")
+    p_chz.add_argument("--compare", default=None,
+                       help="documented spec to diff against (e.g. "
+                            "nvidia-h100-sxm, fujitsu-a64fx, host)")
+    p_chz.add_argument("--device", default=None,
+                       help="torch device (default: cuda; raises when no "
+                            "CUDA device is present — pass 'cpu' to run the "
+                            "plain PyTorch versions on the CPU)")
+    p_chz.add_argument("--out", default=None,
+                       help="write the FittedMachineModel JSON here")
+    p_chz.add_argument("--report", default=None,
+                       help="write a markdown (.md) or JSON (.json) report")
+    _add_obs_flags(p_chz)
+    p_chz.set_defaults(fn=cmd_characterize)
 
     p_lat = sub.add_parser(
         "latency",
@@ -310,6 +457,40 @@ def main(argv=None) -> int:
                        help="write the result JSON here")
     _add_obs_flags(p_lat)
     p_lat.set_defaults(fn=cmd_latency)
+
+    p_hist = sub.add_parser(
+        "history", help="list the persistent run ledger "
+                        "(repro_torch.obs.ledger)",
+        allow_abbrev=False)
+    p_hist.add_argument("--add", default=None, metavar="FILE",
+                        help="ingest a saved result/record JSON as a ledger "
+                             "record first")
+    p_hist.add_argument("--history-root", dest="history_root", default=None,
+                        help=f"ledger directory (default: "
+                             f"${ledger.LEDGER_ENV} or {ledger.DEFAULT_ROOT}/)")
+    p_hist.add_argument("--json", action="store_true",
+                        help="print raw records instead of the table")
+    p_hist.set_defaults(fn=cmd_history)
+
+    p_diff = sub.add_parser(
+        "diff", help="noise-aware bandwidth diff vs a ledger baseline "
+                     "(exit 2 on regression)",
+        allow_abbrev=False)
+    p_diff.add_argument("--baseline", required=True,
+                        help="ledger index (-1 = newest), 'latest', a spec-"
+                             "digest prefix, or a record/result JSON file")
+    p_diff.add_argument("--current", default="latest",
+                        help="same forms (default: latest)")
+    p_diff.add_argument("--z", type=float, default=3.0,
+                        help="noise-test z score (detect.significant_step)")
+    p_diff.add_argument("--tolerance", type=float, default=0.05,
+                        help="minimum relative drop treated as real")
+    p_diff.add_argument("--history-root", dest="history_root", default=None,
+                        help=f"ledger directory (default: "
+                             f"${ledger.LEDGER_ENV} or {ledger.DEFAULT_ROOT}/)")
+    p_diff.add_argument("--json", action="store_true",
+                        help="print the full diff report JSON")
+    p_diff.set_defaults(fn=cmd_diff)
 
     args = ap.parse_args(argv)
     try:

@@ -19,8 +19,9 @@ ledger, so a ledger written by either package can be diffed against the
 other's.
 
 ``diff_records`` is the regression gate: per curve cell, a two-sample test
-on log-bandwidth using the noise-aware threshold of ``significant_step``
-(below) — ``max(log(1+tolerance), z·σ·√(1/n₁+1/n₂))``.  A significant
+on log-bandwidth using the SAME noise-aware threshold
+``characterize.detect.significant_step`` applies when merging plateau
+segments — ``max(log(1+tolerance), z·σ·√(1/n₁+1/n₂))``.  A significant
 *drop* is a regression (CLI ``diff`` exits 2); a significant rise is
 reported as an improvement; anything inside the threshold is noise.  A
 record diffed against itself is identical by construction (exit 0).
@@ -235,24 +236,6 @@ def resolve_ref(ref, root=None) -> dict:
 # the regression gate
 # ---------------------------------------------------------------------------
 
-def significant_step(m1: float, n1: int, m2: float, n2: int, *,
-                     sigma: float, z: float = 3.0, min_drop: float = 0.12
-                     ) -> bool:
-    """The noise-aware two-sample test: is the gap between two log-scale
-    means (``n1``/``n2`` samples each, common noise scale ``sigma``) a real
-    step, or noise?
-
-    The gap must clear BOTH the physical floor ``log(1+min_drop)`` (a
-    smaller relative step does not count, however many samples agree on it)
-    and the sampling bound ``z·σ·√(1/n₁+1/n₂)`` (few-sample means need a
-    bigger gap).  Lives here until the characterize package (whose plateau
-    merger shares it in the reference) has a counterpart in this package.
-    """
-    thr = max(math.log(1.0 + min_drop),
-              z * sigma * math.sqrt(1.0 / max(n1, 1) + 1.0 / max(n2, 1)))
-    return abs(m1 - m2) >= thr
-
-
 @dataclass
 class DiffReport:
     baseline: dict
@@ -323,11 +306,14 @@ def diff_records(baseline: dict, current: dict, *, z: float = 3.0,
     """Noise-aware comparison of two records' bandwidth curves.
 
     Per cell present in both, a two-sample test on log-GB/s
-    (``significant_step``): the gap must clear both the physical floor
+    (``characterize.detect.significant_step`` — the plateau-merge
+    threshold): the gap must clear both the physical floor
     ``log(1+tolerance)`` and ``z·σ·√(1/n₁+1/n₂)``, σ being the larger of
     the two cells' stored log-sigmas (per-rep scatter).  Only significant
     *drops* regress; cells the baseline has but the current run lacks are
     reported as missing (coverage shrank — visible, not fatal)."""
+    from repro_torch.characterize.detect import significant_step
+
     def index(rec):
         return {tuple(c.get(k) for k in CELL_KEY): c
                 for c in rec.get("curves", [])}

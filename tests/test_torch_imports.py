@@ -39,7 +39,11 @@ def test_the_port_has_the_slice_modules():
                  "core/instruction_mix.py", "obs/trace.py", "obs/metrics.py",
                  "obs/ledger.py", "kernels/membench/membench.py",
                  "kernels/membench/ops.py", "kernels/membench/ref.py",
-                 "characterize/loaded.py", "convert.py", "kernels/build.py",
+                 "characterize/loaded.py", "characterize/detect.py",
+                 "characterize/adaptive.py", "characterize/fit.py",
+                 "characterize/report.py", "core/machine_model.py",
+                 "core/analysis.py", "core/sweep.py", "core/autotune.py",
+                 "convert.py", "kernels/build.py",
                  "configs/base.py", "configs/zamba2_2p7b.py",
                  "configs/__init__.py", "models/common.py",
                  "models/variant.py", "models/attention.py", "models/ssm.py",
@@ -78,8 +82,15 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.kernels.membench.ops, repro_torch.convert\n"
         "import repro_torch.obs, repro_torch.core.instruction_mix\n"
         "import repro_torch.characterize\n"
+        "import repro_torch.core.analysis, repro_torch.core.autotune\n"
+        "import repro_torch.core.sweep, repro_torch.core.machine_model\n"
         "import repro_torch.launch.serve, repro_torch.models.hybrid\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
+        "from repro_torch.characterize import characterize\n"
+        "m, s = characterize(('copy', 'load_sum'), primary='copy',\n"
+        "    runner=Runner(device='cpu'), backend='cuda', register=False,\n"
+        "    lo=16384, hi=65536, max_rounds=1, reps=1, target_bytes=1e5)\n"
+        "assert m.schema_version == 3 and m.levels\n"
         "r = Runner(device='cpu').run(BenchSpec(mixes=('load_sum',),\n"
         "    sizes=(4096,), backend='cuda', reps=1, warmup=0))\n"
         "assert len(r.points) == 1\n"
