@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
      shows tensor-core instructions in their bfloat16 routes and none in
      their float32 routes; every kernel of acc.cu and copy.cu holds global
      loads (LDG, LDGSTS: each load_only kernel's cp.async copies, matched
-     as whole opcodes) and none spills.
+     as whole opcodes) and none spills (the SASS read by
+     ``repro_torch.istream.extract``); every template instance
+     ``membench.launch_record`` predicts for the registry is in the SASS.
   2  every kernel against its plain version on the card, over dtypes, sizes,
      tilings, interleave, unroll and passes, on the benchmark's working set
      (whose sums cancel) and on a non-cancelling ramp input with a relative
@@ -48,6 +50,13 @@ Phases (any failure raises and the script exits non-zero):
      call >= 1 ms, >= 2 levels) and a device-paced copy sweep on the same
      grid, acc.cu / copy.cu launches equal to points x (reps + warmup) in
      each, then ``history`` and a self-``diff`` of the ledger.
+     3f: ``audit --backend cuda`` (the live audit of the whole registry and
+     knob grid over the SASS of this build: exit 0, every waiver listed),
+     ``audit --write-goldens`` into the output directory (every file equal
+     to ``tests/data_torch/sass``, or the diff is printed and the phase
+     fails), ``istream --smoke --backend cuda`` (copy.cu and rw.cu; every
+     point labelled; launches = points x (reps + warmup)) and ``latency
+     --smoke --backend cuda`` (chase.cu and acc.cu; four checked audits).
   4  the measurement is real: doubling ``passes`` doubles the time (also
      for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
      memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
@@ -98,7 +107,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.bench import cli  # noqa: E402
 from repro_torch.bench.mixes import (GEN_SWEEPS_PER_PASS,  # noqa: E402
-                                     get_mix, rw_name)
+                                     get_mix, mix_names, rw_name)
 from repro_torch.bench.result import BenchResult  # noqa: E402
 from repro_torch.bench.runner import Runner  # noqa: E402
 from repro_torch.characterize import (FittedMachineModel,  # noqa: E402
@@ -108,6 +117,8 @@ from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.core import instruction_mix as im  # noqa: E402
 from repro_torch.core.buffers import working_set  # noqa: E402
 from repro_torch.core.machine_model import get_spec  # noqa: E402
+from repro_torch.istream.extract import (GLOBAL_LOAD_OPS,  # noqa: E402
+                                         loads_in_loops, sass_of, sass_ops)
 from repro_torch.kernels.build import build_libraries, find_nvcc  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -361,6 +372,7 @@ def phase_device() -> dict:
                                  f"{spilled or 'no kernels in the log'}")
     check_tensor_core_routes(built)
     check_global_loads(built)
+    check_launch_names(built)
     props = torch.cuda.get_device_properties(DEV)
     say(f"SMs {props.multi_processor_count}, grid cap "
         f"{mb.CTAS_PER_SM} CTAs/SM x {props.multi_processor_count}")
@@ -425,54 +437,6 @@ NO_SPILL = ("ssd_scan/ssd_scan.cu", "membench/triad.cu", "membench/acc.cu",
 GLOBAL_LOADS = (("membench", "acc.cu"), ("membench", "copy.cu"))
 
 
-def sass_of(path: Path) -> dict[str, list[str]]:
-    """Kernel name -> its SASS lines (``cuobjdump -sass``)."""
-    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
-                          capture_output=True, text=True, check=True).stdout
-    kernels: dict[str, list[str]] = {}
-    name = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            kernels[name] = []
-        elif name:
-            kernels[name].append(line)
-    return kernels
-
-
-def sass_ops(lines: list[str]) -> list[tuple[int, str, str]]:
-    """(address, opcode, instruction) of each SASS instruction: the opcode
-    is the instruction's first word after any predicate, without its
-    modifiers (``@P0 LDG.E.128 R4, ...`` -> ``LDG``)."""
-    ops = []
-    for ln in lines:
-        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)"
-                     r"([^;]*)", ln)
-        if m:
-            ops.append((int(m.group(1), 16), m.group(2),
-                        m.group(2) + m.group(3)))
-    return ops
-
-
-#: the opcodes of a global load: a load into registers, and cp.async's
-#: global -> shared copy (not LDGDEPBAR, which only waits for copies)
-GLOBAL_LOAD_OPS = ("LDG", "LDGSTS")
-
-
-def loads_in_loops(ops: list[tuple[int, str, str]]) -> int:
-    """Global loads of a kernel's SASS that lie inside a loop: between a
-    backward branch and its target."""
-    loads, loops = [], []
-    for addr, op, ins in ops:
-        if op in GLOBAL_LOAD_OPS:
-            loads.append(addr)
-        b = re.findall(r"0x([0-9a-f]+)", ins) if op == "BRA" else None
-        if b and int(b[-1], 16) <= addr:
-            loops.append((int(b[-1], 16), addr))
-    return sum(any(lo <= a <= hi for lo, hi in loops) for a in loads)
-
-
 def acc_mix_of(name: str) -> int | None:
     """The MIX template argument of an acc.cu kernel's mangled name
     (``acc_win<T, U, K, MIX, ...>``, ``acc_np<T, K, MIX, ...>``; 0 load_sum,
@@ -526,6 +490,39 @@ def check_global_loads(built: dict) -> None:
             f"{max(c[2] for c in counts.values())}), LDGSTS in "
             f"{sum(c[1] > 0 for c in counts.values())} kernels"
             + (f" (all {load_only} load_only kernels)" if load_only else ""))
+
+
+def check_launch_names(built: dict) -> None:
+    """Raise unless every template instance ``membench.launch_record``
+    predicts (every registry mix, float32 and bfloat16, every unroll and
+    interleave the kernels are compiled for, a 32 KiB and a 2 GiB buffer:
+    both grid shapes) is in the SASS of its built library."""
+    sass = {src: set(sass_of(path)) for src, path in built["membench"].items()}
+    props = torch.cuda.get_device_properties(DEV)
+    sms, l2 = props.multi_processor_count, props.L2_cache_size
+    seen = set()
+    for name in mix_names("cuda"):
+        mix = get_mix(name)
+        for dtype in ("float32", "bfloat16"):
+            for nbytes in (32 * 2**10, 2 * 2**30):
+                rows = nbytes // (128 * (4 if dtype == "float32" else 2))
+                for unroll in mb.UNROLLS:
+                    for k in (mb.INTERLEAVES if name in ("load_sum", "copy")
+                              or mix.rw else (1,)):
+                        knobs = {"unroll": unroll, "interleave": k,
+                                 "load": 1 if mix.chase else 0}
+                        for r in mb.launch_record(name, dtype, (rows, 128),
+                                                  knobs, unroll, sms, l2):
+                            if r["kernel"] not in sass[r["source"]]:
+                                raise AssertionError(
+                                    f"launch_record names {r['kernel']} "
+                                    f"({name}, {dtype}, {nbytes} B, {knobs})"
+                                    f", which {r['source']}'s SASS does not "
+                                    f"hold")
+                            seen.add(r["kernel"])
+    say(f"  launch_record: {len(seen)} template instances predicted for the "
+        f"registry (both grid shapes, every unroll / interleave, float32 and "
+        f"bfloat16), each found in its library's SASS")
 
 
 def check_tensor_core_routes(built: dict) -> None:
@@ -1289,6 +1286,140 @@ def phase_latency_path(quick: bool) -> dict[str, int]:
     if rc != 0:
         raise AssertionError(f"compare exited {rc} (accounting mismatch)")
     check_compare(OUT_DIR / "compare_rw_chase.json")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3f — the accounting audit and istream on the SASS
+# ---------------------------------------------------------------------------
+
+#: the committed SASS goldens (``audit --write-goldens`` writes them here)
+GOLDENS = ROOT / "tests" / "data_torch" / "sass"
+
+
+def _golden_diff() -> list[str]:
+    """Write the goldens into the output directory and compare every file
+    with the committed ones; returns the differences (a unified diff, cut
+    to 40 lines a file)."""
+    import difflib
+    fresh = OUT_DIR / "goldens"
+    shutil.rmtree(fresh, ignore_errors=True)
+    rc, text = _cli(["audit", "--write-goldens", str(fresh)])
+    if rc != 0:
+        raise AssertionError(f"audit --write-goldens exited {rc}:\n{text}")
+    say("  " + text.strip())
+    diffs = []
+    names = sorted({p.name for p in fresh.iterdir()}
+                   | {p.name for p in GOLDENS.iterdir() if p.is_file()})
+    for name in names:
+        a, b = GOLDENS / name, fresh / name
+        if not a.exists() or not b.exists():
+            diffs.append(f"{name}: only in "
+                         f"{'the fresh goldens' if b.exists() else 'the repo'}")
+            continue
+        if a.read_text() != b.read_text():
+            d = list(difflib.unified_diff(a.read_text().splitlines(),
+                                          b.read_text().splitlines(),
+                                          f"committed/{name}",
+                                          f"fresh/{name}", lineterm="", n=1))
+            diffs.append("\n".join(d[:40]))
+    return diffs
+
+
+def phase_audit_path(quick: bool) -> dict[str, int]:
+    """The live cuda audit of the whole registry and knob grid (exit 0, every
+    waiver listed), the goldens regenerated and held against the committed
+    ones, ``istream --smoke --backend cuda`` (copy.cu and rw.cu launched,
+    every point labelled, launches = points x (reps + warmup)), and
+    ``latency --smoke --backend cuda`` (chase.cu and acc.cu launched, four
+    checked audits).  Returns the launches of the two timed runs: copy and
+    rw from istream's, chase and load_sum from latency's."""
+    say("== phase 3f: the accounting audit and istream on the kernels' SASS")
+    t0 = time.perf_counter()
+    out = OUT_DIR / "audit_cuda.json"
+    rc, text = _cli(["audit", "--backend", "cuda", "--out", str(out),
+                     "--force"])
+    (OUT_DIR / "audit_cuda.txt").write_text(text)
+    doc = json.loads(out.read_text())
+    for line in text.splitlines():
+        if line.startswith("# waived") or "cases:" in line:
+            say("  audit --backend cuda " + line)
+    if rc != 0 or not doc["ok"] or doc["summary"]["violations"]:
+        bad = [c for c in doc["cases"] if not c["ok"]]
+        raise AssertionError(f"live cuda audit exited {rc}: "
+                             f"{json.dumps(bad)[:4000]}")
+    if doc["summary"]["skipped"]:
+        raise AssertionError(f"live cuda audit skipped cases: "
+                             f"{doc['skipped']}")
+    say(f"  {doc['summary']} over {len(doc['cases'])} cases in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for c in doc["cases"]:
+        exp = c["expected"] or {}
+        say(f"    {c['backend']}/{c['mix']} {c['knobs']}: observed "
+            f"{c['observed'].get('loads', 0):.0f} / "
+            f"{c['observed'].get('stores', 0):.0f} / "
+            f"{c['observed'].get('arith', 0):.0f} vs expected "
+            f"{exp.get('loads', 0):.0f} / {exp.get('stores', 0):.0f} / "
+            f"{exp.get('arith', 0):.0f} loads / stores / arith elems a pass")
+
+    diffs = _golden_diff()
+    if diffs:
+        raise AssertionError("the regenerated goldens differ from "
+                             "tests/data_torch/sass (a kernel changed: "
+                             "commit new goldens):\n" + "\n".join(diffs))
+    say(f"  goldens: every file of {GOLDENS.relative_to(ROOT)} equals the "
+        f"one written from this checkout's build")
+
+    mb.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = OUT_DIR / "istream_smoke.json"
+    rc, text = _cli(["istream", "--smoke", "--backend", "cuda", "--out",
+                     str(out), "--force", "--history-root",
+                     str(OUT_DIR / "BENCH_history")])
+    sync()
+    counts = read_counts(("copy", "rw"), "istream --smoke")
+    (OUT_DIR / "istream_smoke.txt").write_text(text)
+    if rc != 0:
+        raise AssertionError(f"istream --smoke exited {rc}:\n{text}")
+    res = BenchResult.from_json(out)
+    unlabelled = [p for p in res.points if not p.istream
+                  or p.istream.get("label") not in ("bandwidth-bound",
+                                                    "issue-bound")]
+    if not res.points or unlabelled:
+        raise AssertionError(f"istream --smoke: {len(unlabelled)} of "
+                             f"{len(res.points)} points carry no label")
+    warmup = (res.spec.get("many") or [res.spec])[0]["warmup"]
+    for kernel, mix in (("copy", "copy"), ("rw", "rw_2to1")):
+        pts = [p for p in res.points if p.mix == mix]
+        want = sum(p.reps + warmup for p in pts)
+        if not pts or counts[kernel] != want:
+            raise AssertionError(f"istream --smoke: {counts[kernel]} "
+                                 f"{kernel} launches, want {len(pts)} points"
+                                 f" x (reps + warmup) = {want}")
+    say("  " + text.rstrip().replace("\n", "\n  "))
+    say(f"  istream --smoke: {len(res.points)} points, every one labelled, "
+        f"launches {counts['copy']} copy + {counts['rw']} rw = points x "
+        f"(reps + warmup), {time.perf_counter() - t1:.1f} s")
+
+    mb.reset_launch_counts()
+    rc, text = _cli(["latency", "--smoke", "--backend", "cuda", "--out",
+                     str(OUT_DIR / "latency_smoke.json"), "--force",
+                     "--history-root", str(OUT_DIR / "BENCH_history")])
+    sync()
+    read_counts(("chase", "load_sum"), "latency --smoke")
+    audits = [ln for ln in text.splitlines() if ln.startswith("# audit ")]
+    say("  " + "\n  ".join(audits))
+    if rc != 0 or len(audits) != 4 or not all(ln.endswith(": ok")
+                                               for ln in audits):
+        raise AssertionError(f"latency --smoke exited {rc} with audits "
+                             f"{audits}:\n{text}")
+    doc = json.loads((OUT_DIR / "latency_smoke.json").read_text())
+    if [a["source"] for a in doc["meta"]["audit"]] != ["live"] * 4:
+        raise AssertionError(f"latency --smoke audits were not all live: "
+                             f"{doc['meta']['audit']}")
+    say(f"  phase 3f: {time.perf_counter() - t0:.1f} s")
+    counts["chase"] = mb.launch_counts["chase"]
+    counts["load_sum"] = mb.launch_counts["load_sum"]
     return counts
 
 
@@ -2273,6 +2404,7 @@ def main(argv=None) -> int:
     counts["chase"] = phase_latency_path(args.quick)["chase"]
     counts.update(phase_serve_path(args.quick))
     characterized = phase_characterize_path(args.quick)
+    audited = phase_audit_path(args.quick)
     phase_real(args.quick)
     phase_real_rw_chase(args.quick)
     line = phase_kernels_line(counts, args.quick)
@@ -2280,6 +2412,8 @@ def main(argv=None) -> int:
     for e in line["kernels"]:
         if e["name"] in ("load_sum", "fma", "copy"):
             e["launches_characterize"] = characterized[e["name"]]
+        if e["name"] in ("load_sum", "copy", "rw", "chase"):
+            e["launches_audit"] = audited[e["name"]]
     say(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
     say(info["smi"])
     say(json.dumps(line))

@@ -118,6 +118,23 @@ class _CaseBackend:
                   ) -> Callable[[], object]:
         return lambda: case(x)
 
+    def abstract_args(self, spec: BenchSpec, mix: MixDef, shape, dtype
+                      ) -> tuple:
+        """Tensors matching ``make_case``'s positional buffers, on the
+        ``meta`` device (shape and dtype, no storage): what
+        ``repro_torch.istream`` runs a case on, so that no working set is
+        built — but for the chase's int32 permutation buffer, a CPU tensor
+        holding ``chase_perm`` (one cycle over the buffer), since its walk
+        reads the values."""
+        meta = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        if mix.chase:
+            perm = _chase_buffer(torch.empty(tuple(shape), dtype=dtype), 1)
+            return (perm, meta) if spec.load else (perm,)
+        return (meta,) * self._arity(mix)
+
+    def _arity(self, mix: MixDef) -> int:
+        return _mix_arity(mix)
+
     def build(self, spec, mix, x, passes):
         case = self.make_case(spec, mix, x.shape, x.dtype, passes)
         return self.bind_case(case, spec, mix, self.prepare_buffer(spec, x))
@@ -341,6 +358,14 @@ class CudaBackend(_CaseBackend):
             mix.name, depth=mix.fma_depth or 8, block_rows=rows,
             streams=spec.streams, passes=passes, unroll=spec.unroll,
             interleave=spec.interleave, load=spec.load)
+
+    def _arity(self, mix):
+        """fn(x), fn(x, y) for triad, fn(x, *extra_read_streams) for rw."""
+        if mix.name == "triad":
+            return 2
+        if mix.rw is not None:
+            return mix.rw[0]
+        return 1
 
     def bind_case(self, case, spec, mix, x):
         # companions and outputs are allocated here, outside the timed call

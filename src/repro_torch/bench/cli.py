@@ -1,5 +1,5 @@
 """``python -m repro_torch.bench`` — run / list-mixes / compare /
-characterize / latency / history / diff.
+characterize / istream / audit / latency / history / diff.
 
     run         execute a BenchSpec (flags or --spec JSON), print + save the
                 schema-versioned result JSON
@@ -8,8 +8,17 @@ characterize / latency / history / diff.
     characterize  adaptive fine-granularity sweep -> detected topology ->
                 FittedMachineModel JSON + markdown report
                 (repro_torch.characterize)
+    istream     instruction-stream microscope: unroll x interleave sweep ->
+                per-case profiles (cuda: the SASS its launches execute;
+                torch: the aten operations) -> bandwidth-vs-issue-bound
+                classification + fig6 table (repro_torch.istream)
+    audit       static accounting verifier: declared bytes/flops vs what runs
+                (the kernels' SASS, the oracles' aten operations) for every
+                mix x backend x knob combination, no timing; exit 0 clean,
+                2 on violation (repro_torch.audit)
     latency     loaded-latency surface: the latency_chase probe across the
-                load axis -> bandwidth-latency curve + knee fit
+                load axis -> bandwidth-latency curve + knee fit; --smoke
+                also audits the chase on both backends (exit 2 otherwise)
     history     list the persistent run ledger (BENCH_history/); --add
                 ingests a saved result JSON as a record (repro_torch.obs.ledger)
     diff        noise-aware bandwidth comparison against a ledger baseline
@@ -22,8 +31,8 @@ plain PyTorch versions on the CPU).  ``run``, ``characterize`` and
 ledger record unless ``--no-ledger``, and refuse to overwrite an existing
 ``--out``/``--report`` file unless ``--force``.
 
-Counterpart of ``repro.bench.cli``; its other sub-commands (istream, audit,
-launch) have none here yet.
+Counterpart of ``repro.bench.cli``; its ``launch`` (multi-process runs of
+the multi-device backends) has none here yet.
 """
 from __future__ import annotations
 
@@ -94,6 +103,21 @@ def _add_spec_flags(p: argparse.ArgumentParser):
                    help="torch device the run uses (default: cuda; raises "
                         "when no CUDA device is present — pass 'cpu' to run "
                         "the plain PyTorch versions on the CPU)")
+
+
+def _add_grid_flags(p: argparse.ArgumentParser):
+    """The knob-grid flags shared by ``istream`` (with timing) and
+    ``audit`` (without), as in the reference."""
+    p.add_argument("--backends", "--backend", default=None,
+                   help="comma list (default: torch,cuda)")
+    p.add_argument("--mixes", "--mix", default=None,
+                   help="comma list (default: per-command representative set)")
+    p.add_argument("--sizes", default=None,
+                   help="comma list, K/M/G ok: 64K,1M")
+    p.add_argument("--unrolls", default=None,
+                   help="comma list of unroll factors")
+    p.add_argument("--interleaves", default=None,
+                   help="comma list of chain counts")
 
 
 def _add_obs_flags(p: argparse.ArgumentParser):
@@ -282,13 +306,178 @@ def cmd_characterize(args) -> int:
     return 0
 
 
+def cmd_istream(args) -> int:
+    """Instruction-stream sweep + classification (see repro_torch.istream):
+    runs the unroll x interleave grid on the requested backends and mixes,
+    observes each case's profile (cuda: the SASS its launches execute, from
+    the libraries built from this checkout, which needs the CUDA toolkit;
+    torch: its aten operations), labels every point bandwidth-bound vs
+    issue-bound and prints the fig6 table.  ``--smoke`` first runs the
+    synthetic classifier self-test (it must see BOTH labels), then a
+    seconds-scale sweep.  On a CUDA device the card's issue ceiling (SMs x
+    4 warp instructions a clock x clocks.max.sm) is printed beside cuda's
+    fitted rate."""
+    from repro_torch.istream import run_istream, synthetic_check
+
+    _check_overwrite(args, "out")
+    runner = Runner(device=args.device)     # raises without a CUDA device
+    _obs_begin(args)
+    if args.smoke:
+        chk = synthetic_check()
+        print(f"# synthetic check: {chk['labels']} "
+              f"(issue rate {chk['issue_rate']:.3e} elem-ops/s)")
+        if not chk["ok"]:
+            print("error: synthetic classifier check failed "
+                  f"({chk})", file=sys.stderr)
+            return 2
+    model = None
+    if args.model:
+        from repro_torch.characterize.fit import FittedMachineModel
+        model = FittedMachineModel.from_json(args.model)
+    kw: dict = dict(smoke=args.smoke, model=model, runner=runner)
+    if args.backends:
+        kw["backends"] = tuple(args.backends.split(","))
+    if args.mixes:
+        kw["mixes"] = tuple(args.mixes.split(","))
+    if args.sizes:
+        kw["sizes"] = _parse_sizes(args.sizes)
+    if args.unrolls:
+        kw["unrolls"] = tuple(int(u) for u in args.unrolls.split(","))
+    if args.interleaves:
+        kw["interleaves"] = tuple(int(i) for i in args.interleaves.split(","))
+    if args.reps is not None:
+        kw["reps"] = args.reps
+    report = run_istream(**kw)
+    _obs_finish(args, report.result, "istream")
+    print(report.table)
+    rates = report.result.meta["istream"]["issue_rates"]
+    if "cuda" in rates and runner.device.type == "cuda":
+        from repro_torch.audit.ecm import issue_ceiling
+        from repro_torch.istream.analyze import card_clock_mhz, machine_of
+        sms = machine_of(runner.device)[0]
+        mhz = card_clock_mhz()
+        print(f"# cuda issue: fitted {rates['cuda']:.3e} warp instructions/s"
+              f", ceiling {issue_ceiling(sms, mhz):.3e} ({sms} SMs x 4 a "
+              f"clock x {mhz:.0f} MHz)")
+    labels = report.labels
+    if args.out:
+        report.result.to_json(args.out)
+        print(f"# saved {len(report.result.points)} classified points "
+              f"(schema v{report.result.schema_version}) -> {args.out}")
+    if args.smoke and (not labels.get("issue-bound")
+                       or not labels.get("bandwidth-bound")):
+        print(f"# note: measured sweep was one-sided ({labels}); "
+              f"synthetic check covered both labels")
+    return 0
+
+
+def cmd_audit(args) -> int:
+    """Static accounting audit (see repro_torch.audit): declared
+    bytes/flops vs what runs, for every registered mix x backend x knob
+    combination.  Exit 0 clean, 2 on any violation (each named by its
+    backend/mix/knob triple).  The live cuda audit reads the SASS of the
+    libraries built from this checkout and raises, naming it, where
+    ``cuobjdump`` is missing; ``--goldens DIR`` audits committed SASS and
+    aten traces instead (deviceless), ``--write-goldens DIR`` writes them
+    (on the card)."""
+    from repro_torch.audit import audit_goldens, audit_registry, write_goldens
+
+    _check_overwrite(args, "out")
+    if args.write_goldens:
+        manifest = write_goldens(args.write_goldens)
+        print(f"# wrote {len(manifest['cases'])} golden cases (the SASS of "
+              f"their libraries, their aten traces) -> {args.write_goldens}")
+        return 0
+    if args.goldens:
+        report = audit_goldens(args.goldens)
+    else:
+        kw: dict = dict(smoke=args.smoke, rw_pairs=args.rw_pairs,
+                        seed=args.seed)
+        if args.backends:
+            kw["backends"] = tuple(args.backends.split(","))
+        if args.mixes:
+            kw["mixes"] = tuple(args.mixes.split(","))
+        if args.sizes:
+            nbytes = _parse_sizes(args.sizes)[0]
+            kw["shape"] = (max(nbytes // (128 * 4), 8), 128)
+        if args.unrolls or args.interleaves:
+            grid = [{}]
+            grid += [{"unroll": int(u)}
+                     for u in (args.unrolls or "").split(",") if u and int(u) > 1]
+            grid += [{"interleave": int(i)}
+                     for i in (args.interleaves or "").split(",")
+                     if i and int(i) > 1]
+            kw["knob_grid"] = grid
+        report = audit_registry(**kw)
+    if args.json:
+        print(report.to_json())
+    else:
+        print(report.table())
+    for c in report.waived:
+        print(f"# waived {c.where()}: {c.waived_reason}")
+    if args.out:
+        report.to_json(args.out)
+        print(f"# saved audit report ({len(report.cases)} cases) "
+              f"-> {args.out}")
+    for v in report.violations:
+        print(f"error: accounting violation at {v.where()}: "
+              + "; ".join(f"{c.name}: {c.detail}" for c in v.failures),
+              file=sys.stderr)
+    return report.exit_code()
+
+
+#: the chase audits of ``latency --smoke``: the reference's shape, dtype
+#: and passes, at load 0 and 1
+CHASE_AUDIT = {"shape": (64, 128), "dtype": "float32", "passes": 4,
+               "loads": (0, 1)}
+#: where the committed SASS goldens live (``audit --write-goldens``)
+GOLDENS = "tests/data_torch/sass"
+
+
+def chase_audits(device) -> list[tuple]:
+    """(CaseAudit, source) of latency_chase on torch and cuda at load 0 and
+    1.  torch is observed live (meta tensors); cuda reads the SASS of the
+    libraries built from this checkout on a CUDA device (``live``), and the
+    committed goldens elsewhere (``goldens``)."""
+    from repro_torch.audit.verify import audit_case, audit_sass
+    from repro_torch.istream.extract import parse_sass
+    from repro_torch.kernels.build import ROOT
+    shape, dtype, passes = (CHASE_AUDIT[k] for k in ("shape", "dtype",
+                                                     "passes"))
+    nbytes = shape[0] * shape[1] * 4
+    out = []
+    for backend in ("torch", "cuda"):
+        for load in CHASE_AUDIT["loads"]:
+            spec = BenchSpec(mixes=("latency_chase",), sizes=(nbytes,),
+                             backend=backend, passes=passes, reps=2,
+                             warmup=0, load=load)
+            if backend == "torch" or device.type == "cuda":
+                out.append((audit_case(spec, "latency_chase", shape, dtype,
+                                       passes), "live"))
+                continue
+            golden = ROOT / GOLDENS
+            manifest = json.loads((golden / "manifest.json").read_text())
+            case = next(c for c in manifest["cases"]
+                        if c["backend"] == "cuda"
+                        and c["mix"] == "latency_chase"
+                        and (c.get("knobs") or {}).get("load", 0) == load)
+            sass = {p.stem: parse_sass(p.read_text())
+                    for p in golden.glob("*.sass")}
+            out.append((audit_sass(sass, "latency_chase", shape, dtype,
+                                   passes, knobs={"load": load},
+                                   machine=(manifest["sms"], manifest["l2"]),
+                                   launches=case["launches"]), "goldens"))
+    return out
+
+
 def cmd_latency(args) -> int:
     """Loaded-latency surface (see characterize.loaded): sweep the
     ``latency_chase`` probe across the ``load`` axis at each working-set
     size, fit the bandwidth–latency knee, print the curve, save the result.
-    ``--smoke`` is the small preset (one 128 KiB size, loads 0,1,2, 3 reps);
-    the reference's smoke also audits the chase's accounting, which comes
-    with the port of the audit."""
+    ``--smoke`` is the small preset (one 128 KiB size, loads 0,1,2, 3 reps)
+    plus the reference's inline accounting audit of the chase on BOTH
+    backends at load 0 and 1 (``chase_audits``), which must come back
+    checked — never waived — and clean (exit 2 otherwise)."""
     from repro_torch.characterize.loaded import (fit_loaded,
                                                  loaded_latency_sweep)
 
@@ -314,12 +503,24 @@ def cmd_latency(args) -> int:
         print(f"# {name}: idle {knee['idle_latency_ns']:.1f} ns, knee at "
               f"load={knee['knee_load']} ({knee['knee_gen_gbps']:.2f} GB/s "
               f"generated), max {knee['max_latency_ns']:.1f} ns")
+    rc = 0
+    if args.smoke:
+        audits = chase_audits(runner.device)
+        for a, source in audits:
+            print(f"# audit {a.where()} ({source}): "
+                  f"{'waived' if a.waived else 'ok' if a.ok else 'FAIL'}")
+        res.meta["audit"] = [dict(a.to_dict(), source=source)
+                             for a, source in audits]
+        if any(a.waived or not a.ok for a, _ in audits):
+            print("error: latency_chase accounting must be checked clean on "
+                  "both backends (got a waiver or violation)", file=sys.stderr)
+            rc = 2
     _obs_finish(args, res, "latency")
     if args.out:
         res.to_json(args.out)
         print(f"# saved {len(res.points)} points "
               f"(schema v{res.schema_version}) -> {args.out}")
-    return 0
+    return rc
 
 
 def cmd_history(args) -> int:
@@ -428,6 +629,55 @@ def main(argv=None) -> int:
     _add_obs_flags(p_chz)
     p_chz.set_defaults(fn=cmd_characterize)
 
+    p_ist = sub.add_parser(
+        "istream",
+        help="unroll x interleave sweep -> per-case instruction profiles -> "
+             "bandwidth-vs-issue-bound classification (fig6)",
+        allow_abbrev=False)
+    p_ist.add_argument("--smoke", action="store_true",
+                       help="synthetic classifier self-test + seconds-scale "
+                            "end-to-end sweep")
+    _add_grid_flags(p_ist)
+    p_ist.add_argument("--reps", type=int, default=None)
+    p_ist.add_argument("--model", default=None,
+                       help="FittedMachineModel JSON for bandwidth lookup "
+                            "(else self-calibrated from the sweep)")
+    p_ist.add_argument("--device", default=None,
+                       help="torch device (default: cuda; raises when no "
+                            "CUDA device is present — pass 'cpu' to run the "
+                            "plain PyTorch versions on the CPU)")
+    p_ist.add_argument("--out", default=None,
+                       help="write the classified result JSON here")
+    _add_obs_flags(p_ist)
+    p_ist.set_defaults(fn=cmd_istream)
+
+    p_aud = sub.add_parser(
+        "audit",
+        help="declared vs observed accounting (exit 2 on violation; see "
+             "repro_torch.audit)",
+        allow_abbrev=False)
+    p_aud.add_argument("--smoke", action="store_true",
+                       help="representative mixes, base + unroll + load knobs")
+    _add_grid_flags(p_aud)
+    p_aud.add_argument("--rw-pairs", dest="rw_pairs", type=int, default=0,
+                       help="additionally audit N random rw_RtoW members")
+    p_aud.add_argument("--seed", type=int, default=0,
+                       help="seed for --rw-pairs sampling")
+    p_aud.add_argument("--goldens", default=None,
+                       help="audit committed SASS and aten traces in this "
+                            "directory (deviceless; e.g. "
+                            "tests/data_torch/sass)")
+    p_aud.add_argument("--write-goldens", dest="write_goldens", default=None,
+                       help="write the golden SASS and traces here (on the "
+                            "card)")
+    p_aud.add_argument("--json", action="store_true",
+                       help="print the full JSON report instead of the table")
+    p_aud.add_argument("--out", default=None,
+                       help="write the audit report JSON here")
+    p_aud.add_argument("--force", action="store_true",
+                       help="overwrite an existing --out file")
+    p_aud.set_defaults(fn=cmd_audit)
+
     p_lat = sub.add_parser(
         "latency",
         help="loaded-latency surface: latency_chase across the load axis "
@@ -435,8 +685,8 @@ def main(argv=None) -> int:
         allow_abbrev=False)
     p_lat.add_argument("--smoke", action="store_true",
                        help="small preset: one 128K size, loads 0,1,2, 3 "
-                            "reps (the reference's inline chase audit comes "
-                            "with the port of the audit)")
+                            "reps, plus an inline both-backend chase "
+                            "accounting audit")
     p_lat.add_argument("--backend", default="cuda",
                        help="cuda | torch (both: the single-device "
                             "time-shared composite; torch walks the chain "

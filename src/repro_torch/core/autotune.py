@@ -6,11 +6,11 @@ block shapes with the membench kernel family and returns the best shape for
 a given working-set size.
 
 Counterpart of ``repro.core.autotune``: the ``cuda`` backend (the
-hand-written kernels) where the reference sweeps ``pallas``.  The
-reference's unroll leg (``tune_unroll``) ranks candidates by the accounting
-audit's waivers, and its ECM prefilter (``model`` + ``ecm_keep``) needs the
-ECM predictor; neither the audit nor the predictor is in this package yet
-(ROADMAP Queue A 2), so both raise ``NotImplementedError``.
+hand-written kernels) where the reference sweeps ``pallas``.  Its unroll
+leg (``tune_unroll``) ranks candidates by the accounting audit's waivers
+(``repro_torch.audit.verify.waiver_reason``), and its ECM prefilter
+(``model`` + ``ecm_keep``) prunes the ladder with
+``repro_torch.audit.ecm.ecm_filter_rows``, as the reference's do.
 """
 from __future__ import annotations
 
@@ -23,10 +23,9 @@ import torch
 # candidate block shapes: (rows, 128 lanes), multiples of the 8-row tile
 # the working sets are built in; LD1/2/4 analogue = 8/16/32/... rows a tile
 CANDIDATE_ROWS = (8, 16, 32, 64, 128, 256, 512)
-
-#: what the two branches that need the audit wait for
-_QUEUE_A2 = ("the port of the accounting audit and the ECM predictor "
-             "(ROADMAP Queue A 2)")
+# per-pass unroll factors swept by ``tune_unroll`` (the kernels are compiled
+# for these)
+CANDIDATE_UNROLLS = (1, 2, 4, 8)
 
 
 @dataclass
@@ -52,23 +51,30 @@ def sweep_block_shapes(nbytes: int, mix: str = "load_sum",
     paper).  ``runner=None`` makes a ``Runner()`` on the default device
     (``cuda``); on a CPU runner the kernels' plain versions run.
 
-    ``tune_unroll=True`` and ``model`` + ``ecm_keep`` raise
-    ``NotImplementedError`` (see the module docstring).
+    ``tune_unroll=True`` adds the second objective: at the winning block
+    shape, sweep the per-pass unroll factor; a candidate whose (mix, cuda,
+    unroll) combination carries an accounting waiver is timed and reported
+    (``unroll_audit``) but never wins.  ``model`` + ``ecm_keep``: prune the
+    candidate ladder with the ECM predictor before timing anything; the
+    pruned rows and their predictions land in ``TuneResult.ecm``.
     """
     from repro_torch.bench import BenchSpec, Runner
     from repro_torch.core import buffers
-    if tune_unroll:
-        raise NotImplementedError(
-            f"tune_unroll ranks unroll factors by the audit's waivers: it "
-            f"waits for {_QUEUE_A2}")
-    if model is not None and ecm_keep:
-        raise NotImplementedError(
-            f"the ECM prefilter (model + ecm_keep) waits for {_QUEUE_A2}")
     dtype_s = buffers.dtype_name(dtype)
+    itemsize = torch.tensor([], dtype=dtype).element_size()
     rows_total = buffers.working_set_shape(nbytes, dtype=dtype)[0]
     runner = runner or Runner()
     candidates = tuple(r for r in CANDIDATE_ROWS
                        if r <= rows_total and not rows_total % r)
+    ecm_info = None
+    if model is not None and ecm_keep:
+        from repro_torch.audit.ecm import ecm_filter_rows
+        kept, predicted = ecm_filter_rows(nbytes, model, candidates,
+                                          keep=ecm_keep, mix=mix,
+                                          itemsize=itemsize)
+        ecm_info = {"predicted_gbps": predicted, "kept": list(kept),
+                    "pruned": [r for r in candidates if r not in kept]}
+        candidates = kept
     table = {}
     for rows in candidates:
         spec = BenchSpec(mixes=(mix,), sizes=(nbytes,), dtype=dtype_s,
@@ -76,8 +82,24 @@ def sweep_block_shapes(nbytes: int, mix: str = "load_sum",
                          reps=reps, warmup=1)
         table[rows] = runner.run(spec).points[0].gbps
     best = max(table, key=table.get)
+    best_unroll, unroll_table, unroll_audit = 1, None, None
+    if tune_unroll:
+        from repro_torch.audit.verify import waiver_reason
+        from repro_torch.bench.mixes import get_mix
+        mixdef = get_mix(mix)
+        unroll_table, unroll_audit = {}, {}
+        for u in CANDIDATE_UNROLLS:
+            spec = BenchSpec(mixes=(mix,), sizes=(nbytes,), dtype=dtype_s,
+                             backend="cuda", block_rows=best, passes=u,
+                             unroll=u, reps=reps, warmup=1)
+            unroll_table[u] = runner.run(spec).points[0].gbps
+            unroll_audit[u] = waiver_reason(mixdef, "cuda", {"unroll": u})
+        sound = [u for u in unroll_table if unroll_audit[u] is None]
+        best_unroll = max(sound or unroll_table, key=unroll_table.get)
     return TuneResult(nbytes=nbytes, dtype=dtype_s, mix=mix,
-                      best_rows=best, table=table)
+                      best_rows=best, table=table,
+                      best_unroll=best_unroll, unroll_table=unroll_table,
+                      unroll_audit=unroll_audit, ecm=ecm_info)
 
 
 def _innermost_capacity(model) -> int | None:

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 import threading
 import weakref
 from pathlib import Path
@@ -49,8 +50,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.bench.mixes import (MAX_RW, RW_COMBINE_COEF, get_mix,
-                                     interleavable)
+from repro_torch.bench.mixes import (GEN_SWEEPS_PER_PASS, MAX_RW,
+                                     RW_COMBINE_COEF, get_mix, interleavable)
 from repro_torch.kernels.build import KernelLibrary
 from repro_torch.kernels.build import launch as _launch
 from repro_torch.kernels.build import raise_on as _raise_on
@@ -365,6 +366,225 @@ def mxu_launch_plan(n_tiles: int, block_rows: int, dtype, sms: int) -> dict:
     ctas_per_sm, smem = MXU_PLAN[dtype]
     return {"grid": min(n_tiles, ctas_per_sm * sms), "smem_bytes": smem,
             "half_slab": block_rows % 16 == 8}
+
+
+#: csrc/rw.cu: 16-byte vectors a thread keeps in flight per read stream, by
+#: R (``kRwVecs``), and resident CTAs an SM it is compiled for (``kRwCtas``)
+RW_VECS = (0, 4, 2, 1, 1, 1, 1, 1, 1)
+RW_CTAS = CTAS_PER_SM
+
+
+def rw_launch_plan(n_tiles: int, block_rows: int, itemsize: int,
+                   interleave: int, reads: int, sms: int) -> dict:
+    """The launch of csrc/rw.cu (the pass body of csrc/stream.cuh): ``grid``
+    CTAs of 256 threads own walk steps c, c + grid, ... in every pass;
+    a tile is ``interleave`` row chunks of ``units`` 16-byte vectors, and a
+    thread takes ``vecs`` (``RW_VECS[reads]``) units of each chunk it
+    walks a trip."""
+    return {"grid": min(n_tiles, RW_CTAS * sms), "threads": _THREADS,
+            "units": block_rows * LANES * itemsize // 16 // interleave,
+            "vecs": RW_VECS[reads]}
+
+
+# ---------------------------------------------------------------------------
+# launch records: what one timed call launches (the audit's and istream's
+# view of a case; repro_torch.istream.emulate runs each launch's SASS)
+# ---------------------------------------------------------------------------
+
+#: the mangled spelling of each element type in a kernel's name
+_MANGLED_T = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16"}
+#: stand-in addresses of a launch's buffers (the emulator reads no memory)
+_PTR = {"x": 0x7f0000000000, "y": 0x7f1000000000, "out": 0x7f2000000000,
+        "partials": 0x7f3000000000, "w": 0x7f4000000000,
+        "result": 0x7f5000000000}
+FOLD_KERNEL = "_ZN2mb11fold_chunksEPKfxxPf"
+
+
+def _record(source: str, kernel: str, grid, threads: int, params: list,
+            trips: dict, axis: str | None = None, times: int = 1) -> dict:
+    """One launch; ``axis`` is where its passes run: the pass loop inside
+    the kernel ("loop"), grid.y ("grid.y") or a launch a pass ("launch");
+    a fold has none."""
+    grid = list(grid) if isinstance(grid, tuple) else [grid, 1]
+    return {"source": source, "kernel": kernel, "grid": grid,
+            "threads": threads, "params": params, "trips": trips,
+            "times": times, "axis": axis}
+
+
+def _fold_launches(source: str, n: int) -> list[dict]:
+    """acc.cu / mxu.cu's fixed-order fold of n partials (``fold`` in
+    acc.cu: one CTA up to FOLD_CHUNK partials, else two stages)."""
+    def one(grid, n_, chunk):
+        return _record(source, FOLD_KERNEL, grid, _THREADS,
+                       [("ptr", _PTR["partials"]), ("i64", n_),
+                        ("i64", chunk), ("ptr", _PTR["result"])], {})
+    if n <= FOLD_CHUNK:
+        return [one(1, n, n)]
+    m = -(-n // FOLD_CHUNK)
+    return [one(m, n, FOLD_CHUNK), one(1, m, m)]
+
+
+def _np_chunks(passes: int) -> list[int]:
+    """The grid.y of each launch of a non-persistent kernel: the passes,
+    65535 a launch."""
+    return [min(65535, passes - p) for p in range(0, passes, 65535)]
+
+
+def _acc_record(mix: int, dtype, n_tiles: int, block_rows: int, streams: int,
+                passes: int, unroll: int, interleave: int, depth: int,
+                sms: int, l2: int) -> list[dict]:
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    tile_bytes = block_rows * LANES * itemsize
+    plan = acc_launch_plan(n_tiles, tile_bytes, interleave, sms, l2,
+                           depth / itemsize)
+    tile_vecs = tile_bytes // 16
+    t = _MANGLED_T[dtype]
+    common = [("ptr", _PTR["x"]), ("ptr", _PTR["partials"]),
+              ("i32", n_tiles), ("i32", tile_vecs), ("i32", streams)]
+    blocks = -(-(n_tiles * tile_vecs // interleave) // plan["block"])
+    if plan["shape"] == 0:
+        threads, vecs, ctas = _win(ACC_WIN, interleave)
+        name = (f"_ZN2mb7acc_winI{t}Li{unroll}ELi{interleave}ELi{mix}"
+                f"ELi{threads}ELi{vecs}ELi{ACC_WIN[2]}EEEvPKcPfiiiii")
+        out = [_record("acc.cu", name, plan["grid"], threads,
+                       common + [("i32", passes), ("i32", depth)],
+                       {"passes": passes // unroll,
+                        "blocks": -(-blocks // plan["grid"])}, "loop")]
+        n = plan["grid"]
+    else:
+        threads, vecs = ACC_NP
+        name = (f"_ZN2mb6acc_npI{t}Li{interleave}ELi{mix}ELi{threads}"
+                f"ELi{vecs}ELi{ACC_WIN[2]}EEEvPKcPfiiiii")
+        out = [_record("acc.cu", name, (plan["grid"], n), threads,
+                       common + [("i32", depth), ("i32", p0)],
+                       {"passes": n, "blocks": 1}, "grid.y")
+               for p0, n in zip(range(0, passes, 65535), _np_chunks(passes))]
+        n = plan["grid"] * passes
+    return out + _fold_launches("acc.cu", n)
+
+
+def launch_record(mix: str, dtype, shape, knobs: dict | None, passes: int,
+                  sms: int, l2: int) -> list[dict]:
+    """Every launch one timed call of ``mix`` makes (the ``cuda`` backend's
+    case, ``ops.make_timed_kernel``), in order: its source, the template
+    instance it launches (the kernel's mangled name in the SASS), its grid
+    ((x, y)) and threads, its arguments as (kind, value) pairs (buffers as
+    stand-in addresses), the trips of its loops (``passes``: pass-loop
+    trips, or the passes on grid.y; ``blocks``: blocks a CTA a pass;
+    ``steps``: dependent steps a tile, the chase) and ``times``, how often
+    the same launch repeats.  Each ``.cu`` file's host code picks the
+    instance; this is that choice, written down once, for a card of ``sms``
+    SMs and an L2 of ``l2`` bytes (arguments, so that a record replays
+    without a card)."""
+    knobs = dict(knobs or {})
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    rows = int(shape[0])
+    block_rows = knobs.get("block_rows") or default_block_rows(rows)
+    streams = knobs.get("streams") or 1
+    unroll = knobs.get("unroll") or 1
+    interleave = knobs.get("interleave") or 1
+    load = knobs.get("load") or 0
+    n_tiles = rows // block_rows
+    _check_knobs(rows, block_rows, streams, passes, unroll, interleave)
+    m = get_mix(mix)
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    tile_bytes = block_rows * LANES * itemsize
+    if m.chase:
+        chase = "_ZN2mb12chase_kernelEPKiPfiiii"
+        tile_elems = block_rows * LANES
+
+        def one(accumulate):
+            return _record("chase.cu", chase, 1, 1,
+                           [("ptr", _PTR["x"]), ("ptr", _PTR["result"]),
+                            ("i32", n_tiles), ("i32", tile_elems),
+                            ("i32", streams), ("i32", accumulate)],
+                           {"passes": 1, "steps": tile_elems}, "launch")
+        if not load:
+            return [one(0)] + ([dict(one(1), times=passes - 1)]
+                               if passes > 1 else [])
+        gen = _acc_record(_ACC_MIX_CODE["load_sum"], torch.float32, n_tiles,
+                          block_rows, streams, load * GEN_SWEEPS_PER_PASS,
+                          unroll, 1, 0, sms, l2)
+        return [dict(x, times=x["times"] * passes)
+                for x in [one(0)] + gen]
+    if m.name in ("load_sum", "load_only") or m.fma_depth:
+        code = _ACC_MIX_CODE["fma" if m.fma_depth else m.name]
+        return _acc_record(code, dtype, n_tiles, block_rows, streams, passes,
+                           unroll, interleave, m.fma_depth, sms, l2)
+    if m.name == "copy":
+        plan = copy_launch_plan(n_tiles, tile_bytes, interleave, sms, l2)
+        common = [("ptr", _PTR["x"]), ("ptr", _PTR["out"]), ("i32", n_tiles),
+                  ("i32", tile_bytes // 16), ("i32", streams)]
+        if plan["shape"] == 0:
+            threads, vecs, ctas = _win(COPY_WIN, interleave)
+            blocks = -(-(n_tiles * tile_bytes // 16 // interleave)
+                       // plan["block"])
+            name = (f"_ZN2mb8copy_winILi{unroll}ELi{interleave}ELi{threads}"
+                    f"ELi{vecs}ELi{COPY_WIN[2]}EEEvPKcPciiii")
+            return [_record("copy.cu", name, plan["grid"], threads,
+                            common + [("i32", passes)],
+                            {"passes": passes // unroll,
+                             "blocks": -(-blocks // plan["grid"])}, "loop")]
+        threads, vecs = COPY_NP
+        name = (f"_ZN2mb7copy_npILi{interleave}ELi{threads}ELi{vecs}"
+                f"EEEvPKcPciii")
+        return [_record("copy.cu", name, (plan["grid"], n), threads, common,
+                        {"passes": n, "blocks": 1}, "grid.y")
+                for n in _np_chunks(passes)]
+    if m.name == "triad":
+        plan = triad_launch_plan(n_tiles, tile_bytes, sms, l2)
+        t = _MANGLED_T[dtype]
+        s = "S2_" if dtype == torch.float32 else "S3_"
+        common = [("ptr", _PTR["x"]), ("ptr", _PTR["y"]), ("ptr", _PTR["out"]),
+                  ("i32", n_tiles), ("i32", tile_bytes // 16),
+                  ("i32", streams)]
+        if plan["shape"] == 0:
+            blocks = -(-(n_tiles * tile_bytes // 16) // _THREADS)
+            return [_record("triad.cu",
+                            f"_ZN2mb9triad_winI{t}Li{unroll}EEEvPKc{s}Pciiii",
+                            plan["grid"], _THREADS,
+                            common + [("i32", passes)],
+                            {"passes": passes // unroll,
+                             "blocks": -(-blocks // plan["grid"])}, "loop")]
+        return [_record("triad.cu", f"_ZN2mb8triad_npI{t}EEvPKc{s}Pciii",
+                        (plan["grid"], n), TRIAD_NP_THREADS, common,
+                        {"passes": n, "blocks": 1}, "grid.y")
+                for n in _np_chunks(passes)]
+    if m.name == "mxu":
+        plan = mxu_launch_plan(n_tiles, block_rows, dtype, sms)
+        route = "6MxuF32" if dtype == torch.float32 else "7MxuBf16"
+        name = (f"_ZN2mb10mxu_kernelINS_{route}ELi{unroll}EEEvPKcPKNT_1TE"
+                f"Pfiiii")
+        grid = plan["grid"]
+        fold = _record("mxu.cu", FOLD_KERNEL, 2, _THREADS,
+                       [("ptr", _PTR["partials"]), ("i64", 2 * grid),
+                        ("i64", grid), ("ptr", _PTR["result"])], {})
+        return [_record("mxu.cu", name, grid, _THREADS,
+                        [("ptr", _PTR["x"]), ("ptr", _PTR["w"]),
+                         ("ptr", _PTR["partials"]), ("i32", n_tiles),
+                         ("i32", block_rows), ("i32", streams),
+                         ("i32", passes)],
+                        {"passes": passes // unroll,
+                         "blocks": -(-n_tiles // grid)}, "loop"), fold]
+    if m.rw is not None:
+        reads, writes = m.rw
+        plan = rw_launch_plan(n_tiles, block_rows, itemsize, interleave,
+                              reads, sms)
+        t = "f" if reads == 1 else _MANGLED_T[dtype]
+        name = (f"_ZN2mb9rw_kernelI{t}Li{reads}ELi{unroll}EEEvNS_10"
+                f"StreamPtrsEiiiiii")
+        ptrs = [_PTR["x"] + (r << 36) for r in range(reads)] + \
+            [0] * (MAX_RW - reads) + \
+            [_PTR["out"] + (w << 36) for w in range(writes)] + \
+            [0] * (MAX_RW - writes)
+        return [_record("rw.cu", name, plan["grid"], plan["threads"],
+                        [("bytes", struct.pack(f"<{2 * MAX_RW}Q", *ptrs)),
+                         ("i32", writes), ("i32", n_tiles),
+                         ("i32", plan["units"]), ("i32", interleave),
+                         ("i32", streams), ("i32", passes)],
+                        {"passes": passes // unroll,
+                         "blocks": -(-n_tiles // plan["grid"])}, "loop")]
+    raise KeyError(mix)
 
 
 # ---------------------------------------------------------------------------

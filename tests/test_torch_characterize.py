@@ -640,14 +640,27 @@ def test_model_block_rows_for_fitted_documented_and_json(tmp_path):
 
 
 def test_sweep_block_shapes_runs_the_cuda_backend_and_defers_the_audit():
+    """The name is kept from when the two audit branches were deferred;
+    since the port of the audit they run, on the CPU runner as the
+    reference's do, and record ``unroll_audit`` / ``ecm``."""
     runner = Runner(device="cpu")
     tune = port_autotune.sweep_block_shapes(64 * KiB, runner=runner, reps=2)
     assert tune.dtype == "float32" and tune.mix == "load_sum"
     assert sorted(tune.table) == [8, 16, 32, 64, 128]
     assert tune.best_rows in tune.table and tune.best_unroll == 1
-    for kw in (dict(tune_unroll=True), dict(model=port_mm.A64FX, ecm_keep=2)):
-        with pytest.raises(NotImplementedError, match="Queue A 2"):
-            port_autotune.sweep_block_shapes(64 * KiB, runner=runner, **kw)
+    assert tune.unroll_audit is None and tune.ecm is None
+    tuned = port_autotune.sweep_block_shapes(64 * KiB, runner=runner, reps=1,
+                                             tune_unroll=True)
+    assert sorted(tuned.unroll_table) == list(port_autotune.CANDIDATE_UNROLLS)
+    assert tuned.unroll_audit == {u: None
+                                  for u in port_autotune.CANDIDATE_UNROLLS}
+    assert tuned.best_unroll in tuned.unroll_table
+    (model, _), _ = _both_characterize()
+    pruned = port_autotune.sweep_block_shapes(64 * KiB, runner=runner,
+                                              reps=1, model=model, ecm_keep=2)
+    assert sorted(pruned.table) == pruned.ecm["kept"]
+    assert len(pruned.ecm["kept"]) == 2 and pruned.ecm["pruned"]
+    assert set(pruned.ecm["predicted_gbps"]) == {8, 16, 32, 64, 128}
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,11 @@ def test_the_port_has_the_slice_modules():
                  "kernels/flash_attention/ops.py",
                  "kernels/flash_attention/ref.py",
                  "kernels/ssd_scan/ssd_scan.py", "kernels/ssd_scan/ops.py",
-                 "kernels/ssd_scan/ref.py", "launch/serve.py"):
+                 "kernels/ssd_scan/ref.py", "launch/serve.py",
+                 "istream/__init__.py", "istream/extract.py",
+                 "istream/emulate.py", "istream/analyze.py",
+                 "istream/classify.py", "audit/__init__.py",
+                 "audit/verify.py", "audit/ecm.py"):
         assert want in have, want
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     for package, sources in (
@@ -83,6 +87,7 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.obs, repro_torch.core.instruction_mix\n"
         "import repro_torch.characterize\n"
         "import repro_torch.core.analysis, repro_torch.core.autotune\n"
+        "import repro_torch.istream, repro_torch.audit\n"
         "import repro_torch.core.sweep, repro_torch.core.machine_model\n"
         "import repro_torch.launch.serve, repro_torch.models.hybrid\n"
         "from repro_torch.bench import Runner, BenchSpec\n"

@@ -399,8 +399,32 @@ def test_cli_latency_smoke(backend, tmp_path, capsys):
     assert ref.meta["loaded_latency"]["loads"] == [0, 1, 2]
     assert ref.meta["loaded_latency"]["fit"]["levels"]["all"]["loads"] == \
         [0, 1, 2]
+    # the reference's inline chase audit: torch live (meta tensors), cuda
+    # over the committed SASS goldens here (no card), each naming its source
+    lines = [ln for ln in text.splitlines() if ln.startswith("# audit ")]
+    assert lines == [f"# audit {b}/latency_chase{k} ({s}): ok"
+                     for b, s in (("torch", "live"), ("cuda", "goldens"))
+                     for k in ("", "[load=1]")]
+    audits = doc["meta"]["audit"]
+    assert [(a["backend"], a["knobs"]["load"], a["source"]) for a in audits] \
+        == [("torch", 0, "live"), ("torch", 1, "live"),
+            ("cuda", 0, "goldens"), ("cuda", 1, "goldens")]
+    assert all(a["ok"] and not a["waived"] for a in audits)
     assert cli.main(argv) == 2                  # refuses to overwrite
     assert "refusing to overwrite" in capsys.readouterr().err
+
+
+def test_cli_latency_smoke_exits_2_on_a_corrupted_chase(monkeypatch, capsys):
+    import dataclasses
+    from repro_torch.bench import mixes
+    bad = dataclasses.replace(get_mix("latency_chase"), reads_per_elem=2.0)
+    monkeypatch.setitem(mixes._REGISTRY, "latency_chase", bad)
+    assert cli.main(["latency", "--smoke", "--device", "cpu", "--backend",
+                     "torch", "--loads", "0", "--reps", "1",
+                     "--no-ledger"]) == 2
+    captured = capsys.readouterr()
+    assert "latency_chase accounting must be checked clean" in captured.err
+    assert captured.out.count(": FAIL") == 4
 
 
 def test_cli_latency_flags_and_default_device(tmp_path, capsys):
