@@ -57,6 +57,16 @@ Phases (any failure raises and the script exits non-zero):
      fails), ``istream --smoke --backend cuda`` (copy.cu and rw.cu; every
      point labelled; launches = points x (reps + warmup)) and ``latency
      --smoke --backend cuda`` (chase.cu and acc.cu; four checked audits).
+     3g: the multi-device bench, no kernel launched (every counter stays
+     0): ``run --backend sharded --devices 1`` beside ``run --backend
+     torch`` for every torch mix at 16 MiB and 256 MiB (latency_chase at 16
+     MiB only: its oracle walks on the host) — the same accounting, the
+     same returned scalar on the same buffer, every dispatch a mesh of 1 on
+     cuda:0; ``--devices 2`` exits 2 naming the one visible device;
+     ``launch --processes 1`` on NCCL; ``launch --processes 2
+     --devices-per-process 2 --device cpu`` on gloo (the straggler merge
+     checked); ``launch --processes 2`` on CUDA refused before anything is
+     spawned; ``core.scaling.scaling_curve`` at devices 1.
   4  the measurement is real: doubling ``passes`` doubles the time (also
      for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
      memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
@@ -1423,6 +1433,241 @@ def phase_audit_path(quick: bool) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 3g — the multi-device bench (sharded, distributed, launch, scaling)
+# ---------------------------------------------------------------------------
+
+#: the sizes of 3g's ``run --backend torch`` / ``--backend sharded`` pair.
+#: latency_chase runs at the first only: the torch oracle walks the chain on
+#: the host (4.2e6 dependent steps a pass at 16 MiB, 6.7e7 at 256 MiB).
+MESH_SIZES = ("16M", "256M")
+
+
+def _cli_both(argv: list[str]) -> tuple[int, str, str]:
+    """Run the CLI in this process; returns (exit code, stdout, stderr) —
+    a launch's workers stream into the stderr captured here."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _all_launches() -> dict[str, int]:
+    return {**mb.launch_counts, **fa.launch_counts, **sk.launch_counts}
+
+
+def _mesh_tol(mix: str, n: int, passes: int, value: float) -> float:
+    """The torch oracle's own bound at one shard (the tolerances of
+    ``tests/test_torch_oracles.py`` and ``test_torch_rw.py``): sums n x
+    1.3e-7 x passes x depth (floor 1e-4), element checksums 1e-6 |v| +
+    1e-6, rw 1e-6 |v| + (R-1) ulp(4) (passes + W), the chase exactly."""
+    if mix == "latency_chase":
+        return 0.0
+    if mix in ("copy", "triad", "mxu"):
+        return 1e-6 * abs(value) + 1e-6
+    if mix.startswith("rw_"):
+        reads, writes = get_mix(mix).rw
+        ulp = float(np.spacing(np.float32(4.0)))
+        return 1e-6 * abs(value) + (reads - 1) * ulp * (passes + writes)
+    depth = int(mix.split("_")[1]) if mix.startswith("fma_") else 1
+    return max(n * 1.3e-7 * passes * depth, 1e-4)
+
+
+def _mesh_points(path: Path) -> dict:
+    return {(p.mix, p.nbytes): p for p in BenchResult.from_json(path).points}
+
+
+def phase_mesh_path(quick: bool) -> None:
+    """(a) ``run --backend sharded --devices 1`` beside ``run --backend
+    torch`` for every torch mix: same accounting, the same returned scalar
+    on the same buffer, the mesh [1] on cuda:0; (b) ``--devices 2`` on one
+    card exits 2 naming the visible count; (c) ``launch --processes 1`` on
+    NCCL; (d) ``launch --processes 2 --devices-per-process 2 --device cpu``
+    on gloo, the straggler merge checked; (e) ``launch --processes 2`` on
+    CUDA refused before anything is spawned; (f) ``scaling_curve`` at
+    devices 1.  No kernel of the port runs here: every launch counter stays
+    at 0."""
+    say("== phase 3g: the multi-device bench (run --backend sharded, launch, "
+        "scaling_curve)")
+    from repro_torch.bench.backends import get_backend
+    from repro_torch.bench.spec import BenchSpec
+    from repro_torch.core.scaling import scaling_curve
+    t0 = time.perf_counter()
+    for mod in (mb, fa, sk):
+        mod.reset_launch_counts()
+    mixes = mix_names("torch")
+    sizes = ("1M",) if quick else MESH_SIZES
+    hist = ["--history-root", str(OUT_DIR / "BENCH_history")]
+
+    # (a) the mesh of one beside the torch backend, in turns: torch,
+    # sharded, sharded, torch, then sharded traced (its dispatch events are
+    # read); the chase, whose oracle walks on the host, in the first torch
+    # turn and the traced one only
+    turns = (("torch", "a", False), ("sharded", "a", False),
+             ("sharded", "b", False), ("torch", "b", False),
+             ("sharded", "traced", True))
+    for backend, tag, traced in turns:
+        for i, size in enumerate(sizes):
+            names = [m for m in mixes if m != "latency_chase"
+                     or (i == 0 and (backend, tag) in (("torch", "a"),
+                                                       ("sharded",
+                                                        "traced")))]
+            out = OUT_DIR / f"mesh_{backend}_{tag}_{size}.json"
+            argv = ["run", "--backend", backend, "--devices", "1",
+                    "--mixes", ",".join(names), "--sizes", size, "--reps",
+                    "3", "--force", "--out", str(out), *hist]
+            if traced:
+                argv += ["--trace", str(OUT_DIR / f"mesh_trace_{size}.json")]
+            rc, text, err = _cli_both(argv)
+            cli.trace.configure(enabled=False)
+            sync()
+            if rc != 0:
+                raise AssertionError(f"run --backend {backend} exited {rc}:"
+                                     f"\n{text}\n{err}")
+    card = f"one H100, mesh of 1 ({torch.cuda.get_device_name(0)})"
+    say(f"  {card}, GB/s in turns: torch / sharded / sharded / torch / "
+        f"sharded traced")
+    for size in sizes:
+        runs = [_mesh_points(OUT_DIR / f"mesh_{b}_{tag}_{size}.json")
+                for b, tag, _ in turns]
+        for p in sorted(runs[0].values(), key=lambda p: mixes.index(p.mix)):
+            pts = [r.get((p.mix, p.nbytes)) for r in runs]
+            q = pts[0]
+            for (backend, _, _), r in zip(turns, pts):
+                if r is None:
+                    continue
+                if (r.bytes_per_call, r.flops_per_call, r.passes) != \
+                        (q.bytes_per_call, q.flops_per_call, q.passes) \
+                        or r.devices != 1 or r.backend != backend \
+                        or not (math.isfinite(r.gbps) and r.gbps > 0):
+                    raise AssertionError(f"{r} against torch {q}")
+            if pts[-1] is None:
+                raise AssertionError(f"the traced sharded turn lacks {p}")
+            say(f"    {p.mix:13s} {p.nbytes:>10d} B  "
+                + " / ".join("-" if r is None else f"{r.gbps:.2f}"
+                             for r in pts)
+                + f"  passes {p.passes}")
+        events = json.loads((OUT_DIR / f"mesh_trace_{size}.json")
+                            .read_text())["traceEvents"]
+        shapes = {tuple(e["args"]["mesh_shape"]) for e in events
+                  if e["name"] == "backend.dispatch"}
+        places = {tuple(e["args"]["devices"]) for e in events
+                  if e["name"] == "mesh.place"}
+        if shapes != {(1,)} or places != {(str(DEV),)}:
+            raise AssertionError(f"dispatch mesh shapes {shapes}, "
+                                 f"placements {places}")
+    say(f"  torch and sharded agree on bytes_per_call / flops_per_call / "
+        f"passes; every dispatch is mesh_shape [1], placed on {DEV}")
+
+    worst = 0.0
+    for size in sizes:
+        nbytes = cli._parse_sizes(size)[0]
+        x = working_set(nbytes, device=DEV)
+        for name in mixes:
+            if name == "latency_chase" and size != sizes[0]:
+                continue
+            passes = 1 if name == "latency_chase" else 2
+            mix = get_mix(name)
+            spec = BenchSpec(mixes=(name,), sizes=(nbytes,), passes=passes)
+            want = float(get_backend("torch").build(
+                spec, mix, x, passes)())
+            got = float(get_backend("sharded").build(
+                spec.replace(backend="sharded"), mix, x, passes)())
+            tol = _mesh_tol(name, x.numel(), passes, want) \
+                + float(np.finfo(np.float32).eps) * abs(want)
+            worst = max(worst, abs(got - want))
+            if not abs(got - want) <= tol:
+                raise AssertionError(f"sharded {name} at {size}: {got} "
+                                     f"against torch {want} (tol {tol})")
+        del x
+        torch.cuda.empty_cache()
+    say(f"  returned scalars: sharded at devices 1 equals torch on the same "
+        f"buffer for {len(mixes)} mixes at {', '.join(sizes)} (largest "
+        f"difference {worst:.3e})")
+
+    # (b) more devices than the card has
+    rc, text, err = _cli_both(["run", "--backend", "sharded", "--devices",
+                               "2", "--mixes", "load_sum", "--sizes", "16M",
+                               "--no-ledger"])
+    if rc != 2 or "devices=2 exceeds the 1 visible device(s)" not in err:
+        raise AssertionError(f"sharded --devices 2 exited {rc}:\n{err}")
+    say("  --devices 2 on one card: exit 2, " + err.strip())
+
+    # (c) one process on NCCL
+    out = OUT_DIR / "launch_nccl.json"
+    out.unlink(missing_ok=True)
+    t1 = time.perf_counter()
+    rc, text, err = _cli_both(["launch", "--processes", "1",
+                               "--devices-per-process", "1", "--mixes",
+                               "load_sum,copy", "--sizes", "16M", "--reps",
+                               "3", "--timeout", "300", "--out", str(out),
+                               *hist])
+    if rc != 0:
+        raise AssertionError(f"launch on NCCL exited {rc}:\n{text}\n{err}")
+    doc = json.loads(out.read_text())
+    if doc["machine"]["process_count"] != 1 \
+            or doc["machine"]["device_platform"] != "gpu" \
+            or [p["devices"] for p in doc["points"]] != [1, 1] \
+            or {p["backend"] for p in doc["points"]} != {"distributed"}:
+        raise AssertionError(f"launch on NCCL: {doc['machine']} "
+                             f"{doc['points']}")
+    for p in doc["points"]:
+        say(f"  launch --processes 1 (NCCL, one H100): {p['mix']} "
+            f"{p['nbytes']} B  {p['gbps']:.2f} GB/s")
+    say(f"  launch on NCCL: {time.perf_counter() - t1:.1f} s")
+
+    # (d) two processes of two logical CPU devices on gloo
+    out = OUT_DIR / "launch_gloo.json"
+    out.unlink(missing_ok=True)
+    t1 = time.perf_counter()
+    rc, text, err = _cli_both(["launch", "--processes", "2",
+                               "--devices-per-process", "2", "--device",
+                               "cpu", "--mixes", "load_sum,copy", "--sizes",
+                               "1M", "--reps", "2", "--timeout", "300",
+                               "--out", str(out), *hist])
+    if rc != 0 or "[p1] # process 1/2 done" not in err:
+        raise AssertionError(f"launch on gloo exited {rc}:\n{text}\n{err}")
+    doc = json.loads(out.read_text())
+    m, rows = doc["machine"], doc["meta"]["per_process_mean_s"]
+    if (m["process_count"], m["local_device_counts"], m["device_count"]) \
+            != (2, [2, 2], 4) or len(rows) != 2 \
+            or any(p["devices"] != 4 for p in doc["points"]):
+        raise AssertionError(f"launch on gloo: {m} {doc['points']}")
+    for i, p in enumerate(doc["points"]):
+        if p["mean_s"] != max(r[i] for r in rows) or not math.isclose(
+                p["gbps"], p["bytes_per_call"] / p["mean_s"] / 1e9):
+            raise AssertionError(f"straggler merge: {p} against {rows}")
+    say(f"  launch --processes 2 --devices-per-process 2 --device cpu "
+        f"(gloo): local_device_counts [2, 2], each point the slowest "
+        f"process's, {time.perf_counter() - t1:.1f} s")
+
+    # (e) more GPUs than the card has: refused before anything is spawned
+    out = OUT_DIR / "launch_refused.json"
+    out.unlink(missing_ok=True)
+    rc, text, err = _cli_both(["launch", "--processes", "2",
+                               "--devices-per-process", "1", "--mixes",
+                               "load_sum", "--sizes", "16M", "--out",
+                               str(out), "--no-ledger"])
+    if rc == 0 or "needs 2 GPUs; 1 visible" not in err or out.exists() \
+            or "[p0]" in err:
+        raise AssertionError(f"launch of 2 on one card exited {rc}:\n{err}")
+    say("  launch --processes 2 on one card: exit 2, " + err.strip())
+
+    # (f) the scaling view at devices 1
+    pts = scaling_curve(16 * 2**20, device_counts=[1], runner=Runner())
+    if len(pts) != 1 or pts[0].devices != 1 or pts[0].speedup != 1.0 \
+            or not pts[0].gbps > 0:
+        raise AssertionError(f"scaling_curve: {pts}")
+    say(f"  scaling_curve(16 MiB, [1]) ({card}): {pts[0].gbps:.2f} GB/s, "
+        f"speedup {pts[0].speedup}")
+
+    launched = {k: v for k, v in _all_launches().items() if v}
+    if launched:
+        raise AssertionError(f"phase 3g launched kernels: {launched}")
+    say(f"  no kernel launched in phase 3g; phase 3g: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 #: the kernel route against the plain route, at full width.  The routes
 #: round at different places by design (the kernels keep the SSD's CB*L,
 #: decays and carried state and the attention probabilities in float32, the
@@ -2405,6 +2650,7 @@ def main(argv=None) -> int:
     counts.update(phase_serve_path(args.quick))
     characterized = phase_characterize_path(args.quick)
     audited = phase_audit_path(args.quick)
+    phase_mesh_path(args.quick)
     phase_real(args.quick)
     phase_real_rw_chase(args.quick)
     line = phase_kernels_line(counts, args.quick)

@@ -1,8 +1,8 @@
 """repro_torch.bench — the unified experiment API on PyTorch.
 
 One declarative BenchSpec, pluggable backends (``torch`` plain oracles /
-``cuda`` hand-written kernels), one Runner owning the measurement discipline,
-versioned results:
+``cuda`` hand-written kernels / ``sharded`` and ``distributed`` meshes of the
+oracles), one Runner owning the measurement discipline, versioned results:
 
     from repro_torch.bench import BenchSpec, Runner
     res = Runner().run(BenchSpec(mixes=("load_sum", "fma_8"), backend="cuda",
@@ -12,7 +12,7 @@ versioned results:
 ``Runner()`` runs on ``cuda`` and raises when there is no CUDA device;
 ``Runner(device="cpu")`` asks for the CPU.
 
-CLI: ``python -m repro_torch.bench {run,list-mixes,compare}``.
+CLI: ``python -m repro_torch.bench {run,list-mixes,compare,launch,...}``.
 
 Heavy submodules (backends pull in the kernel package) load lazily so that
 ``repro_torch.core`` modules can import the mix registry without a cycle.
@@ -34,6 +34,11 @@ _LAZY = {
     "register_backend": ("repro_torch.bench.backends", "register_backend"),
     "available_backends": ("repro_torch.bench.backends",
                            "available_backends"),
+    # multi-process coordination (the `distributed` backend's plumbing)
+    "ensure_initialized": ("repro_torch.bench.distributed",
+                           "ensure_initialized"),
+    "gather_result": ("repro_torch.bench.distributed", "gather_result"),
+    "launch_local": ("repro_torch.bench.distributed", "launch_local"),
 }
 
 __all__ = ["BenchSpec", "BenchSpecError", "BenchPoint", "BenchResult",

@@ -25,9 +25,11 @@ the first:
 Third-party backends only need ``build`` (the original protocol); the Runner
 falls back to it, uncached, when ``make_case`` is absent.
 
-The multi-device backends of the reference (``sharded``, ``distributed``)
-have no counterpart here yet: none is registered, and ``BenchSpec`` refuses
-``devices > 1``.
+The multi-device backends ``sharded`` (the devices of one process) and
+``distributed`` (the devices of every process of a ``torch.distributed``
+run) are the reference's: each shard of a 1-D mesh runs the ``torch``
+backend's oracle case over its block of rows.  Their working sets are
+``MeshBuffer``s, made shard by shard where each shard lives.
 """
 from __future__ import annotations
 
@@ -196,14 +198,22 @@ def _chase_buffer(x, parts: int) -> torch.Tensor:
     return torch.tensor(chase_perm(x.shape, parts), device=x.device)
 
 
-def _mix_operands(mix: MixDef, x, load: int = 0) -> tuple:
+def _mix_operands(mix: MixDef, x, place=None, load: int = 0,
+                  parts: int = 1) -> tuple:
     """Every buffer a mix's oracle case consumes, in positional order, built
     OUTSIDE the timed call.  ``x`` passes through as-is; companion streams
     are triad's (a, c), the rw family's R-1 extra read streams and W write
-    seeds, the chase probe's permutation buffer (one cycle over the whole
-    buffer) plus ``x`` as the generator buffer when ``load`` > 0."""
+    seeds, the chase probe's permutation buffer (``parts`` local cycles: one
+    per mesh shard) plus ``x`` as the generator buffer when ``load`` > 0.
+    ``place`` puts the permutation buffer, built on the host, where ``x``
+    lives (None: on x's device; the mesh backends split it over the mesh
+    and build the other companions shard by shard)."""
     if mix.chase:
-        perm = _chase_buffer(x, 1)
+        if place is None:
+            perm = _chase_buffer(x, parts)
+        else:
+            from repro_torch.core.instruction_mix import chase_perm
+            perm = place(chase_perm(tuple(x.shape), parts))
         return (perm, x) if load else (perm,)
     if mix.name == "triad":
         return (torch.zeros_like(x), x, x * 0.5)
@@ -233,6 +243,8 @@ def _oracle_case(spec: BenchSpec, mix: MixDef, rows: int, passes: int,
     if interleave > 1 and rows % interleave:
         raise BenchSpecError(
             f"interleave {interleave} does not divide {rows} rows"
+            + ("" if backend_name == "torch" else
+               f" (the per-device shard on {backend_name})")
             + _gate(backend_name, "interleave | rows"))
     if mix.name == "load_sum" and spec.streams > 1:
         streams = spec.streams
@@ -241,7 +253,9 @@ def _oracle_case(spec: BenchSpec, mix: MixDef, rows: int, passes: int,
         brows = spec.block_rows
         if rows % brows:
             raise BenchSpecError(
-                f"block_rows {brows} does not divide {rows} rows")
+                f"block_rows {brows} does not divide {rows} rows"
+                + ("" if backend_name == "torch" else
+                   f" (the per-device shard on {backend_name})"))
         return lambda x: im.k_blocked_sum(x, brows, passes, unroll)
     if mix.chase:
         load = spec.load
@@ -398,6 +412,271 @@ class CudaBackend(_CaseBackend):
         return lambda: case(x)
 
 
+class MeshBuffer:
+    """A (rows, lanes) buffer split into row blocks, one a mesh shard:
+    ``shards[i]`` is block i on its shard's device.  A process of a
+    distributed run holds only its own shards, so ``shards`` maps shard
+    index -> tensor and may hold fewer than the mesh has.  ``shape`` is the
+    whole buffer's."""
+
+    def __init__(self, shape, shards: dict):
+        self.shape = tuple(shape)
+        self.shards = dict(shards)
+
+
+class _MeshOracleBackend(_CaseBackend):
+    """Shared machinery for backends that run the instruction-mix oracles
+    per shard of a 1-D device mesh (``sharded`` on one process's devices,
+    ``distributed`` on every process's devices).
+
+    Subclasses choose the layout: which shards this process holds and on
+    which of its devices (``_layout``).  ``make_case`` — the ``torch``
+    backend's oracle case on each shard, the scalars summed on the first
+    shard's device in shard order — is the same for both, so bytes/flops
+    parity across torch / sharded / distributed holds by construction (the
+    Runner reads accounting from the shared mix registry, never from the
+    backend).  The device pool is that of the Runner's device
+    (``core.device.device_pool``): every visible GPU, or the logical CPU
+    devices ``REPRO_TORCH_CPU_DEVICES`` asks for.  A mesh larger than the
+    pool raises; no shard is put elsewhere to make up the count.
+    """
+    multi_device = True
+
+    def supports(self, mix: MixDef) -> bool:
+        # mixes._BACKEND_ALIASES maps sharded/distributed -> torch (single
+        # source of truth for which mixes the oracles implement)
+        return mix.supports(self.name)
+
+    def _pool(self, k: int, device) -> list:
+        """The first k devices of the pool of ``device``'s kind."""
+        from repro_torch.core.device import CPU_DEVICES_ENV, device_pool
+        dev = torch.device(device)
+        pool = device_pool(dev)
+        if k > len(pool):
+            fix = (f"set {CPU_DEVICES_ENV}=N for N logical CPU devices"
+                   if dev.type == "cpu" else
+                   "a mesh never puts two shards on one GPU")
+            raise BenchSpecError(
+                f"devices={k} exceeds the {len(pool)} visible device(s) of "
+                f"{dev.type}; {fix}")
+        if dev.type == "cuda" and (dev.index or 0) != 0:
+            raise BenchSpecError(
+                f"the {self.name} mesh starts at cuda:0 and the run "
+                f"serializes there; run on cuda (cuda:0), not {dev}")
+        return pool[:k]
+
+    def _layout(self, k: int, device) -> dict:
+        """shard index -> device, for the shards this process holds."""
+        return dict(enumerate(self._pool(k, device)))
+
+    def validate(self, spec: BenchSpec) -> None:
+        _validate_oracle_knobs(spec, self.name)
+        if spec.load and spec.devices != spec.load + 1:
+            raise BenchSpecError(
+                f"{self.name} backend places the latency probe on shard 0 "
+                f"and each of the {spec.load} generator(s) on its own "
+                f"sibling shard: need devices == load + 1 "
+                f"({spec.load + 1}), got devices={spec.devices}"
+                + _gate(self.name, "devices == load + 1"))
+
+    def check_devices(self, spec: BenchSpec, device) -> None:
+        """The Runner's device-count check, before any buffer is made."""
+        self._layout(spec.devices, device)
+
+    def working_set(self, spec: BenchSpec, nbytes: int, dtype, device
+                    ) -> MeshBuffer:
+        """The working set, each shard made on its own device (the fill
+        repeats row by row), so no device ever holds more than its shard."""
+        from repro_torch.core import buffers
+        k = spec.devices
+        rows, lanes = buffers.working_set_shape(nbytes, dtype)
+        self._check_rows(rows, k)
+        layout = self._layout(k, device)
+        trace.event("mesh.place", backend=self.name, mesh_shape=[k],
+                    devices=[str(layout[i]) for i in sorted(layout)])
+        return MeshBuffer((rows, lanes), {
+            i: buffers.working_block(rows // k, lanes, dtype, spec.value, d)
+            for i, d in layout.items()})
+
+    def _check_rows(self, rows: int, k: int) -> None:
+        if rows % k:
+            raise BenchSpecError(
+                f"devices={k} does not divide the {rows}-row working set")
+
+    def _split(self, a, k: int, device) -> MeshBuffer:
+        """A whole buffer (tensor or host array) -> its row blocks on this
+        process's shards."""
+        rows = a.shape[0]
+        self._check_rows(rows, k)
+        r = rows // k
+        layout = self._layout(k, device)
+        if isinstance(a, torch.Tensor):
+            shards = {i: a[i * r:(i + 1) * r].to(d)
+                      for i, d in layout.items()}
+        else:
+            shards = {i: torch.tensor(a[i * r:(i + 1) * r], device=d)
+                      for i, d in layout.items()}
+        return MeshBuffer(a.shape, shards)
+
+    def prepare_buffer(self, spec, x):
+        """A whole tensor (a direct ``build``) is split over the mesh of its
+        device's kind; a ``MeshBuffer`` from ``working_set`` is placed
+        already."""
+        if isinstance(x, MeshBuffer):
+            return x
+        return self._split(x, spec.devices, x.device)
+
+    def _reduce(self, total: torch.Tensor) -> torch.Tensor:
+        """The cross-process step of a rep (none on one process)."""
+        return total
+
+    def make_case(self, spec, mix, shape, dtype, passes):
+        k = spec.devices
+        rows = shape[0]
+        self._check_rows(rows, k)
+        composite = bool(mix.chase and spec.load)
+        # dispatch provenance: which backend, what mesh shape, and whether a
+        # generator co-schedule is composed in (the loaded-latency split)
+        trace.event("backend.dispatch", backend=self.name, mix=mix.name,
+                    mesh_shape=[k], load=spec.load, composite=composite)
+        if composite:
+            # the mesh composite: shard 0 walks its pointer cycle (the
+            # probe) while every sibling shard runs load_sum sweeps over its
+            # block of the generator buffer — spatial co-scheduling, not the
+            # single-device time-shared emulation
+            from repro_torch.bench.mixes import GEN_SWEEPS_PER_PASS
+            from repro_torch.core import instruction_mix as im
+            if passes % spec.unroll:
+                raise BenchSpecError(
+                    f"passes={passes} is not a multiple of "
+                    f"unroll={spec.unroll}"
+                    + _gate(self.name, "passes % unroll == 0"))
+            gen_passes = passes * GEN_SWEEPS_PER_PASS
+            unroll = spec.unroll
+
+            def shard_case(i):
+                if i == 0:
+                    return lambda perm, gen: im.k_chase(perm, passes, unroll)
+                return lambda perm, gen: im.k_load_sum(gen, gen_passes)
+        else:
+            one = _oracle_case(spec, mix, rows // k, passes, self.name)
+
+            def shard_case(i):
+                return one
+        reduce = self._reduce
+
+        def case(*bufs):
+            held = sorted(bufs[0].shards)
+            # every shard is enqueued on its own device with no sync between
+            # them; the probe's walk runs on the host, so the generators go
+            # first and run beside it
+            order = ([i for i in held if i] + [0]
+                     if composite and 0 in held else held)
+            out = {i: shard_case(i)(*(b.shards[i] for b in bufs))
+                   for i in order}
+            total = out[held[0]]
+            for i in held[1:]:      # shard order, on the first shard's device
+                total = total + out[i].to(total.device)
+            return reduce(total)
+        return case
+
+    def bind_case(self, case, spec, mix, x):
+        # companions live outside the timed call, shard by shard where x's
+        # shards live; the chase's permutation buffer (one cycle a shard) is
+        # built on the host and split like x
+        k = spec.devices
+        if mix.chase:
+            dev = x.shards[min(x.shards)].device
+            bufs = _mix_operands(mix, x,
+                                 place=lambda a: self._split(a, k, dev),
+                                 load=spec.load, parts=k)
+        else:
+            per = {i: _mix_operands(mix, t) for i, t in x.shards.items()}
+            n = len(per[min(per)])
+            bufs = tuple(MeshBuffer(x.shape, {i: per[i][j] for i in per})
+                         for j in range(n))
+        return lambda: case(*bufs)
+
+
+class ShardedBackend(_MeshOracleBackend):
+    """The working set spread over the first k devices of a 1-D mesh.
+
+    Reproduces the paper's Figure-4 core-count scaling study (aggregate
+    bandwidth vs cores until the memory interface saturates): each device
+    runs the *same* instruction-mix oracle the torch backend runs, over its
+    shard — so every mix that runs on ``torch`` runs sharded, with identical
+    bytes/flops accounting by construction.  ``BenchSpec(devices=k)`` picks
+    the mesh size; at ``devices=1`` this is the torch backend plus the mesh
+    bookkeeping.
+    """
+    name = "sharded"
+
+
+class DistributedBackend(_MeshOracleBackend):
+    """The sharded oracle-per-shard machinery over the **global** devices of
+    a multi-process run (``torch.distributed``) — the paper's Fig-4 scaling
+    study taken past one process.
+
+    The ``devices`` knob is unchanged: it counts *global* mesh devices, so a
+    spec that ran ``sharded`` on 4 devices runs ``distributed`` on two
+    processes of 2 byte for byte (same accounting, same per-shard cases).
+    What differs from ``sharded``:
+
+    * the pool: every process's devices, round-robin across processes, and
+      each process makes only its own shards;
+    * the serialization point: every rep ends with an ``all_reduce`` of the
+      processes' partial sums (the reference's trailing cross-shard
+      ``.sum()``), and afterwards ``bench.distributed.gather_result`` merges
+      the per-process timings into one BenchResult on every process;
+      process 0 saves it.
+
+    Initialization (``bench.distributed.ensure_initialized``) comes first —
+    the CLI's ``run`` / ``launch`` do this.  Outside an initialized run this
+    backend is ``sharded`` exactly.
+    """
+    name = "distributed"
+
+    def _global_pool(self, device) -> list[tuple[int, int]]:
+        """(process, local device index) of the global devices, round-robin
+        across processes — ``devices=k`` spreads the mesh as evenly as the
+        process topology allows (k=2 on 2x2 is one device per process, not
+        two on process 0), so a Fig-4 sweep over intermediate counts crosses
+        processes instead of filling one."""
+        from repro_torch.bench import distributed as dist
+        counts = dist.local_device_counts(device)
+        return [(p, i) for i in range(max(counts))
+                for p in range(len(counts)) if i < counts[p]]
+
+    def _layout(self, k: int, device) -> dict:
+        from repro_torch.bench import distributed as dist
+        if dist.process_count() == 1:
+            return super()._layout(k, device)
+        gpool = self._global_pool(device)
+        if k > len(gpool):
+            raise BenchSpecError(
+                f"devices={k} exceeds the {len(gpool)} global device(s) of "
+                f"{dist.process_count()} processes")
+        # SPMD needs every process inside the mesh: a process owning no
+        # shard has nothing to time — fail with the fix
+        missing = sorted(set(range(dist.process_count()))
+                         - {p for p, _ in gpool[:k]})
+        if missing:
+            raise BenchSpecError(
+                f"devices={k} leaves process(es) {missing} with no mesh "
+                f"shard; use devices >= one per process or launch fewer "
+                f"processes")
+        me = dist.process_index()
+        local = self._pool(max(i for p, i in gpool if p == me) + 1, device)
+        return {s: local[i] for s, (p, i) in enumerate(gpool[:k]) if p == me}
+
+    def _reduce(self, total):
+        from repro_torch.bench import distributed as dist
+        if dist.is_initialized():
+            import torch.distributed as tdist
+            tdist.all_reduce(total.reshape(1))  # in place, through the view
+        return total
+
+
 _BACKENDS: dict[str, Backend] = {}
 
 
@@ -407,6 +686,8 @@ def register_backend(backend: Backend) -> Backend:
 
 
 register_backend(TorchBackend())
+register_backend(ShardedBackend())
+register_backend(DistributedBackend())
 register_backend(CudaBackend())
 
 

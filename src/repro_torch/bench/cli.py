@@ -1,8 +1,11 @@
 """``python -m repro_torch.bench`` — run / list-mixes / compare /
-characterize / istream / audit / latency / history / diff.
+characterize / istream / audit / latency / launch / history / diff.
 
     run         execute a BenchSpec (flags or --spec JSON), print + save the
-                schema-versioned result JSON
+                schema-versioned result JSON; under a multi-process launch
+                (REPRO_NUM_PROCESSES et al.) it starts the torch.distributed
+                process group (gloo on the CPU, NCCL on CUDA), gathers
+                timings across processes, and saves from process 0
     list-mixes  the shared mix registry with its bytes/flops accounting
     compare     the same spec on several backends, side by side
     characterize  adaptive fine-granularity sweep -> detected topology ->
@@ -19,6 +22,10 @@ characterize / istream / audit / latency / history / diff.
     latency     loaded-latency surface: the latency_chase probe across the
                 load axis -> bandwidth-latency curve + knee fit; --smoke
                 also audits the chase on both backends (exit 2 otherwise)
+    launch      spawn N coordinated local processes running ``run --backend
+                distributed``, each with its own devices (logical CPU
+                devices, or its own GPUs) — one machine running a
+                multi-process Fig-4 scaling study
     history     list the persistent run ledger (BENCH_history/); --add
                 ingests a saved result JSON as a record (repro_torch.obs.ledger)
     diff        noise-aware bandwidth comparison against a ledger baseline
@@ -31,8 +38,7 @@ plain PyTorch versions on the CPU).  ``run``, ``characterize`` and
 ledger record unless ``--no-ledger``, and refuse to overwrite an existing
 ``--out``/``--report`` file unless ``--force``.
 
-Counterpart of ``repro.bench.cli``; its ``launch`` (multi-process runs of
-the multi-device backends) has none here yet.
+Counterpart of ``repro.bench.cli``.
 """
 from __future__ import annotations
 
@@ -81,15 +87,16 @@ def _add_spec_flags(p: argparse.ArgumentParser):
                    help="path to a BenchSpec JSON (overrides other flags)")
     p.add_argument("--quick", action="store_true",
                    help="small sizes / few reps smoke preset")
-    p.add_argument("--backend", default="cuda", help="torch | cuda")
+    p.add_argument("--backend", default="cuda",
+                   help="torch | cuda | sharded | distributed")
     p.add_argument("--mixes", "--mix", default=None,
                    help="comma list, e.g. load_sum,copy,fma_8")
     p.add_argument("--sizes", default=None, help="comma list, K/M/G ok: 32K,2M")
     p.add_argument("--reps", type=int, default=None)
     p.add_argument("--streams", type=int, default=None)
     p.add_argument("--devices", type=int, default=None,
-                   help="devices the working set spreads over (multi-device "
-                        "backends only; none is registered yet)")
+                   help="mesh devices the working set spreads over "
+                        "(multi-device backends: sharded, distributed)")
     p.add_argument("--block-rows", dest="block_rows", type=int, default=None)
     p.add_argument("--dtype", default=None)
     p.add_argument("--unroll", type=int, default=None,
@@ -150,7 +157,9 @@ def _obs_begin(args) -> None:
 
 
 def _obs_finish(args, res, cmd: str) -> None:
-    """Write the trace and append the run's ledger record."""
+    """Write the trace and append the run's ledger record (call on the
+    primary process only — the distributed gather has already merged the
+    other processes' events into this tracer)."""
     trace_path = None
     if getattr(args, "trace", None):
         tr = trace.get_tracer()
@@ -167,10 +176,18 @@ def _obs_finish(args, res, cmd: str) -> None:
 
 def cmd_run(args) -> int:
     _check_overwrite(args, "out")
+    from repro_torch.bench import distributed as dist
     runner = Runner(device=args.device)     # raises without a CUDA device
+    # the process group must exist before the spec's mesh is checked; a
+    # no-op outside a multi-process launch
+    dist.ensure_initialized(runner.device)
     _obs_begin(args)
     spec = _spec_from_args(args)
-    res = runner.run(spec)
+    res = dist.gather_result(runner.run(spec))
+    if not dist.is_primary():
+        print(f"# process {dist.process_index()}/{dist.process_count()} "
+              f"done ({len(res.points)} points gathered by process 0)")
+        return 0
     _obs_finish(args, res, "run")
     text = res.to_json(args.out)
     if args.out:
@@ -523,6 +540,51 @@ def cmd_latency(args) -> int:
     return rc
 
 
+def cmd_launch(args) -> int:
+    """Spawn N coordinated local processes running ``run`` with the same
+    spec flags (see bench.distributed.launch_local).  All children share one
+    argv — ``cmd_run`` gates the ``--out`` write on process 0, which holds
+    the gathered result; the others report and exit.  The workers run on
+    ``--device`` (default cuda: one process per GPU slice, NCCL; ``cpu``:
+    logical CPU devices, gloo)."""
+    from pathlib import Path
+
+    from repro_torch.bench import distributed as dist
+    if any(f == "--spec" or f.startswith("--spec=")
+           for f in args.worker_flags):
+        # a spec file short-circuits _spec_from_args, silently discarding
+        # the injected --backend/--devices below — the workers would run
+        # the file's backend single-process and the 'gathered' result would
+        # be wrong; demand explicit flags instead
+        raise BenchSpecError(
+            "launch does not accept --spec (the file's backend/devices "
+            "would override the injected distributed defaults); pass the "
+            "spec as explicit flags (--mixes/--sizes/--devices/...)")
+    worker = [sys.executable, "-m", "repro_torch.bench", "run",
+              "--backend", args.backend] + list(args.worker_flags)
+    if args.device is not None:
+        worker += ["--device", args.device]
+    if not any(f == "--devices" or f.startswith("--devices=")
+               for f in args.worker_flags):
+        # default to the full mesh: every process must own a mesh shard
+        # (the backend rejects a mesh that leaves a process out).  Appended,
+        # so it must not shadow either user spelling — argparse takes the
+        # LAST occurrence
+        worker += ["--devices",
+                   str(args.processes * args.devices_per_process)]
+    if args.out:
+        worker += ["--out", args.out]
+    # the workers import this package from where this process found it
+    src = str(Path(__file__).resolve().parents[2])
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=src + (os.pathsep + path if path
+                                             else ""))
+    return dist.launch_local(worker, processes=args.processes,
+                             devices_per_process=args.devices_per_process,
+                             env=env, timeout=args.timeout or None,
+                             device=args.device)
+
+
 def cmd_history(args) -> int:
     """List the persistent run ledger (see repro_torch.obs.ledger).
     ``--add`` first ingests a file — a saved ledger record or a full
@@ -708,6 +770,28 @@ def main(argv=None) -> int:
     _add_obs_flags(p_lat)
     p_lat.set_defaults(fn=cmd_latency)
 
+    p_launch = sub.add_parser(
+        "launch", help="N coordinated local processes (a multi-process "
+                       "mesh on one machine)",
+        allow_abbrev=False)
+    p_launch.add_argument("--processes", type=int, default=2,
+                          help="processes (one per host on a cluster)")
+    p_launch.add_argument("--devices-per-process", dest="devices_per_process",
+                          type=int, default=1,
+                          help="devices each process gets (GPUs of its own, "
+                               "or logical CPU devices); the global mesh has "
+                               "processes * this many devices")
+    p_launch.add_argument("--backend", default="distributed",
+                          help="worker backend (default: distributed)")
+    p_launch.add_argument("--device", default=None,
+                          help="the workers' device (default: cuda, NCCL; "
+                               "'cpu': logical CPU devices, gloo)")
+    p_launch.add_argument("--timeout", type=float, default=None,
+                          help="seconds before stragglers are killed")
+    p_launch.add_argument("--out", default=None,
+                          help="gathered result JSON (written by process 0)")
+    p_launch.set_defaults(fn=cmd_launch, takes_worker_flags=True)
+
     p_hist = sub.add_parser(
         "history", help="list the persistent run ledger "
                         "(repro_torch.obs.ledger)",
@@ -742,7 +826,13 @@ def main(argv=None) -> int:
                         help="print the full diff report JSON")
     p_diff.set_defaults(fn=cmd_diff)
 
-    args = ap.parse_args(argv)
+    # `launch` forwards unknown flags (--mixes/--sizes/--devices/...) to its
+    # `run` workers verbatim; every other command treats extras as errors
+    args, extra = ap.parse_known_args(argv)
+    if getattr(args, "takes_worker_flags", False):
+        args.worker_flags = extra
+    elif extra:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
     try:
         return args.fn(args)
     except (BenchSpecError, ValueError, KeyError, OSError) as e:

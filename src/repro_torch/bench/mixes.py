@@ -80,6 +80,11 @@ GEN_SWEEPS_PER_PASS = 16
 #: backends of a mix that both the oracles and the kernels run
 _BOTH = ("torch", "cuda")
 
+# execution aliases: the sharded/distributed backends run the torch oracles
+# per shard, so a mix runnable on torch is runnable on both (same oracles,
+# same accounting)
+_BACKEND_ALIASES = {"sharded": "torch", "distributed": "torch"}
+
 
 @dataclass(frozen=True)
 class MixDef:
@@ -101,7 +106,7 @@ class MixDef:
         return self.flops_per_elem * n_elems
 
     def supports(self, backend: str) -> bool:
-        return backend in self.backends
+        return _BACKEND_ALIASES.get(backend, backend) in self.backends
 
 
 def rw_name(reads: int, writes: int) -> str:

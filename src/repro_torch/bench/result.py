@@ -260,17 +260,22 @@ def machine_meta(device=None) -> dict:
     ``device`` the run used (None = ``cuda``).  Keeps the keys the run
     ledger reads (``hostname``, ``arch``, ``device_platform``,
     ``device_kind``, ``device_count``, ``process_count``);
-    ``device_platform`` is ``"gpu"`` or ``"cpu"``."""
+    ``device_platform`` is ``"gpu"`` or ``"cpu"``.  The device count is the
+    pool a mesh may use (every visible GPU, or the logical CPU devices);
+    process identity is the ``torch.distributed`` rank and world size (1 and
+    0 outside a launch), and ``bench.distributed.gather_result`` extends the
+    merged result with the per-process ``local_device_counts`` and the
+    global ``device_count``."""
     import torch
 
-    from repro_torch.core.device import resolve_device
+    from repro_torch.bench import distributed as dist
+    from repro_torch.core.device import device_pool, resolve_device
     dev = resolve_device(device)
+    count = len(device_pool(dev))
     if dev.type == "cuda":
-        plat = "gpu"
-        kind = torch.cuda.get_device_name(dev)
-        count = torch.cuda.device_count()
+        plat, kind = "gpu", torch.cuda.get_device_name(dev)
     else:
-        plat, kind, count = "cpu", platform.processor() or "cpu", 1
+        plat, kind = "cpu", platform.processor() or "cpu"
     return {"hostname": platform.node(),
             "arch": platform.machine(),
             "system": platform.system(),
@@ -281,6 +286,6 @@ def machine_meta(device=None) -> dict:
             "device_platform": plat,
             "device_kind": kind,
             "device_count": count,
-            "process_count": 1,
-            "process_index": 0,
+            "process_count": dist.process_count(),
+            "process_index": dist.process_index(),
             "local_device_count": count}

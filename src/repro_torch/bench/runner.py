@@ -18,7 +18,10 @@ Counterpart of ``repro.bench.runner``.  The one addition is the explicit
 device: ``Runner(device=...)`` (None = ``cuda``) says where the working sets
 live and what the timing serializes on; it is an argument, not a spec field,
 so spec JSON stays interchangeable with the reference's.  Taking the default
-with no CUDA device present raises.
+with no CUDA device present raises.  A multi-device backend spreads its mesh
+over the pool of that device's kind (``core.device.device_pool``): the
+Runner asks it to check its devices while planning (``check_devices``) and
+to make each working set shard by shard (``working_set``).
 """
 from __future__ import annotations
 
@@ -155,6 +158,9 @@ class Runner:
                      mixes=len(spec.mixes)):
             backend = get_backend(spec.backend)
             backend.validate(spec)
+            check_devices = getattr(backend, "check_devices", None)
+            if check_devices is not None:   # a mesh: do its devices exist?
+                check_devices(spec, self.device)
             cacheable = hasattr(backend, "make_case")
             for nbytes in spec.sizes:
                 shape = buffers.working_set_shape(nbytes, dtype=dtype)
@@ -192,13 +198,19 @@ class Runner:
                       "sizes": list(spec.sizes), "mixes": list(spec.mixes),
                       **(extra_meta or {})})
         prepare = getattr(backend, "prepare_buffer", None)
+        # a mesh makes each shard where it lives (never the whole set on one
+        # device first)
+        make = getattr(backend, "working_set", None)
         for nbytes, (real_bytes, shape, group) in zip(spec.sizes, plan):
             with tr.span("runner.size", nbytes=real_bytes):
                 # lazy build: exactly one working set lives at a time
                 with tr.span("buffers.build", nbytes=real_bytes):
-                    x = buffers.working_set(nbytes, dtype=dtype,
-                                            value=spec.value,
-                                            device=self.device)
+                    if make is not None:
+                        x = make(spec, nbytes, dtype, self.device)
+                    else:
+                        x = buffers.working_set(nbytes, dtype=dtype,
+                                                value=spec.value,
+                                                device=self.device)
                     if prepare is not None:  # e.g. sharded: one mesh
                         x = prepare(spec, x)  # placement, shared per size
                 metrics.REGISTRY.inc("buffers_built")

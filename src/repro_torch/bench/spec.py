@@ -13,8 +13,9 @@ the Runner executes on any registered backend.  Knob -> paper mapping:
     streams      C3  interleaved address streams (addressing-mode overhead)
     block_rows   C4  rows per load step (LD1D/LD2D/LD4D analogue)
     devices      Fig 4  working set spread over the first k devices
-                 (multi-device backends only; none is registered in this
-                 package yet, so ``devices > 1`` is refused)
+                 (multi-device backends only: ``sharded`` over one
+                 process's devices, ``distributed`` over every process's;
+                 the others refuse ``devices > 1``)
     unroll       §5  per-pass unroll factor: the measurement loop body holds
                  ``unroll`` chained sweeps per trip (fewer loop-control ops
                  per byte moved — the decode-width probe)

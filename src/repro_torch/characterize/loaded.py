@@ -15,9 +15,11 @@ approach the level's sustainable bandwidth, then takes off.
 * ``fit_loaded`` — per-hierarchy-level knee fits in ``summarize`` band
   discipline.
 
-Both backends of this package run the composite time-shared (each probe pass
-followed by the generator sweeps, ``kernels.membench.ops``), so latency at
-``load`` > 0 includes the generators' time by construction.
+The single-device backends of this package (torch, cuda) run the composite
+time-shared (each probe pass followed by the generator sweeps,
+``kernels.membench.ops``), so latency at ``load`` > 0 includes the
+generators' time by construction; the mesh backends (sharded, distributed)
+run the probe on shard 0 and each generator on its own sibling shard.
 """
 from __future__ import annotations
 
@@ -31,7 +33,11 @@ def loaded_latency_sweep(sizes, loads=(0, 1, 2, 4), *, backend: str = "torch",
 
     ``load`` lives on the spec, so each load level is its own ``BenchSpec``;
     ``Runner.run_many`` merges them into one result whose points carry the
-    curve coordinates (``load`` / ``latency_ns`` / ``gen_gbps``).
+    curve coordinates (``load`` / ``latency_ns`` / ``gen_gbps``).  The
+    single-device backends (torch / cuda) run the generators time-shared;
+    on ``sharded`` the composite is spatial but ``devices == load + 1`` is
+    required per spec, so sweep loads there by calling this once per load
+    with ``spec_kw={"devices": load + 1}``.
     ``runner=None`` makes a ``Runner()`` on the default device (``cuda``)."""
     from repro_torch.bench import BenchSpec, Runner
     runner = runner or Runner()

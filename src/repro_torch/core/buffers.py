@@ -84,6 +84,16 @@ def working_set(nbytes: int, dtype=torch.float32, value: float = DEFAULT_VALUE,
     with the reference."""
     dt = as_dtype(dtype)
     rows, lanes = working_set_shape(nbytes, dt, lanes)
+    return working_block(rows, lanes, dt, value, device)
+
+
+def working_block(rows: int, lanes: int = 128, dtype=torch.float32,
+                  value: float = DEFAULT_VALUE, device=None) -> torch.Tensor:
+    """The (rows, lanes) buffer ``working_set`` fills, for any row count: a
+    block of whole rows of a working set, made where it lives (the pattern
+    repeats every 4 elements and a row holds a multiple of 4, so each block
+    of rows equals the same rows of the whole buffer)."""
+    dt = as_dtype(dtype)
     n = rows * lanes
     if not dt.is_floating_point:
         dev = resolve_device(device)

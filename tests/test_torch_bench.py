@@ -250,9 +250,11 @@ def test_spec_rejects_in_the_reference_words(kw):
 def test_spec_rejects_what_the_port_does_not_run_yet():
     with pytest.raises(BenchSpecError, match="is not supported by backend"):
         BenchSpec(mixes=("load_only",), backend="torch")
-    for backend in ("xla", "pallas", "sharded", "distributed"):
+    for backend in ("xla", "pallas"):      # the reference's names
         with pytest.raises(BenchSpecError, match="unknown backend"):
             BenchSpec(backend=backend)
+    for backend in ("sharded", "distributed"):     # ported: same names
+        assert BenchSpec(backend=backend, devices=2).devices == 2
     with pytest.raises(BenchSpecError, match="multiple of 8"):
         BenchSpec(block_rows=12)
     with pytest.raises(BenchSpecError, match="bad dtype"):

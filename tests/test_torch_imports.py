@@ -56,7 +56,8 @@ def test_the_port_has_the_slice_modules():
                  "istream/__init__.py", "istream/extract.py",
                  "istream/emulate.py", "istream/analyze.py",
                  "istream/classify.py", "audit/__init__.py",
-                 "audit/verify.py", "audit/ecm.py"):
+                 "audit/verify.py", "audit/ecm.py", "bench/distributed.py",
+                 "core/scaling.py", "core/device.py"):
         assert want in have, want
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     for package, sources in (
@@ -90,6 +91,7 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.istream, repro_torch.audit\n"
         "import repro_torch.core.sweep, repro_torch.core.machine_model\n"
         "import repro_torch.launch.serve, repro_torch.models.hybrid\n"
+        "import repro_torch.bench.distributed, repro_torch.core.scaling\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
         "from repro_torch.characterize import characterize\n"
         "m, s = characterize(('copy', 'load_sum'), primary='copy',\n"
@@ -102,6 +104,10 @@ def test_bench_imports_with_jax_blocked():
         "r = Runner(device='cpu').run(BenchSpec(mixes=('latency_chase',),\n"
         "    sizes=(4096,), backend='cuda', reps=1, warmup=0, load=1))\n"
         "assert r.points[0].latency_ns > 0\n"
+        "from repro_torch.core.scaling import scaling_curve\n"
+        "pts = scaling_curve(4096, device_counts=[1], passes=1, reps=1,\n"
+        "    runner=Runner(device='cpu'))\n"
+        "assert pts[0].devices == 1 and pts[0].speedup == 1.0\n"
         "import dataclasses, torch\n"
         "from repro_torch.configs import get_arch, reduced\n"
         "from repro_torch.models.common import init_params\n"
