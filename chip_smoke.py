@@ -20,10 +20,13 @@ Phases (any failure raises and the script exits non-zero):
      ``repro_torch.istream.extract``); every template instance
      ``membench.launch_record`` predicts for the registry is in the SASS.
   2  every kernel against its plain version on the card, over dtypes, sizes,
-     tilings, interleave, unroll and passes, on the benchmark's working set
+     tilings (with 8 address streams, and the default tiling of each
+     stream count fig1 runs), interleave, unroll and passes, on the
+     benchmark's working set
      (whose sums cancel) and on a non-cancelling ramp input with a relative
      tolerance (mxu also against a dense operand); the fma chain's depth;
-     bit-identical repeat runs; all ``streams`` give the same load_sum; the
+     bit-identical repeat runs; streams 1, 2, 4 and 8 give the same
+     load_sum (also at fig1's 32 KiB, one tile a stream at 8); the
      timed forms against the plain oracles of the ``torch`` backend.  The rw
      kernel over the R:W ladder (and 1:8, 8:1, 8:8) bit for bit against its
      plain version, and equal to copy / triad at 1:1 / 2:1; the chase on
@@ -57,16 +60,29 @@ Phases (any failure raises and the script exits non-zero):
      fails), ``istream --smoke --backend cuda`` (copy.cu and rw.cu; every
      point labelled; launches = points x (reps + warmup)) and ``latency
      --smoke --backend cuda`` (chase.cu and acc.cu; four checked audits).
-     3g: the multi-device bench, no kernel launched (every counter stays
-     0): ``run --backend sharded --devices 1`` beside ``run --backend
-     torch`` for every torch mix at 16 MiB and 256 MiB (latency_chase at 16
-     MiB only: its oracle walks on the host) — the same accounting, the
-     same returned scalar on the same buffer, every dispatch a mesh of 1 on
-     cuda:0; ``--devices 2`` exits 2 naming the one visible device;
-     ``launch --processes 1`` on NCCL; ``launch --processes 2
-     --devices-per-process 2 --device cpu`` on gloo (the straggler merge
-     checked); ``launch --processes 2`` on CUDA refused before anything is
-     spawned; ``core.scaling.scaling_curve`` at devices 1.
+     3g: the multi-device bench, chase.cu (the mesh's chase probe on a
+     CUDA shard) the one kernel launched: ``run --backend sharded
+     --devices 1`` beside ``run --backend torch`` for every torch mix at 16
+     MiB and 256 MiB (latency_chase at 16 MiB only: the torch oracle walks
+     on the host) — the same accounting, the same returned scalar on the
+     same buffer, every dispatch a mesh of 1 on cuda:0; ``--devices 2``
+     exits 2 naming the one visible device; ``launch --processes 1`` on
+     NCCL; ``launch --processes 2 --devices-per-process 2 --device cpu`` on
+     gloo (the straggler merge checked); ``launch --processes 2`` on CUDA
+     refused before anything is spawned; ``core.scaling.scaling_curve`` at
+     devices 1; chase.cu at the probe's one-tile 16 MiB shape exactly
+     equal to the plain walk on an off-cycle permutation; the mesh probe's
+     latency_ns at 16 MiB within MESH_PROBE_TOL of chase.cu's walking the
+     same buffer alone.
+     3h: the paper's figures — ``python -m benchmarks_torch.run --only
+     <entry>`` for bench, fig1-fig7 and table1 at the quick grids on the
+     ``cuda`` backend (in this process, so that the launches are counted;
+     table1 also as a program): every row the declarations give and no
+     other, every GB/s under the SMs' load/store rate, every latency >= 5
+     ns and loaded >= idle (to within LOADED_NOISE), fig3's kernel check
+     and SASS profiles; then fig2's points by device time (behind a
+     device-side sleep, and ``torch.profiler``'s) beside their wall and
+     CUDA-event times.
   4  the measurement is real: doubling ``passes`` doubles the time (also
      for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
      memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
@@ -95,6 +111,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -125,7 +142,8 @@ from repro_torch.characterize import (FittedMachineModel,  # noqa: E402
                                       render_markdown)
 from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.core import instruction_mix as im  # noqa: E402
-from repro_torch.core.buffers import working_set  # noqa: E402
+from repro_torch.core.buffers import (working_set,  # noqa: E402
+                                     working_set_shape)
 from repro_torch.core.machine_model import get_spec  # noqa: E402
 from repro_torch.istream.extract import (GLOBAL_LOAD_OPS,  # noqa: E402
                                          loads_in_loops, sass_of, sass_ops)
@@ -574,8 +592,19 @@ def _hold(kernel, label, x, y, w, block_rows, streams, passes, unroll,
     return err, tol, mag
 
 
+def stream_tilings(rows: int) -> list[tuple[int, int]]:
+    """The (block_rows, streams) tilings phase 2 holds every kernel at on a
+    buffer of ``rows`` rows: fixed ones, and the default tiling for each
+    stream count the figures run (``default_block_rows(rows, streams)``,
+    which fig1's streams ladder reaches on the cuda backend)."""
+    fixed = [(8, 1), (32, 2), (16, 4), (8, 8)]
+    default = [(mb.default_block_rows(rows, s), s) for s in (1, 2, 4, 8)]
+    return list(dict.fromkeys(fixed + default))
+
+
 def phase_kernels(quick: bool) -> None:
     say("== phase 2: kernels against their plain versions on the card")
+    t0 = time.perf_counter()
     # 16 MiB: acc.cu and copy.cu run their persistent loop with several
     # blocks a CTA (acc_walk, acc_linear, copy_win's group loop) at every
     # tiling, interleave and stream count below (the smaller sizes take one
@@ -591,8 +620,7 @@ def phase_kernels(quick: bool) -> None:
             cyc = working_set(nbytes, dtype=dtype, device=DEV)
             ramp = ramp_input(cyc)
             rows = cyc.shape[0]
-            tilings = [(8, 1), (32, 2), (16, 4),
-                       (mb.default_block_rows(rows), 1)]
+            tilings = stream_tilings(rows)
             # (input name, x, y, w, x sums to zero)
             inputs = [("cycle", cyc, cyc * 0.5, eye, True),
                       ("ramp", ramp, ramp.flip(0) * 0.5, eye, False),
@@ -658,12 +686,21 @@ def phase_kernels(quick: bool) -> None:
     # every stream interleaving visits every tile exactly once: on the ramp
     # input each tile has its own sum, so a tile left out or visited twice
     # moves the result by far more than the tolerance
-    x = ramp_input(working_set(64 * KiB, device=DEV))
-    want = float(mb.plain_load_sum(x))
-    outs = [float(mb.load_sum(x, block_rows=16, streams=s)) for s in (1, 2, 4)]
-    if max(abs(o - want) for o in outs) > SUM_RTOL * abs(want):
-        raise AssertionError(f"stream orders disagree: {outs} vs {want}")
-    say(f"  load_sum over streams 1,2,4: {outs} (plain {want})")
+    # (64 KiB, 16-row tiles: at streams 8 one tile a stream), and at fig1's
+    # 32 KiB on the default tiling of each stream count (8 tiles of 8 rows
+    # at streams 8)
+    for nbytes in (64 * KiB, 32 * KiB):
+        x = ramp_input(working_set(nbytes, device=DEV))
+        want = float(mb.plain_load_sum(x))
+        outs = [float(mb.load_sum(
+            x, streams=s, block_rows=(16 if nbytes == 64 * KiB else
+                                      mb.default_block_rows(x.shape[0], s))))
+            for s in (1, 2, 4, 8)]
+        if max(abs(o - want) for o in outs) > SUM_RTOL * abs(want):
+            raise AssertionError(f"stream orders disagree at {nbytes} B: "
+                                 f"{outs} vs {want}")
+        say(f"  load_sum over streams 1,2,4,8 at {nbytes} B: {outs} "
+            f"(plain {want})")
 
     # the timed forms against the torch backend's oracles (same returned
     # scalar for the same passes / unroll), on a small input
@@ -697,6 +734,7 @@ def phase_kernels(quick: bool) -> None:
                             f"{float(got)} vs oracle {float(want)} "
                             f"(tolerance {tol})")
     say("  timed forms agree with the torch backend's oracles")
+    say(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
 
 def chase_buffer(x: torch.Tensor, block_rows: int) -> torch.Tensor:
@@ -1441,6 +1479,10 @@ def phase_audit_path(quick: bool) -> dict[str, int]:
 #: latency_chase runs at the first only: the torch oracle walks the chain on
 #: the host (4.2e6 dependent steps a pass at 16 MiB, 6.7e7 at 256 MiB).
 MESH_SIZES = ("16M", "256M")
+#: how far the mesh probe's latency_ns may lie from chase.cu's walking the
+#: same one-tile buffer back to back (the Runner's call adds a sync and the
+#: pass sum's add to calls of ~0.1 s or more)
+MESH_PROBE_TOL = 0.10
 
 
 def _cli_both(argv: list[str]) -> tuple[int, str, str]:
@@ -1485,8 +1527,12 @@ def phase_mesh_path(quick: bool) -> None:
     NCCL; (d) ``launch --processes 2 --devices-per-process 2 --device cpu``
     on gloo, the straggler merge checked; (e) ``launch --processes 2`` on
     CUDA refused before anything is spawned; (f) ``scaling_curve`` at
-    devices 1.  No kernel of the port runs here: every launch counter stays
-    at 0."""
+    devices 1; (g) the mesh's chase probe: ``latency_ns`` of ``sharded
+    --devices 1`` at 16 MiB against ``chase.cu`` walking the same buffer as
+    one tile, and below the torch oracle's host walk.  The one kernel of the
+    port that runs here is ``chase.cu``, the probe of a CUDA shard: every
+    other launch counter stays at 0, chase's counts the launches of the
+    chase points."""
     say("== phase 3g: the multi-device bench (run --backend sharded, launch, "
         "scaling_curve)")
     from repro_torch.bench.backends import get_backend
@@ -1661,11 +1707,267 @@ def phase_mesh_path(quick: bool) -> None:
     say(f"  scaling_curve(16 MiB, [1]) ({card}): {pts[0].gbps:.2f} GB/s, "
         f"speedup {pts[0].speedup}")
 
+    # the chase points: the traced sharded turn's (passes x (reps +
+    # warmup) launches) and the scalar check's one pass
+    (chase_pt,) = [p for p in BenchResult.from_json(
+        OUT_DIR / f"mesh_sharded_traced_{sizes[0]}.json").points
+        if p.mix == "latency_chase"]
+    want = {"chase": chase_pt.passes * (chase_pt.reps
+                                        + BenchSpec().warmup) + 1}
     launched = {k: v for k, v in _all_launches().items() if v}
-    if launched:
-        raise AssertionError(f"phase 3g launched kernels: {launched}")
-    say(f"  no kernel launched in phase 3g; phase 3g: "
-        f"{time.perf_counter() - t0:.1f} s")
+    if launched != want:
+        raise AssertionError(f"phase 3g launched {launched}; the mesh's "
+                             f"chase probe alone accounts for {want}")
+    say(f"  launches: {launched}, all of them the mesh's chase probe")
+
+    # (g) the probe's latency against chase.cu's on the same buffer
+    nbytes = cli._parse_sizes(sizes[0])[0]
+    mb.reset_launch_counts()
+    (pt,) = Runner(device=DEV).run(BenchSpec(
+        mixes=("latency_chase",), sizes=(nbytes,), backend="sharded",
+        devices=1, reps=3, warmup=1)).points
+    if dict(mb.launch_counts, chase=0) != dict.fromkeys(mb.launch_counts, 0) \
+            or mb.launch_counts["chase"] != pt.passes * (pt.reps + 1):
+        raise AssertionError(f"the mesh probe's launches: {mb.launch_counts}"
+                             f" for {pt.passes} passes x {pt.reps + 1} calls")
+    rows, lanes = working_set_shape(nbytes)
+    perm = torch.tensor(im.chase_perm((rows, lanes)), device=DEV)
+    direct_ms = time_ms(lambda: mb.chase(perm, block_rows=rows,
+                                         passes=pt.passes), 3, warmup=1)
+    direct_ns = direct_ms * 1e6 / (pt.passes * rows * lanes)
+    host = [p for p in BenchResult.from_json(
+        OUT_DIR / f"mesh_torch_a_{sizes[0]}.json").points
+        if p.mix == "latency_chase"][0]
+    # the probe's one-tile shape (one thread walks the whole shard) against
+    # the plain walk on an off-cycle permutation, where a skipped, repeated
+    # or early-ended step moves the result (on chase_perm both give 0.0);
+    # the plain walk runs on a host copy, one gather a step
+    off = off_cycle_perm((rows, lanes), rows, seed=5)
+    t1 = time.perf_counter()
+    got = float(mb.chase(off, block_rows=rows, passes=1))
+    want = float(mb.plain_chase(off.cpu(), block_rows=rows, passes=1))
+    if got != want or want == 0.0:
+        raise AssertionError(f"chase.cu at the probe's one-tile shape "
+                             f"({nbytes} B): {got} vs plain {want}")
+    say(f"  chase.cu at the probe's one-tile shape ({rows * lanes} steps) on "
+        f"an off-cycle permutation: {got}, exactly the plain walk's "
+        f"({time.perf_counter() - t1:.1f} s)")
+    del off
+    say(f"  mesh probe (sharded --devices 1, {nbytes} B, one tile): "
+        f"{pt.latency_ns:.2f} ns a step; chase.cu on the same buffer "
+        f"{direct_ns:.2f} ns; the torch oracle's host walk "
+        f"{host.latency_ns:.2f} ns")
+    if not (abs(pt.latency_ns - direct_ns) <= MESH_PROBE_TOL * direct_ns
+            and 5 <= pt.latency_ns < host.latency_ns):
+        raise AssertionError(f"mesh probe {pt.latency_ns} ns against "
+                             f"chase.cu's {direct_ns} ns (tolerance "
+                             f"{MESH_PROBE_TOL:.0%}) and the host walk's "
+                             f"{host.latency_ns} ns")
+    del perm
+    say(f"  phase 3g: {time.perf_counter() - t0:.1f} s")
+
+
+#: the entries of ``python -m benchmarks_torch.run`` phase 3h runs, fig2
+#: first (table1 reads its model)
+FIGURE_ENTRIES = ("fig2", "table1", "bench", "fig1", "fig3", "fig4", "fig5",
+                  "fig6", "fig7")
+FIGURE_ROW = re.compile(r"^([a-z0-9_]+/[^,]+),(-?[0-9.]+),(.*)$")
+#: a point whose device time is below this share of its wall time is paced
+#: by the host
+HOST_PACED_SHARE = 0.5
+#: how far below its idle point a fig7 point may read.  Time-shared, the
+#: quick grid's generators add under 1 % to a probe pass (16 load_sum
+#: sweeps of 128 KiB against 32768 dependent steps), so loaded and idle
+#: differ by the measurement's noise: over four runs of this phase the
+#: loaded points read from 1.8 % below to 1.4 % above idle (NVIDIA H100
+#: 80GB HBM3, 700 W; PERF.md §6).  At this grid the check cannot tell a
+#: working composite from one whose generators did nothing; it catches only
+#: gross faults, a composite whose probe steps overlapped or were skipped,
+#: which reads far lower.
+LOADED_NOISE = 0.05
+
+
+def figure_rows(entry: str) -> list[str]:
+    """The row names an entry must print at its quick grid: every point of
+    its declared grid (``tests/test_torch_figures*.py`` hold the
+    declarations and the names equal to the reference's, the backend names
+    mapped by ``repro_torch.convert``), named by the script's own
+    ``row_name``, on the ``cuda`` backend and one card."""
+    from benchmarks_torch import (fig1_addressing as f1, fig2_hierarchy as f2,
+                                  fig3_blockshape as f3, fig4_scaling as f4,
+                                  fig5_rw_ratio as f5, fig6_istream as f6,
+                                  fig7_loaded_latency as f7, table1_machine)
+
+    def real(n: int) -> int:
+        rows, lanes = working_set_shape(n)
+        return rows * lanes * 4
+
+    def grid(spec, name):
+        return [name(m, real(n)) for n in spec.sizes for m in spec.mixes]
+    if entry == "bench":
+        return grid(cli.quick_spec(backend="cuda"),
+                    lambda m, n: cli.row_name("cuda", m, n))
+    if entry == "fig1":
+        return [f1.row_name(s.streams, real(n))
+                for s in f1.specs(True) for n in s.sizes]
+    if entry == "fig2":
+        return grid(f2.spec_for(True), f2.row_name)
+    if entry == "fig3":
+        (n,) = f3.spec_for(True).sizes
+        rows = [r for r in f3.rows_for(True)       # the rows that divide it
+                if working_set_shape(n)[0] % r == 0]
+        return [f3.row_name(r, real(n)) for r in rows] \
+            + [f3.ecm_row_name(r) for r in rows]
+    if entry == "fig4":
+        return [f4.row_name("fig4", 1), f4.triad_row_name("fig4", 1)]
+    if entry == "fig5":
+        return grid(f5.spec_for(True, device=DEV), f5.row_name)
+    if entry == "fig6":
+        g = f6.grid(True)
+        return [f6.row_name(b, m, u, i, real(n)) for b in f6.BACKENDS
+                for m in f6.MIXES for n in g["sizes"] for u in g["unrolls"]
+                for i in g["interleaves"]]
+    if entry == "fig7":
+        g = f7.grid(True)
+        return [f7.row_name("cuda", real(n), load) for n in g["sizes"]
+                for load in g["loads"]]
+    if entry == "table1":
+        return [table1_machine.ROW]
+    raise KeyError(entry)
+
+
+def check_figure(entry: str, text: str) -> list[tuple]:
+    """An entry's printed rows against ``figure_rows`` and the validity
+    limits of PERF.md §2: every GB/s under the SMs' load/store rate, every
+    latency >= 5 ns, loaded latency >= idle at each size (to within
+    LOADED_NOISE); fig3's kernel check printed and its profiles extracted.
+    Returns the rows as (name, us, derived)."""
+    rows = [m.groups() for m in map(FIGURE_ROW.match, text.splitlines())
+            if m]
+    names = [r[0] for r in rows]
+    want = figure_rows(entry)
+    if sorted(names) != sorted(want):
+        raise AssertionError(
+            f"{entry}: rows {sorted(set(names) ^ set(want))} differ from the "
+            f"declarations ({len(names)} printed, {len(want)} declared)")
+    limit = ON_CHIP["bytes_per_s"] / 1e9
+    idle = {}
+    for name, _, derived in rows:
+        for gbps in re.findall(r"([0-9.]+)GB/s", derived):
+            if not 0 <= float(gbps) <= limit:
+                raise AssertionError(f"{entry}: {name} {derived}: above the "
+                                     f"SMs' {limit:.0f} GB/s")
+        lat = re.match(r"([0-9.]+)ns;", derived)
+        if lat:
+            ns = float(lat.group(1))
+            if ns < 5:
+                raise AssertionError(f"{name}: {ns} ns a dependent step")
+            size, load = name.split("/")[2], int(name.split("load")[-1])
+            if load == 0:
+                idle[size] = ns
+            elif ns < idle[size] * (1 - LOADED_NOISE):
+                raise AssertionError(f"{name}: loaded {ns} ns below idle "
+                                     f"{idle[size]} ns by more than "
+                                     f"{LOADED_NOISE:.0%}")
+    if entry == "fig3":
+        if "# ecm: profile extraction failed" in text:
+            raise AssertionError("fig3: the SASS profile failed:\n" + text)
+        if "verified vs oracle (acc.cu on cuda" not in text:
+            raise AssertionError("fig3: no kernel check printed:\n" + text)
+    return rows
+
+
+def fig2_device_times() -> list[str]:
+    """Each fig2 point of ``artifacts/torch/fig2_sweep.json`` again: its
+    case's device time (``device_ms``: calls enqueued behind a device-side
+    sleep) beside the Runner's mean wall time, CUDA events' mean over calls
+    back to back and the kernel time ``torch.profiler`` records in one call
+    (where it records any); the point is host-paced where the device's
+    share of its wall time is below HOST_PACED_SHARE."""
+    from benchmarks_torch import fig2_hierarchy
+    from repro_torch.bench.backends import get_backend
+    from repro_torch.bench.spec import BenchSpec
+    res = BenchResult.from_json(fig2_hierarchy.ART / "fig2_sweep.json")
+    lines = [f"    {'mix':8s} {'bytes':>10s} {'passes':>6s} {'wall us':>9s} "
+             f"{'event us':>9s} {'device us':>9s} {'profiler us':>12s}  "
+             f"paced by"]
+    for p in res.points:
+        x = working_set(p.nbytes, device=DEV)
+        spec = BenchSpec(mixes=(p.mix,), sizes=(p.nbytes,), backend="cuda",
+                         passes=p.passes)
+        fn = get_backend("cuda").build(spec, get_mix(p.mix), x, p.passes)
+        dev_us = device_ms(fn, 5) * 1e3
+        ev_us = time_ms(fn, 5) * 1e3
+        prof_ms, _ = device_busy_ms(fn)
+        paced = ("host" if dev_us < HOST_PACED_SHARE * p.mean_s * 1e6
+                 else "device")
+        lines.append(f"    {p.mix:8s} {p.nbytes:10d} {p.passes:6d} "
+                     f"{p.mean_s * 1e6:9.1f} {ev_us:9.1f} {dev_us:9.1f} "
+                     + (f"{'not measured':>12s}" if prof_ms is None else
+                        f"{prof_ms * 1e3:12.1f}") + f"  {paced}")
+        del x, fn
+    return lines
+
+
+def phase_figures_path(quick: bool) -> dict[str, int]:
+    """``python -m benchmarks_torch.run --only <entry>`` for every entry at
+    its quick grid on the card (``--backend cuda``, fig4 at the one card):
+    table1 as a program, every entry in this process through the same
+    ``main`` (so that its launches are counted), each entry's counters set
+    to 0 just before it and read just after.  Fails on a non-zero exit, a
+    ``FAILED`` line, a row the declarations do not give, or a broken
+    validity limit (``check_figure``).  Then fig2's points by device
+    time."""
+    say("== phase 3h: the paper's figures and Table 1 (python -m "
+        "benchmarks_torch.run --only <entry>)")
+    from benchmarks_torch import run as figures_run
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    total: dict[str, int] = {}
+    for entry in FIGURE_ENTRIES:
+        t1 = time.perf_counter()
+        mb.reset_launch_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = figures_run.main(["--only", entry])
+        sync()
+        text = out.getvalue()
+        (OUT_DIR / f"figures_{entry}.txt").write_text(text)
+        if rc != 0 or "FAILED" in text:
+            raise AssertionError(f"benchmarks_torch.run --only {entry} "
+                                 f"exited {rc}:\n{text}")
+        rows = check_figure(entry, text)
+        counts = {k: v for k, v in mb.launch_counts.items() if v}
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        say(f"  {entry}: {len(rows)} rows as declared, "
+            f"{time.perf_counter() - t1:.1f} s, launches {counts}")
+    for line in text.splitlines():
+        if "# " in line and ("idle" in line or "knee" in line):
+            say("  fig7 " + line.strip())
+    # the module entry point itself, as a program
+    r = subprocess.run([sys.executable, "-m", "benchmarks_torch.run",
+                        "--only", "table1"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0 or "FAILED" in r.stdout:
+        raise AssertionError(f"python -m benchmarks_torch.run --only table1 "
+                             f"exited {r.returncode}:\n{r.stdout}{r.stderr}")
+    check_figure("table1", r.stdout)
+    systems = [line for line in r.stdout.splitlines()
+               if line.startswith("## ") and not line.startswith("## table1")]
+    say(f"  python -m benchmarks_torch.run --only table1: exit 0, "
+        f"{len(systems)} systems")
+    for line in r.stdout.splitlines():
+        if line.startswith("## ") or "measured(best mix)" in line:
+            say("    " + line.strip())
+    say("  fig2's points by device time (calls behind a device-side sleep; "
+        "torch.profiler, one call) beside the Runner's wall time and CUDA "
+        "events:")
+    for line in fig2_device_times():
+        say(line)
+    say(f"  phase 3h: {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
 
 
 #: the kernel route against the plain route, at full width.  The routes
@@ -2651,6 +2953,7 @@ def main(argv=None) -> int:
     characterized = phase_characterize_path(args.quick)
     audited = phase_audit_path(args.quick)
     phase_mesh_path(args.quick)
+    figures = phase_figures_path(args.quick)
     phase_real(args.quick)
     phase_real_rw_chase(args.quick)
     line = phase_kernels_line(counts, args.quick)
@@ -2660,6 +2963,8 @@ def main(argv=None) -> int:
             e["launches_characterize"] = characterized[e["name"]]
         if e["name"] in ("load_sum", "copy", "rw", "chase"):
             e["launches_audit"] = audited[e["name"]]
+        if e["name"] in mb.launch_counts:
+            e["launches_figures"] = figures.get(e["name"], 0)
     say(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
     say(info["smi"])
     say(json.dumps(line))

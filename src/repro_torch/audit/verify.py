@@ -115,7 +115,8 @@ def _chase_generator(n: float, knobs: dict, machine) -> dict:
     (one launch a pass, on a float32 buffer of n elements)."""
     from repro_torch.kernels.membench import membench as mb
     rows = int(n // LANES)
-    block_rows = knobs.get("block_rows") or mb.default_block_rows(rows)
+    block_rows = knobs.get("block_rows") or mb.default_block_rows(
+        rows, knobs.get("streams") or 1)
     sms, l2 = machine or H100
     grid = mb.acc_launch_plan(rows // block_rows, block_rows * LANES * 4, 1,
                               sms, l2)["grid"]
@@ -196,7 +197,8 @@ def expected_counts(mix: MixDef, backend: str, n: float,
             return out
         rows = int(n // LANES)
         from repro_torch.kernels.membench import membench as mb
-        block_rows = knobs.get("block_rows") or mb.default_block_rows(rows)
+        block_rows = knobs.get("block_rows") or mb.default_block_rows(
+            rows, knobs.get("streams") or 1)
         n_tiles = rows // block_rows
         out["stores"] += 1
         out["arith"] += n_tiles

@@ -229,9 +229,11 @@ def _mix_operands(mix: MixDef, x, place=None, load: int = 0,
 
 def _oracle_case(spec: BenchSpec, mix: MixDef, rows: int, passes: int,
                  backend_name: str) -> Callable:
-    """The per-shape oracle kernel for a mix (pure function of its inputs;
-    triad takes (a, b, c), rw_RtoW its R+W stream buffers, latency_chase
-    (perm) or (perm, gen), everything else takes x)."""
+    """The per-shape oracle kernel for a mix, as its pass generator
+    (``instruction_mix.stepped``; ``instruction_mix.drain`` runs it to its
+    scalar).  A pure function of its inputs: triad takes (a, b, c), rw_RtoW
+    its R+W stream buffers, latency_chase (perm) or (perm, gen), everything
+    else takes x."""
     from repro_torch.core import instruction_mix as im
     unroll, interleave = spec.unroll, spec.interleave
     if passes % unroll:
@@ -248,7 +250,7 @@ def _oracle_case(spec: BenchSpec, mix: MixDef, rows: int, passes: int,
             + _gate(backend_name, "interleave | rows"))
     if mix.name == "load_sum" and spec.streams > 1:
         streams = spec.streams
-        return lambda x: im.k_strided_sum(x, streams, passes, unroll)
+        return lambda x: im.k_strided_sum.steps(x, streams, passes, unroll)
     if mix.name == "load_sum" and spec.block_rows is not None:
         brows = spec.block_rows
         if rows % brows:
@@ -256,27 +258,27 @@ def _oracle_case(spec: BenchSpec, mix: MixDef, rows: int, passes: int,
                 f"block_rows {brows} does not divide {rows} rows"
                 + ("" if backend_name == "torch" else
                    f" (the per-device shard on {backend_name})"))
-        return lambda x: im.k_blocked_sum(x, brows, passes, unroll)
+        return lambda x: im.k_blocked_sum.steps(x, brows, passes, unroll)
     if mix.chase:
         load = spec.load
         if load:
             # the single-device composite: probe + generators time-shared in
             # one timed call
-            return lambda perm, gen: im.k_chase_loaded(perm, gen, passes,
-                                                       unroll, load=load)
-        return lambda perm: im.k_chase(perm, passes, unroll)
+            return lambda perm, gen: im.k_chase_loaded.steps(
+                perm, gen, passes, unroll, load=load)
+        return lambda perm: im.k_chase.steps(perm, passes, unroll)
     if mix.name == "triad":
-        return lambda a, b, c: im.k_triad(a, b, c, passes, unroll)
+        return lambda a, b, c: im.k_triad.steps(a, b, c, passes, unroll)
     if mix.rw is not None:
         reads = mix.rw[0]
         if interleave > 1:
-            return lambda *bufs: im.k_rw_istream(
+            return lambda *bufs: im.k_rw_istream.steps(
                 bufs[:reads], bufs[reads:], passes, unroll, interleave)
-        return lambda *bufs: im.k_rw(bufs[:reads], bufs[reads:], passes,
-                                     unroll)
+        return lambda *bufs: im.k_rw.steps(bufs[:reads], bufs[reads:],
+                                           passes, unroll)
     name = mix.name
-    return lambda x: im.run_mix(name, x, passes, unroll=unroll,
-                                interleave=interleave)
+    return lambda x: im.run_mix.steps(name, x, passes, unroll=unroll,
+                                      interleave=interleave)
 
 
 def _bind_oracle_case(case: Callable, mix: MixDef, x, load: int = 0
@@ -297,7 +299,9 @@ class TorchBackend(_CaseBackend):
     def make_case(self, spec, mix, shape, dtype, passes):
         trace.event("backend.dispatch", backend=self.name, mix=mix.name,
                     load=spec.load)
-        return _oracle_case(spec, mix, shape[0], passes, self.name)
+        from repro_torch.core import instruction_mix as im
+        steps = _oracle_case(spec, mix, shape[0], passes, self.name)
+        return lambda *bufs: im.drain(steps(*bufs))
 
     def bind_case(self, case, spec, mix, x):
         return _bind_oracle_case(case, mix, x, load=spec.load)
@@ -316,7 +320,7 @@ class CudaBackend(_CaseBackend):
         from repro_torch.kernels.membench import membench as mb
         if spec.block_rows is not None:
             return spec.block_rows       # explicit knob: never adjusted
-        return mb.default_block_rows(rows)
+        return mb.default_block_rows(rows, spec.streams)
 
     def validate(self, spec: BenchSpec) -> None:
         from repro_torch.kernels.membench import membench as mb
@@ -435,7 +439,11 @@ class _MeshOracleBackend(_CaseBackend):
     shard's device in shard order — is the same for both, so bytes/flops
     parity across torch / sharded / distributed holds by construction (the
     Runner reads accounting from the shared mix registry, never from the
-    backend).  The device pool is that of the Runner's device
+    backend).  The shards' pass loops are enqueued pass-major
+    (``instruction_mix.pass_major``), as the reference's ``shard_map`` runs them side by
+    side.  A ``latency_chase`` walk on a CUDA shard launches ``chase.cu``
+    (``_probe_steps``), the one kernel a mesh runs; on the CPU it is the
+    oracle's host walk.  The device pool is that of the Runner's device
     (``core.device.device_pool``): every visible GPU, or the logical CPU
     devices ``REPRO_TORCH_CPU_DEVICES`` asks for.  A mesh larger than the
     pool raises; no shard is put elsewhere to make up the count.
@@ -531,6 +539,7 @@ class _MeshOracleBackend(_CaseBackend):
         return total
 
     def make_case(self, spec, mix, shape, dtype, passes):
+        from repro_torch.core import instruction_mix as im
         k = spec.devices
         rows = shape[0]
         self._check_rows(rows, k)
@@ -539,13 +548,13 @@ class _MeshOracleBackend(_CaseBackend):
         # generator co-schedule is composed in (the loaded-latency split)
         trace.event("backend.dispatch", backend=self.name, mix=mix.name,
                     mesh_shape=[k], load=spec.load, composite=composite)
-        if composite:
-            # the mesh composite: shard 0 walks its pointer cycle (the
-            # probe) while every sibling shard runs load_sum sweeps over its
-            # block of the generator buffer — spatial co-scheduling, not the
-            # single-device time-shared emulation
+        if mix.chase:
+            # every shard walks its own pointer cycle (_probe_steps); in the
+            # composite only shard 0 does (the probe), while every sibling
+            # shard runs load_sum sweeps over its block of the generator
+            # buffer — spatial co-scheduling, not the single-device
+            # time-shared emulation
             from repro_torch.bench.mixes import GEN_SWEEPS_PER_PASS
-            from repro_torch.core import instruction_mix as im
             if passes % spec.unroll:
                 raise BenchSpecError(
                     f"passes={passes} is not a multiple of "
@@ -555,9 +564,10 @@ class _MeshOracleBackend(_CaseBackend):
             unroll = spec.unroll
 
             def shard_case(i):
-                if i == 0:
-                    return lambda perm, gen: im.k_chase(perm, passes, unroll)
-                return lambda perm, gen: im.k_load_sum(gen, gen_passes)
+                if composite and i:
+                    return lambda perm, gen: im.k_load_sum.steps(gen,
+                                                                 gen_passes)
+                return lambda perm, *gen: _probe_steps(perm, passes, unroll)
         else:
             one = _oracle_case(spec, mix, rows // k, passes, self.name)
 
@@ -567,13 +577,17 @@ class _MeshOracleBackend(_CaseBackend):
 
         def case(*bufs):
             held = sorted(bufs[0].shards)
-            # every shard is enqueued on its own device with no sync between
-            # them; the probe's walk runs on the host, so the generators go
-            # first and run beside it
+            # pass-major: pass p of every shard is enqueued before pass p+1
+            # of any, each on its own device with no sync between them, so
+            # every device has work queued after one pass's enqueue, not
+            # after every pass of the shards before it.  In the composite
+            # the probe comes last in each round: on the CPU its walk runs
+            # on the host, so the generators' passes go first
             order = ([i for i in held if i] + [0]
                      if composite and 0 in held else held)
-            out = {i: shard_case(i)(*(b.shards[i] for b in bufs))
-                   for i in order}
+            out = im.pass_major({i: shard_case(i)(*(b.shards[i]
+                                                    for b in bufs))
+                                 for i in order})
             total = out[held[0]]
             for i in held[1:]:      # shard order, on the first shard's device
                 total = total + out[i].to(total.device)
@@ -583,19 +597,44 @@ class _MeshOracleBackend(_CaseBackend):
     def bind_case(self, case, spec, mix, x):
         # companions live outside the timed call, shard by shard where x's
         # shards live; the chase's permutation buffer (one cycle a shard) is
-        # built on the host and split like x
+        # built on the host and split like x, and on a CUDA shard checked
+        # here for chase.cu, once, so that no timed call pays for it
         k = spec.devices
         if mix.chase:
             dev = x.shards[min(x.shards)].device
             bufs = _mix_operands(mix, x,
                                  place=lambda a: self._split(a, k, dev),
                                  load=spec.load, parts=k)
+            for perm in bufs[0].shards.values():
+                if perm.device.type == "cuda":
+                    from repro_torch.kernels.membench import membench as mb
+                    mb.check_chase_perm(perm, perm.shape[0])
         else:
             per = {i: _mix_operands(mix, t) for i, t in x.shards.items()}
             n = len(per[min(per)])
             bufs = tuple(MeshBuffer(x.shape, {i: per[i][j] for i in per})
                          for j in range(n))
         return lambda: case(*bufs)
+
+
+def _probe_steps(perm: torch.Tensor, passes: int, unroll: int):
+    """One mesh shard's chase walk over its cycle, as a pass generator.  On
+    a CUDA shard it launches ``chase.cu`` once a pass, the whole shard one
+    tile (one thread follows the shard's one cycle: the nearest counterpart
+    of the reference's on-device ``fori_loop`` walk); the passes' results
+    are summed in pass order, as ``membench.chase`` sums them.  On the CPU
+    it is the torch oracle's host walk (``k_chase``).  Each pass starts at
+    0 on the card and carries ``j`` on the host; on a ``chase_perm`` cycle,
+    which returns to 0, both give 0.0."""
+    from repro_torch.core import instruction_mix as im
+    if perm.device.type != "cuda":
+        return (yield from im.k_chase.steps(perm, passes, unroll))
+    from repro_torch.kernels.membench import membench as mb
+    acc = torch.zeros((), dtype=torch.float32, device=perm.device)
+    for _ in range(passes):
+        acc = acc + mb.chase(perm, block_rows=perm.shape[0])
+        yield
+    return acc
 
 
 class ShardedBackend(_MeshOracleBackend):

@@ -53,6 +53,11 @@ from repro_torch.bench.spec import BenchSpec, BenchSpecError, quick_spec
 from repro_torch.obs import ledger, trace
 
 
+def row_name(backend: str, mix: str, nbytes: int) -> str:
+    """The name of a point's ``name,us_per_call,derived`` line."""
+    return f"{backend}/{mix}/{nbytes}B"
+
+
 def _parse_sizes(s: str) -> tuple[int, ...]:
     """'32768,1M,16M' -> bytes (supports K/M/G suffixes)."""
     out = []
@@ -88,7 +93,10 @@ def _add_spec_flags(p: argparse.ArgumentParser):
     p.add_argument("--quick", action="store_true",
                    help="small sizes / few reps smoke preset")
     p.add_argument("--backend", default="cuda",
-                   help="torch | cuda | sharded | distributed")
+                   help="torch | cuda | sharded | distributed (the mesh "
+                        "backends run the torch oracles per shard, but a "
+                        "latency_chase walk on a CUDA shard launches "
+                        "chase.cu; on the CPU it is the host walk)")
     p.add_argument("--mixes", "--mix", default=None,
                    help="comma list, e.g. load_sum,copy,fma_8")
     p.add_argument("--sizes", default=None, help="comma list, K/M/G ok: 32K,2M")
@@ -192,8 +200,8 @@ def cmd_run(args) -> int:
     text = res.to_json(args.out)
     if args.out:
         for p in res.points:
-            print(f"{p.backend}/{p.mix}/{p.nbytes}B,{p.mean_s * 1e6:.2f},"
-                  f"{p.gbps:.2f}GB/s")
+            print(f"{row_name(p.backend, p.mix, p.nbytes)},"
+                  f"{p.mean_s * 1e6:.2f},{p.gbps:.2f}GB/s")
         print(f"# saved {len(res.points)} points (schema v{res.schema_version})"
               f" -> {args.out}")
     else:
@@ -753,7 +761,9 @@ def main(argv=None) -> int:
                        help="cuda | torch (both: the single-device "
                             "time-shared composite; torch walks the chain "
                             "in a host loop, so its latency_ns is no "
-                            "memory latency)")
+                            "memory latency; the sharded mesh composite, "
+                            "through run --devices N --load N-1, walks "
+                            "chase.cu on a CUDA shard 0)")
     p_lat.add_argument("--sizes", default=None,
                        help="comma list, K/M/G ok (default: 128K smoke, "
                             "128K,16M full)")

@@ -23,6 +23,11 @@ yardstick the hand-written CUDA kernels in ``repro_torch.kernels.membench``
 are held against, and the only path that runs without a GPU.  Each function
 loops ``passes`` times over the buffer inside one call (the paper's
 measurement loop) and returns a 0-dim float32 tensor on the buffer's device.
+Each is written as a generator that yields after every pass (``stepped``):
+``k_load_sum(x, passes)`` runs it to its end, ``k_load_sum.steps(x,
+passes)`` is the generator, which the mesh backends advance one pass at a
+time on every shard in turn (``pass_major``), so that every device has work
+queued early.
 
 The returned scalar equals the reference's for the same
 ``(x, passes, unroll, interleave)``, so the reference's bookkeeping is kept
@@ -46,7 +51,7 @@ memory's latency (the ``cuda`` backend's kernel walks on the card).
 """
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, wraps
 
 import numpy as np
 import torch
@@ -76,16 +81,49 @@ def _check_unroll(passes: int, unroll: int) -> None:
             f"passes={passes} is not a multiple of unroll={unroll}")
 
 
+def stepped(gen_fn):
+    """An oracle written as a generator that yields after each pass and
+    returns its scalar, as a plain function: ``k(...)`` runs every pass and
+    returns the scalar; ``k.steps(...)`` is the generator, which the mesh
+    backends advance one pass at a time on every shard in turn."""
+    @wraps(gen_fn)
+    def run(*args, **kwargs):
+        return drain(gen_fn(*args, **kwargs))
+    run.steps = gen_fn
+    return run
+
+
+def pass_major(runs: dict) -> dict:
+    """Advance every pass generator one pass at a time, in the dict's
+    order, until each has returned; key -> its return value."""
+    out, live = {}, dict(runs)
+    while live:
+        for i, steps in list(live.items()):
+            try:
+                next(steps)
+            except StopIteration as stop:
+                out[i] = stop.value
+                del live[i]
+    return out
+
+
+def drain(steps):
+    """Run a pass generator to its end; its return value."""
+    return pass_major({0: steps})[0]
+
+
 def _pass_loop(step, passes: int, unroll: int, init):
-    """The measurement pass loop: ``passes / unroll`` trips of ``unroll``
-    chained copies of ``step(i, carry) -> carry``.  For SCALAR-accumulator
-    mixes (load_sum / fma / mxu / strided / blocked).  ``passes`` must be a
+    """The measurement pass loop (a generator: it yields after each pass
+    and returns the carry): ``passes / unroll`` trips of ``unroll`` chained
+    copies of ``step(i, carry) -> carry``.  For SCALAR-accumulator mixes
+    (load_sum / fma / mxu / strided / blocked).  ``passes`` must be a
     multiple of ``unroll``."""
     _check_unroll(passes, unroll)
     carry = init
     for i in range(passes // unroll):
         for _ in range(unroll):         # chained: the sweeps stay ordered
             carry = step(i, carry)
+            yield
     return carry
 
 
@@ -108,6 +146,7 @@ def _rotating_pass_loop(sweep, passes: int, unroll: int, state, out0):
         for _ in range(unroll):         # chained via state AND out
             state, out = sweep(i, state, out)
             new.append(out)
+            yield
         slots = tuple(new)
     return state, slots
 
@@ -131,15 +170,17 @@ def _row_chunks(x: torch.Tensor, interleave: int) -> torch.Tensor:
     return x.reshape(interleave, rows // interleave, *x.shape[1:])
 
 
+@stepped
 def k_load_sum(x, passes: int, unroll: int = 1):
     def body(_, carry):
         x, acc = carry
         acc = acc + x.sum(dtype=torch.float32)
         return (_perturb(x, acc), acc)
-    _, acc = _pass_loop(body, passes, unroll, (x, _zero(x)))
+    _, acc = yield from _pass_loop(body, passes, unroll, (x, _zero(x)))
     return acc
 
 
+@stepped
 def k_load_sum_istream(x, passes: int, unroll: int = 1, interleave: int = 2):
     """load_sum with ``interleave`` independent accumulator chains, one per
     row chunk, combined only after the sweep — same bytes and (to within the
@@ -154,10 +195,11 @@ def k_load_sum_istream(x, passes: int, unroll: int = 1, interleave: int = 2):
             s = s + p
         acc = acc + s
         return (_perturb(x, acc), acc)
-    _, acc = _pass_loop(body, passes, unroll, (x, _zero(x)))
+    _, acc = yield from _pass_loop(body, passes, unroll, (x, _zero(x)))
     return acc
 
 
+@stepped
 def k_copy(x, passes: int, unroll: int = 1):
     def sweep(i, carry, _y):
         x, acc = carry
@@ -165,11 +207,12 @@ def k_copy(x, passes: int, unroll: int = 1):
         y = x * scale
         acc = acc + y.reshape(-1)[0].to(torch.float32)
         return (x, acc), y
-    (_, acc), ys = _rotating_pass_loop(sweep, passes, unroll,
+    (_, acc), ys = yield from _rotating_pass_loop(sweep, passes, unroll,
                                        (x, _zero(x)), torch.zeros_like(x))
     return _consume_slots(acc, ys)
 
 
+@stepped
 def k_copy_istream(x, passes: int, unroll: int = 1, interleave: int = 2):
     """copy with the store stream split into ``interleave`` independent
     per-chunk streams (same bytes; the chunk stores carry no cross-chunk
@@ -184,11 +227,12 @@ def k_copy_istream(x, passes: int, unroll: int = 1, interleave: int = 2):
             torch.mul(xs[j], scale, out=ys[j])
         acc = acc + y.reshape(-1)[0].to(torch.float32)
         return (x, acc), y
-    (_, acc), ys = _rotating_pass_loop(sweep, passes, unroll,
+    (_, acc), ys = yield from _rotating_pass_loop(sweep, passes, unroll,
                                        (x, _zero(x)), torch.zeros_like(x))
     return _consume_slots(acc, ys)
 
 
+@stepped
 def k_fma(x, passes: int, depth: int, unroll: int = 1):
     def body(_, carry):
         x, acc = carry
@@ -199,10 +243,11 @@ def k_fma(x, passes: int, depth: int, unroll: int = 1):
             v.mul_(_FMA_A).add_(_FMA_B)
         acc = acc + v.sum()
         return (_perturb(x, acc), acc)
-    _, acc = _pass_loop(body, passes, unroll, (x, _zero(x)))
+    _, acc = yield from _pass_loop(body, passes, unroll, (x, _zero(x)))
     return acc
 
 
+@stepped
 def k_mxu(x, w, passes: int, unroll: int = 1):
     """x: (rows, 128); w: (128, 128) — one matmul per pass, accumulated in
     float32 (inputs are widened first, which for bfloat16 is exact)."""
@@ -211,10 +256,11 @@ def k_mxu(x, w, passes: int, unroll: int = 1):
         y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
         acc = acc + y[:1, :1].sum()
         return (_perturb(x, acc), acc)
-    _, acc = _pass_loop(body, passes, unroll, (x, _zero(x)))
+    _, acc = yield from _pass_loop(body, passes, unroll, (x, _zero(x)))
     return acc
 
 
+@stepped
 def k_strided_sum(x, streams: int, passes: int, unroll: int = 1):
     """load_sum over S interleaved strided address streams (C3 — the paper's
     multi-pointer addressing study)."""
@@ -225,10 +271,11 @@ def k_strided_sum(x, streams: int, passes: int, unroll: int = 1):
             s = s + x[k::streams].sum(dtype=torch.float32)
         x[0, 0] += (s * 1e-30).to(x.dtype)
         return (x, acc + s)
-    _, acc = _pass_loop(body, passes, unroll, (x, _zero(x)))
+    _, acc = yield from _pass_loop(body, passes, unroll, (x, _zero(x)))
     return acc
 
 
+@stepped
 def k_blocked_sum(x, rows: int, passes: int, unroll: int = 1):
     """load_sum walking the buffer in (rows, lanes) blocks (C4 — the
     LD1D/LD2D/LD4D registers-per-load analogue).  The per-block sums are one
@@ -243,10 +290,11 @@ def k_blocked_sum(x, rows: int, passes: int, unroll: int = 1):
         x[0, 0] += (s * 1e-30).to(x.dtype)
         return (x, acc + s)
 
-    _, acc = _pass_loop(body, passes, unroll, (x, _zero(x)))
+    _, acc = yield from _pass_loop(body, passes, unroll, (x, _zero(x)))
     return acc
 
 
+@stepped
 def k_triad(a, b, c, passes: int, unroll: int = 1):
     """STREAM triad a = b + s*c with a self-dependence chaining the passes
     (the rotating ``out`` slot IS the self-dependent a stream).  Computed in
@@ -254,10 +302,12 @@ def k_triad(a, b, c, passes: int, unroll: int = 1):
     def sweep(_, acc, a):
         a = b + RW_COMBINE_COEF * c + a * 1e-30   # triad with self-dependence
         return acc + a[0, 0].to(torch.float32), a
-    acc, slots = _rotating_pass_loop(sweep, passes, unroll, _zero(b), a)
+    acc, slots = yield from _rotating_pass_loop(sweep, passes, unroll,
+                                                _zero(b), a)
     return _consume_slots(acc, slots)
 
 
+@stepped
 def k_rw(streams, outs, passes: int, unroll: int = 1):
     """The R:W ratio family: R read streams combined triad-style
     (``v = s0 + 1.5*s1 + ...`` in the working dtype, one rounding per
@@ -279,11 +329,12 @@ def k_rw(streams, outs, passes: int, unroll: int = 1):
             v = v + coef * s
         outs = tuple(v + w * eps for w in range(len(outs)))
         return acc + v.reshape(-1)[0].to(torch.float32), outs
-    acc, slots = _rotating_pass_loop(sweep, passes, unroll,
+    acc, slots = yield from _rotating_pass_loop(sweep, passes, unroll,
                                      _zero(streams[0]), tuple(outs))
     return _consume_slots(acc, slots)
 
 
+@stepped
 def k_rw_istream(streams, outs, passes: int, unroll: int = 1,
                  interleave: int = 2):
     """k_rw with the R-stream combine split into ``interleave`` independent
@@ -303,7 +354,7 @@ def k_rw_istream(streams, outs, passes: int, unroll: int = 1,
         v = torch.cat(vs, dim=0)                # combined before the stores
         outs = tuple(v + w * eps for w in range(len(outs)))
         return acc + v.reshape(-1)[0].to(torch.float32), outs
-    acc, slots = _rotating_pass_loop(sweep, passes, unroll,
+    acc, slots = yield from _rotating_pass_loop(sweep, passes, unroll,
                                      _zero(streams[0]), tuple(outs))
     return _consume_slots(acc, slots)
 
@@ -359,6 +410,7 @@ def _walker(perm: torch.Tensor):
     return walk
 
 
+@stepped
 def k_chase(perm, passes: int, unroll: int = 1):
     """The latency probe: one pass = n dependent loads ``j = flat[j]``
     walking the buffer's cycle, ``j`` carried from pass to pass; returns the
@@ -371,10 +423,11 @@ def k_chase(perm, passes: int, unroll: int = 1):
         j = walk(j)
         return (j, acc + j)
 
-    j, acc = _pass_loop(body, passes, unroll, (0, _zero(perm)))
+    j, acc = yield from _pass_loop(body, passes, unroll, (0, _zero(perm)))
     return acc + j
 
 
+@stepped
 def k_chase_loaded(perm, gen, passes: int, unroll: int = 1, load: int = 1):
     """The single-device loaded-latency composite, time-shared: each probe
     pass of ``k_chase`` is followed by ``load * GEN_SWEEPS_PER_PASS``
@@ -392,47 +445,56 @@ def k_chase_loaded(perm, gen, passes: int, unroll: int = 1, load: int = 1):
             gen = _perturb(gen, acc)
         return (gen, j, acc)
 
-    _, j, acc = _pass_loop(body, passes, unroll, (gen, 0, _zero(gen)))
+    _, j, acc = yield from _pass_loop(body, passes, unroll,
+                                      (gen, 0, _zero(gen)))
     return acc + j
 
 
+@stepped
 def run_mix(mix_name: str, x, passes: int, w=None, unroll: int = 1,
             interleave: int = 1):
+    return (yield from _mix_steps(mix_name, x, passes, w, unroll, interleave))
+
+
+def _mix_steps(mix_name: str, x, passes: int, w, unroll: int,
+               interleave: int):
+    """``run_mix``'s oracle, as its pass generator."""
     if interleave > 1:
         # only the mixes with an interleaved variant (independent per-chunk
         # dependence chains); the bench backends gate this before timing
         if mix_name == "load_sum":
-            return k_load_sum_istream(x, passes, unroll, interleave)
+            return k_load_sum_istream.steps(x, passes, unroll, interleave)
         if mix_name == "copy":
-            return k_copy_istream(x, passes, unroll, interleave)
+            return k_copy_istream.steps(x, passes, unroll, interleave)
         if mix_name.startswith("rw_"):
             reads, writes = get_mix(mix_name).rw
-            return k_rw_istream(rw_streams(x, reads), (x,) * writes, passes,
-                                unroll, interleave)
+            return k_rw_istream.steps(rw_streams(x, reads), (x,) * writes,
+                                      passes, unroll, interleave)
         raise KeyError(
             f"mix {mix_name!r} has no interleaved (interleave > 1) variant; "
             f"interleavable mixes: load_sum, copy, rw_RtoW")
     if mix_name == "load_sum":
-        return k_load_sum(x, passes, unroll)
+        return k_load_sum.steps(x, passes, unroll)
     if mix_name == "copy":
-        return k_copy(x, passes, unroll)
+        return k_copy.steps(x, passes, unroll)
     if mix_name == "mxu":
         if w is None:
             w = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
-        return k_mxu(x, w, passes, unroll)
+        return k_mxu.steps(x, w, passes, unroll)
     if mix_name == "triad":
-        return k_triad(torch.zeros_like(x), x, x * 0.5, passes, unroll)
+        return k_triad.steps(torch.zeros_like(x), x, x * 0.5, passes, unroll)
     if mix_name == "latency_chase":
         # convenience path: x supplies only the shape and device — the probe
         # walks a permutation buffer built here (the bench backends bind
         # theirs outside the timed call)
         perm = torch.tensor(chase_perm(x.shape), device=x.device)
-        return k_chase(perm, passes, unroll)
+        return k_chase.steps(perm, passes, unroll)
     if mix_name.startswith("fma_"):
-        return k_fma(x, passes, int(mix_name.split("_")[1]), unroll)
+        return k_fma.steps(x, passes, int(mix_name.split("_")[1]), unroll)
     if mix_name.startswith("rw_"):
         # convenience path: companions built here, INSIDE any timing — the
         # bench backends bind their own streams outside the timed call
         reads, writes = get_mix(mix_name).rw
-        return k_rw(rw_streams(x, reads), (x,) * writes, passes, unroll)
+        return k_rw.steps(rw_streams(x, reads), (x,) * writes, passes,
+                          unroll)
     raise KeyError(mix_name)

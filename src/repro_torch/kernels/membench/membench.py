@@ -214,13 +214,16 @@ def check_chase_perm(perm: torch.Tensor, block_rows: int) -> None:
         perm._version, m)
 
 
-def default_block_rows(rows: int) -> int:
+def default_block_rows(rows: int, streams: int = 1) -> int:
     """Default tiling: the largest multiple of 8 that is <= 128 and divides
-    ``rows`` (rows is a multiple of 8, so 8 always does)."""
-    r = min(128, rows)
-    while r > 8 and rows % r:
-        r -= 8
-    return r
+    ``rows`` (rows is a multiple of 8, so 8 always does) into a number of
+    tiles that ``streams`` divides — so that a small buffer still has a
+    tile for every address stream (32 KiB, 64 rows: one tile of 64 rows for
+    one stream, 8 of 8 for eight).  Where no tiling gives such a count, the
+    largest that divides ``rows``, and the streams check raises."""
+    fits = [r for r in range(min(128, rows) // 8 * 8, 7, -8)
+            if rows % r == 0]
+    return next((r for r in fits if (rows // r) % streams == 0), fits[0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -479,8 +482,8 @@ def launch_record(mix: str, dtype, shape, knobs: dict | None, passes: int,
     knobs = dict(knobs or {})
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     rows = int(shape[0])
-    block_rows = knobs.get("block_rows") or default_block_rows(rows)
     streams = knobs.get("streams") or 1
+    block_rows = knobs.get("block_rows") or default_block_rows(rows, streams)
     unroll = knobs.get("unroll") or 1
     interleave = knobs.get("interleave") or 1
     load = knobs.get("load") or 0

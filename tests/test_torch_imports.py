@@ -1,5 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX reference package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, no figure
+script of ``benchmarks_torch/``, no script of ``scripts_torch/`` and not
+``chip_smoke.py`` imports ``jax``, the JAX reference package ``repro`` or
+the reference's ``benchmarks``."""
 import ast
 import subprocess
 import sys
@@ -10,9 +12,12 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-#: the port's diagnostic scripts (they import torch and the port only)
+#: the port's diagnostic scripts, figure scripts and launcher (they import
+#: torch, numpy and the port only)
 TOOLS = sorted((ROOT / "tools").glob("*.py"))
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FIGURES = sorted((ROOT / "benchmarks_torch").glob("*.py")) \
+    + sorted((ROOT / "scripts_torch").glob("*.py"))
+FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks"}
 
 
 def _imports(path: Path):
@@ -69,7 +74,20 @@ def test_the_port_has_the_slice_modules():
             == sources, package
 
 
-@pytest.mark.parametrize("path", FILES + TOOLS,
+def test_the_port_has_the_figure_scripts():
+    """Every script of ``benchmarks/`` that the port runs has its
+    counterpart of the same name; ``scripts/launch_distributed.py`` too."""
+    have = {p.name for p in FIGURES}
+    for want in ("common.py", "fig1_addressing.py", "fig2_hierarchy.py",
+                 "fig3_blockshape.py", "fig4_scaling.py", "fig5_rw_ratio.py",
+                 "fig6_istream.py", "fig7_loaded_latency.py",
+                 "table1_machine.py", "run.py", "launch_distributed.py"):
+        assert want in have, want
+        assert (ROOT / "benchmarks" / want).exists() or \
+            (ROOT / "scripts" / want).exists(), want
+
+
+@pytest.mark.parametrize("path", FILES + TOOLS + FIGURES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_reference(path):
     bad = [(mod, line) for mod, line in _imports(path)

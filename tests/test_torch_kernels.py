@@ -327,6 +327,33 @@ def test_default_block_rows_matches_the_backend_rule():
             ref_backend("pallas")._resolve(spec, rows)
 
 
+@pytest.mark.parametrize("streams", [2, 4, 8])
+def test_default_block_rows_leaves_a_tile_for_every_stream(streams):
+    """With ``streams`` > 1 the default tiling takes the largest rule-abiding
+    tile that still gives every address stream a tile (the reference's
+    pallas default keeps one 64-row tile at 32 KiB and refuses streams 2:
+    a port difference, so that fig1's quick grid runs on ``cuda``); an
+    explicit ``block_rows`` is never adjusted, and a row count no tiling
+    serves still raises."""
+    from repro_torch.bench import BenchSpec, BenchSpecError, Runner
+    for rows in (64, 512, 2**15):
+        br = mb.default_block_rows(rows, streams)
+        assert rows % br == 0 and (rows // br) % streams == 0
+        assert br == max(r for r in range(8, min(128, rows) + 1, 8)
+                         if rows % r == 0 and (rows // r) % streams == 0)
+    assert mb.default_block_rows(2**15, streams) == \
+        mb.default_block_rows(2**15)
+    spec = BenchSpec(mixes=("load_sum",), sizes=(32 * 2**10,), backend="cuda",
+                     streams=streams, reps=1, warmup=0, passes=1)
+    (p,) = Runner(device="cpu").run(spec).points
+    assert p.block_rows is None and p.streams == streams
+    with pytest.raises(BenchSpecError, match=f"streams {streams} does not"):
+        Runner(device="cpu").run(spec.replace(block_rows=64))
+    with pytest.raises(ValueError, match="streams 3 does not divide"):
+        mb.load_sum(torch.ones(72, 128), passes=1, streams=3,
+                    block_rows=mb.default_block_rows(72, 2))
+
+
 @pytest.mark.parametrize("block_rows", [8, 16, 24, 128])
 @pytest.mark.parametrize("streams", [1, 2, 4])
 def test_mxu_launch_plan(block_rows, streams):

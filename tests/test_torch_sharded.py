@@ -401,3 +401,96 @@ def test_sharded_scaling_8dev(cpu_devices):
     pts = scaling_curve(per_dev, device_counts=[1, 2], passes=2, reps=2,
                         runner=runner)
     assert [p.devices for p in pts] == [1, 2] and pts[0].speedup == 1.0
+
+
+# ---------------------------------------------------------------------------
+# pass-major enqueue: every shard's pass p before any shard's pass p + 1
+# ---------------------------------------------------------------------------
+
+def _shard_after_shard(spec, name: str, x) -> torch.Tensor:
+    """The scalar as the mesh computed it before its enqueue went
+    pass-major: each shard's whole oracle in turn (in the composite the
+    siblings' load_sum sweeps first, then the probe's walk), the scalars
+    summed in shard order on the first shard's device."""
+    from repro_torch.bench.backends import _mix_operands, _oracle_case
+    from repro_torch.bench.mixes import GEN_SWEEPS_PER_PASS
+    from repro_torch.core import instruction_mix as im
+    backend, mix, k = get_backend("sharded"), get_mix(name), spec.devices
+    buf = backend.prepare_buffer(spec, x)
+    held = sorted(buf.shards)
+    if mix.chase:
+        perm, *gen = _mix_operands(
+            mix, buf, place=lambda a: backend._split(a, k, x.device),
+            load=spec.load, parts=k)
+        out = {i: im.k_load_sum(gen[0].shards[i], PASSES * GEN_SWEEPS_PER_PASS)
+               for i in held if i and spec.load}
+        for i in held:
+            if i == 0 or not spec.load:
+                out[i] = im.k_chase(perm.shards[i], PASSES)
+    else:
+        one = _oracle_case(spec, mix, x.shape[0] // k, PASSES, "sharded")
+        out = {i: im.drain(one(*_mix_operands(mix, buf.shards[i])))
+               for i in held}
+    total = out[held[0]]
+    for i in held[1:]:
+        total = total + out[i].to(total.device)
+    return total
+
+
+@pytest.mark.parametrize("name,load", [(m, 0) for m in mix_names("torch")]
+                         + [("latency_chase", 3)])
+def test_pass_major_scalars_equal_shard_after_shard_bit_for_bit(
+        name, load, cpu_devices):
+    """On 4 logical CPU devices the returned scalar of every mix (and of
+    the loaded composite, devices 4, load 3) is the shard-after-shard
+    order's, bit for bit: each shard's oracle runs the same operations on
+    its own buffers, only their interleaving across shards changed."""
+    cpu_devices(4)
+    spec = BenchSpec(mixes=(name,), sizes=(NBYTES,), backend="sharded",
+                     devices=4, passes=PASSES, load=load)
+    got = get_backend("sharded").build(spec, get_mix(name), _pair()[1],
+                                       PASSES)()
+    want = _shard_after_shard(spec, name, _pair()[1])
+    assert got.dtype == want.dtype == torch.float32
+    assert got.view(torch.int32).item() == want.view(torch.int32).item(), \
+        (float(got), float(want))
+
+
+@pytest.mark.parametrize("name,loop", [("load_sum", "_pass_loop"),
+                                       ("copy", "_rotating_pass_loop"),
+                                       ("rw_2to1", "_rotating_pass_loop"),
+                                       ("latency_chase", "_pass_loop")])
+def test_mesh_dispatch_order_is_pass_major(name, loop, cpu_devices,
+                                           monkeypatch):
+    """Every pass each shard's oracle enqueues is recorded (shard, pass):
+    on 4 logical CPU devices, 3 passes, the order is pass 0 of shards 0-3,
+    then pass 1 of shards 0-3, then pass 2 — never a shard's next pass
+    before every shard has had this one."""
+    from repro_torch.core import instruction_mix as im
+    cpu_devices(4)
+    passes, order, loops = 3, [], {}
+    original = getattr(im, loop)
+
+    def recorded(step, passes, unroll, *init):
+        me = object()
+
+        def rec(i, *carry):
+            order.append((loops.setdefault(me, len(loops)), i))
+            return step(i, *carry)
+        return (yield from original(rec, passes, unroll, *init))
+    monkeypatch.setattr(im, loop, recorded)
+    spec = BenchSpec(mixes=(name,), sizes=(NBYTES,), backend="sharded",
+                     devices=4, passes=passes)
+    get_backend("sharded").build(spec, get_mix(name), _pair()[1], passes)()
+    assert order == [(s, p) for p in range(passes) for s in range(4)]
+
+
+def test_the_plain_and_the_stepped_oracle_are_one():
+    """``k(...)`` runs ``k.steps(...)`` to its end: one value, and the
+    generator yields once a pass."""
+    from repro_torch.core import instruction_mix as im
+    x = _pair()[1]
+    steps = im.k_copy.steps(x, 4, 2)
+    assert sum(1 for _ in steps) == 4
+    assert float(im.drain(im.k_load_sum.steps(x, 3))) == \
+        float(im.k_load_sum(x, 3))

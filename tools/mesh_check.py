@@ -1,38 +1,52 @@
 #!/usr/bin/env python3
 """Hold the multi-device bench (``sharded``, ``distributed``, ``launch``,
-``core.scaling``) to its single-device version across the devices of one
-host.
+``core.scaling``, Fig. 4) to its single-device version across the devices
+of one host.
 
     python3 tools/mesh_check.py                  # every visible GPU (>= 2)
     python3 tools/mesh_check.py --device cpu     # a rehearsal on logical CPU
                                                  # devices, gloo
     python3 tools/mesh_check.py --out-dir DIR    # default artifacts/mesh_check
+    python3 tools/mesh_check.py --src OTHER/src --label parent \
+        --steps enqueue,scaling,fig4             # another checkout's package
 
 The mesh sizes are 1, 2 and every device of the pool (on the CPU the pool
-is ``REPRO_TORCH_CPU_DEVICES`` logical devices).  Checks, any failure
-raises and the script exits non-zero:
+is ``REPRO_TORCH_CPU_DEVICES`` logical devices).  Steps (``--steps``, all
+by default), any failure raises and the script exits non-zero:
 
-  1  every torch mix on ``sharded`` at each mesh size k (256 MiB; the chase,
-     whose oracle walks on the host, at 16 MiB): the accounting of
-     ``torch`` at the same size, each shard made on its own device, and the
-     returned scalar equal to the torch oracle run block by block on the
-     first device and summed in block order (the oracle's bound, below);
-  2  the loaded composite at devices = load + 1 for k = 2 and every device:
-     the probe on shard 0, a generator on each sibling; its scalar equal to
-     the siblings' load_sum sweeps, run on the first device;
-  3  ``scaling_curve`` for load_sum and copy at 1 GiB a device, 8 passes,
-     8 reps (the paper's Fig. 4: aggregate GB/s against device count);
-  4  ``launch`` for every split of the pool into P >= 2 processes of K
-     devices (NCCL on CUDA, gloo on the CPU): one result gathered on
-     process 0 with ``local_device_counts`` [K] * P, every point the
-     slowest process's, the accounting of ``sharded`` at P * K, one trace
-     pid a process; a mesh that leaves a process out fails; on CUDA a
-     launch of more GPUs than are visible is refused before it spawns.
+  enqueue  the host's time to enqueue one pass of the load_sum and copy
+           oracles at the scaling size (a call without a sync, over its
+           passes) beside the device's time for one pass (CUDA events): how
+           far ahead of the devices the host runs;
+  sharded  (1) every torch mix on ``sharded`` at each mesh size k (256 MiB;
+           the chase at 16 MiB): the accounting of ``torch`` at the same
+           size, each shard made on its own device, and the returned scalar
+           equal to the torch oracle run block by block on the first device
+           and summed in block order (the oracle's bound, below); (2) the
+           loaded composite at devices = load + 1 for k = 2 and every
+           device: the probe on shard 0, a generator on each sibling; its
+           scalar equal to the siblings' load_sum sweeps, and on CUDA its
+           latency_ns near ``chase.cu``'s walking shard 0's block as one
+           tile;
+  scaling  ``scaling_curve`` for load_sum and copy at 1 GiB a device, 8
+           passes, 8 reps (the paper's Fig. 4: aggregate GB/s against device
+           count);
+  launch   ``launch`` for every split of the pool into P >= 2 processes of K
+           devices (NCCL on CUDA, gloo on the CPU): one result gathered on
+           process 0 with ``local_device_counts`` [K] * P, every point the
+           slowest process's, the accounting of ``sharded`` at P * K, one
+           trace pid a process; a mesh that leaves a process out fails; on
+           CUDA a launch of more GPUs than are visible is refused before it
+           spawns;
+  fig4     ``python -m benchmarks_torch.fig4_scaling --quick`` (the sharded
+           ladder 1, 2, 4, ...) and ``--quick --distributed --processes 2
+           --devices-per-process N/2``: every row printed, the speedups read.
 
-No kernel of the port runs (the mesh runs the oracles; checked).  On the
-CPU the sizes shrink to 1 MiB (256 KiB for the chase) and no number is a
-device's.  Prints each card's name and power limit and, last, one JSON line
-of the figures.  Imports nothing of JAX.
+The one kernel of the port that runs is ``chase.cu``, the chase probe of a
+CUDA shard (checked: no other launch).  On the CPU the sizes shrink to 1 MiB
+(256 KiB for the chase) and no number is a device's.  Prints each card's
+name and power limit and, last, one JSON line of the figures.  Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -52,11 +66,14 @@ MiB = 2 ** 20
 SIZES = {"cuda": (256 * MiB, 16 * MiB, 1024 * MiB),
          "cpu": (1 * MiB, 256 * 2**10, 1 * MiB)}
 PASSES = 2
+#: how far the mesh probe's latency_ns may lie from chase.cu's walking the
+#: same one-tile block alone (chip_smoke.py's MESH_PROBE_TOL)
+PROBE_TOL = 0.10
 
 
-def say(out_dir: Path, msg: str = "") -> None:
+def say(path: Path, msg: str = "") -> None:
     print(msg, flush=True)
-    with open(out_dir / "log.txt", "a") as f:
+    with open(path, "a") as f:
         f.write(msg + "\n")
 
 
@@ -90,6 +107,23 @@ def cli_run(argv: list[str]) -> tuple[int, str, str]:
         rc = cli.main(argv)
     cli.trace.configure(enabled=False)
     return rc, out.getvalue(), err.getvalue()
+
+
+def chase_ns(perm, passes: int) -> float:
+    """ns a dependent step of ``chase.cu`` walking ``perm`` as one tile,
+    ``passes`` passes a call, three calls after one (CUDA events)."""
+    import torch
+
+    from repro_torch.kernels.membench import membench as mb
+    rows = perm.shape[0]
+    mb.chase(perm, block_rows=rows, passes=passes)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    t0.record()
+    for _ in range(3):
+        mb.chase(perm, block_rows=rows, passes=passes)
+    t1.record()
+    torch.cuda.synchronize(perm.device)
+    return t0.elapsed_time(t1) * 1e6 / (3 * passes * perm.numel())
 
 
 def check_sharded(dev, ks, sizes, log) -> dict:
@@ -175,8 +209,20 @@ def check_sharded(dev, ks, sizes, log) -> dict:
             raise AssertionError(f"composite point {p}")
         gbps[f"composite_{k}"] = {"latency_ns": p.latency_ns,
                                   "gen_gbps": p.gen_gbps}
+        probe = ""
+        if dev.type == "cuda":
+            # the probe is chase.cu over shard 0's block as one tile: hold
+            # its latency to that kernel's walking the same cycle alone
+            ns = chase_ns(torch.tensor(im.chase_perm((r, x.shape[1])),
+                                       device=dev), p.passes)
+            gbps[f"composite_{k}"]["chase_cu_ns"] = ns
+            if not abs(p.latency_ns - ns) <= PROBE_TOL * ns:
+                raise AssertionError(f"composite devices={k}: probe "
+                                     f"{p.latency_ns} ns against chase.cu's "
+                                     f"{ns} ns")
+            probe = f" (chase.cu alone on shard 0's block: {ns:.2f} ns)"
         log(f"  composite devices={k} load={k - 1}: scalar = the siblings' "
-            f"sweeps; {p.latency_ns:.2f} ns a step, generators "
+            f"sweeps; {p.latency_ns:.2f} ns a step{probe}, generators "
             f"{p.gen_gbps:.2f} GB/s")
         del x, gen
     gbps["largest_scalar_difference"] = worst
@@ -268,14 +314,100 @@ def check_launch(dev, n, main, out_dir, log) -> dict:
     return out
 
 
+def check_enqueue(dev, per_device, log) -> dict:
+    """How long the host takes to enqueue one pass of the load_sum and copy
+    oracles (the call returns before the device has run its passes) beside
+    one pass's device time (CUDA events; on the CPU the two are one)."""
+    import torch
+
+    from repro_torch.core import instruction_mix as im
+    from repro_torch.core.buffers import working_set
+    x = working_set(per_device, device=dev)
+    cuda = dev.type == "cuda"
+    out, passes = {}, 8
+    for name, oracle in (("load_sum", im.k_load_sum), ("copy", im.k_copy)):
+        oracle(x, 2)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+        h0 = time.perf_counter()
+        oracle(x, passes)
+        host = time.perf_counter() - h0
+        if cuda:
+            t1.record()
+            torch.cuda.synchronize(dev)
+            device = t0.elapsed_time(t1) / 1e3
+        else:
+            device = host
+        out[name] = {"enqueue_us_a_pass": host / passes * 1e6,
+                     "device_us_a_pass": device / passes * 1e6}
+        log(f"  {name} oracle, {per_device} B on {dev}: the host enqueues a "
+            f"pass in {host / passes * 1e6:.1f} us, the device runs it in "
+            f"{device / passes * 1e6:.1f} us")
+    return out
+
+
+def check_fig4(dev, n, src, log) -> dict:
+    """``benchmarks_torch.fig4_scaling --quick`` on the sharded ladder, then
+    ``--distributed`` over 2 processes of n/2 devices: every row, each
+    device count's GB/s and speedup."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(src), str(ROOT)]))
+    if dev.type == "cpu":
+        env["REPRO_TORCH_CPU_DEVICES"] = str(n)
+    row = re.compile(r"^(?:\[p\d+\] )?(fig4\w*/\w+),([0-9.]+),([0-9.]+)GB/s"
+                     r"(?:;speedup=([0-9.]+)x)?")
+    out = {}
+    for label, extra in (("sharded", []),
+                         ("distributed", ["--distributed", "--processes", "2",
+                                          "--devices-per-process",
+                                          str(n // 2)])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "benchmarks_torch.fig4_scaling", "--quick",
+                            "--device", dev.type, *extra], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        rows = [m.groups() for m in map(row.match, r.stdout.splitlines())
+                if m]
+        if r.returncode != 0 or not rows:
+            raise AssertionError(f"fig4 {label} exited {r.returncode}:\n"
+                                 f"{r.stdout}\n{r.stderr[-4000:]}")
+        out[label] = {name: {"us": float(us), "gbps": float(gbps),
+                             "speedup": None if sp is None else float(sp)}
+                      for name, us, gbps, sp in rows}
+        log(f"  fig4 --quick {' '.join(extra) or '(sharded)'}, "
+            f"{time.perf_counter() - t0:.1f} s: "
+            + "; ".join(f"{name} {v['gbps']:.1f} GB/s"
+                        + (f" x{v['speedup']:.2f}" if v["speedup"] else "")
+                        for name, v in out[label].items()))
+    return out
+
+
+STEPS = ("enqueue", "sharded", "scaling", "launch", "fig4")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (every visible GPU) or cpu (a rehearsal)")
     ap.add_argument("--out-dir",
                     default=str(ROOT / "artifacts" / "mesh_check"))
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch runs (another "
+                         "checkout's, for an A/B in one call)")
+    ap.add_argument("--label", default="",
+                    help="suffix of the log and JSON names (mesh_check_"
+                         "LABEL.json)")
+    ap.add_argument("--steps", default=",".join(STEPS),
+                    help="comma list of " + ", ".join(STEPS))
     args = ap.parse_args(argv)
-    sys.path.insert(0, str(ROOT / "src"))
+    steps = args.steps.split(",")
+    if set(steps) - set(STEPS):
+        ap.error(f"unknown steps {sorted(set(steps) - set(STEPS))}")
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
     import torch
 
     from repro_torch.core.device import device_pool, resolve_device
@@ -285,10 +417,12 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)       # raises without a CUDA device
     out_dir = Path(args.out_dir).resolve()
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "log.txt").unlink(missing_ok=True)
+    suffix = f"_{args.label}" if args.label else ""
+    log_name = f"log{suffix}.txt"
+    (out_dir / log_name).unlink(missing_ok=True)
 
     def log(msg=""):
-        say(out_dir, msg)
+        say(out_dir / log_name, msg)
 
     n = len(device_pool(dev))
     if n < 2:
@@ -302,28 +436,39 @@ def main(argv=None) -> int:
                              text=True).stdout.strip()
         log(smi)
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {n} GPUs")
+    import repro_torch
+    log(f"repro_torch from {Path(repro_torch.__file__).parent}")
     ks = sorted({1, 2, n})
     sizes = SIZES[dev.type]
     for mod in (mb, fa, sk):
         mod.reset_launch_counts()
-    log(f"== 1, 2: sharded meshes of {ks} and the loaded composite")
-    mesh = check_sharded(dev, ks, sizes, log)
-    log("== 3: scaling_curve (Fig. 4)")
-    scaling = check_scaling(dev, ks, sizes[2], log)
-    log("== 4: launch")
-    launches = check_launch(dev, n, sizes[0], out_dir, log)
+    summary = {"device": dev.type, "count": n, "smi": smi,
+               "kind": (torch.cuda.get_device_name(0) if dev.type == "cuda"
+                        else "cpu"), "src": str(src), "label": args.label}
+    if "enqueue" in steps:
+        log("== enqueue: one pass of the oracles, host against device")
+        summary["enqueue"] = check_enqueue(dev, sizes[2], log)
+    if "sharded" in steps:
+        log(f"== sharded: meshes of {ks} and the loaded composite")
+        summary["sharded"] = check_sharded(dev, ks, sizes, log)
+    if "scaling" in steps:
+        log("== scaling: scaling_curve (Fig. 4)")
+        summary["scaling"] = check_scaling(dev, ks, sizes[2], log)
+    if "launch" in steps:
+        log("== launch")
+        summary["launch"] = check_launch(dev, n, sizes[0], out_dir, log)
+    if "fig4" in steps:
+        log("== fig4: benchmarks_torch.fig4_scaling --quick")
+        summary["fig4"] = check_fig4(dev, n, src, log)
     launched = {k: v for mod in (mb, fa, sk)
                 for k, v in mod.launch_counts.items() if v}
-    if launched:
+    if set(launched) - {"chase"} or (dev.type == "cpu" and launched):
         raise AssertionError(f"kernels launched: {launched}")
-    log(f"== all checks passed in {time.perf_counter() - t0:.1f} s; no "
-        f"kernel launched")
-    summary = {"mesh_check": {
-        "device": dev.type, "count": n, "smi": smi,
-        "kind": (torch.cuda.get_device_name(0) if dev.type == "cuda"
-                 else "cpu"),
-        "sharded": mesh, "scaling": scaling, "launch": launches}}
-    (out_dir / "mesh_check.json").write_text(json.dumps(summary, indent=1))
+    log(f"== all checks passed in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launched} (the chase probe of a CUDA shard)")
+    summary = {"mesh_check": summary}
+    (out_dir / f"mesh_check{suffix}.json").write_text(
+        json.dumps(summary, indent=1))
     log(json.dumps(summary))
     return 0
 
