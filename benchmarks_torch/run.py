@@ -10,10 +10,12 @@ Every figure script is a BenchSpec declaration executed by the port's
 Runner (``python -m repro_torch.bench`` is the standalone CLI; the ``bench``
 entry here smoke-runs it).  Output: ``name,us_per_call,derived`` CSV lines
 (+ analysis tables).  fig4 runs in a subprocess (it sets its own device
-pool before anything else); everything else runs in-process.  The
-``collectives`` and ``roofline`` entries of the reference wait for their
-modules to be ported (ROADMAP Queue A 2 and A 8): asked for by ``--only``,
-they say so and the run exits non-zero.
+pool before anything else), and so does ``collectives``, which launches
+its own ranks: 8 gloo processes on a 2x4 mesh on the CPU, one process a
+GPU on a 1xN mesh on CUDA; everything else runs in-process.  The
+``roofline`` entry of the reference waits for its modules to be ported
+(ROADMAP Queue A 8): asked for by ``--only``, it says so and the run exits
+non-zero.
 
 ``--backend`` and ``--device`` (default ``cuda`` and ``cuda``) go to every
 entry that takes them; fig4 runs its ``sharded`` mesh on ``--device``.
@@ -31,14 +33,13 @@ ROOT = Path(__file__).resolve().parents[1]
 ENTRIES = ("bench", "fig1", "fig2", "fig3", "fig4", "fig5", "fig6", "fig7",
            "table1", "collectives", "roofline")
 #: entries of the reference whose modules the port does not have yet
-NOT_PORTED = {"collectives": "ROADMAP Queue A 2 (core/collective_bench.py)",
-              "roofline": "ROADMAP Queue A 8 (roofline/, launch/dryrun.py)"}
+NOT_PORTED = {"roofline": "ROADMAP Queue A 8 (roofline/, launch/dryrun.py)"}
 
 
-def _subproc(mod: str, quick: bool, device: str) -> int:
+def _subproc(mod: str, quick: bool, device: str, *extra: str) -> int:
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{ROOT}/src{os.pathsep}{ROOT}"
-    cmd = [sys.executable, "-m", mod, "--device", device] + \
+    cmd = [sys.executable, "-m", mod, "--device", device, *extra] + \
         (["--quick"] if quick else [])
     r = subprocess.run(cmd, env=env, cwd=ROOT, text=True, capture_output=True,
                        timeout=3600)
@@ -113,6 +114,16 @@ def main(argv=None) -> int:
         print("\n## fig7: loaded-latency surface (bandwidth-latency curves)")
         from benchmarks_torch import fig7_loaded_latency
         fig7_loaded_latency.main(quick=quick, **dev)
+    if want("collectives"):
+        print("\n## collectives: collective throughput on a process mesh "
+              "(subprocess)")
+        if args.device == "cpu":
+            mesh = "2x4"
+        else:
+            import torch
+            mesh = f"1x{torch.cuda.device_count()}"
+        rc |= _subproc("benchmarks_torch.collective_bench_main", quick,
+                       args.device, "--mesh", mesh)
     for name, where in NOT_PORTED.items():
         if only is not None and name in only:
             print(f"\n## {name}: not ported yet — waits for {where}")

@@ -36,7 +36,10 @@ Phases (any failure raises and the script exits non-zero):
      against ``plain_flash`` (the reference test's shapes, head dims 80 and
      128, causal and not, float32 and bfloat16, block-shape invariance) and
      the SSD against ``plain_ssd`` (the reference test's shapes, chunk
-     invariance, stride-0 B/C views), both also at the serving shapes.
+     invariance, stride-0 B/C views), both also at the serving shapes;
+     flash also at the five dense / vlm serving shapes, (4, 512, H, KV, D)
+     bf16: granite (32, 8, 64), stablelm (32, 32, 80), phi3 (40, 10, 128),
+     internlm2 (48, 8, 128), chameleon (64, 8, 128).
   3  the main paths, each with the launch counters set to 0 just before and
      read just after: ``run --backend cuda`` over the working-set ladder
      32 KiB .. 2 GiB for the six first mixes, then for the rw ladder, float32
@@ -46,6 +49,13 @@ Phases (any failure raises and the script exits non-zero):
      --prompt-len 512 --gen 16`` at full width (9 flash and 54 SSD launches
      in its one prefill, no membench launch), then in process the kernel
      route's prefill against the plain route's, and two decode steps.
+     Then the dense / vlm families: ``serve --arch granite-3-2b`` on the
+     same batch at full width (40 flash launches, no SSD, no membench), in
+     process every layer's attention on both routes from the same input,
+     the prefill logits on both routes, warm prefill and decode times; then
+     stablelm-3b, phi3-medium-14b, internlm2-20b and chameleon-34b at full
+     width cut to 2 layers through ``serve.run`` (2 flash launches each),
+     their routes held the same way.
      3e: ``python -m repro_torch.bench characterize --smoke --backend cuda
      --compare nvidia-h100-sxm`` (host-paced: the reference's preset), then
      a device-paced characterization through the API (the ``--full``
@@ -83,6 +93,13 @@ Phases (any failure raises and the script exits non-zero):
      and SASS profiles; then fig2's points by device time (behind a
      device-side sleep, and ``torch.profiler``'s) beside their wall and
      CUDA-event times.
+     3i: the collective and straggler studies —
+     ``benchmarks_torch.collective_bench_main --mesh 1x1`` through
+     ``launch_local`` (one NCCL rank: exit 0, nothing to measure); the five
+     collectives on a one-rank NCCL group at 8 MiB, each equal to the
+     host's value, with their times; ``ft.stragglers.probe_devices`` on the
+     card (acc.cu's load_sum, reps + 1 launches; its scalar against the
+     plain load_sum); ``examples_torch/characterize_machine.py``.
   4  the measurement is real: doubling ``passes`` doubles the time (also
      for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
      memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
@@ -95,7 +112,7 @@ Phases (any failure raises and the script exits non-zero):
      buffers fit the L2, at the HBM rate above it, ``bytes_bound``); every
      membench kernel and rw ladder member, and flash_attn, and their library
      calls, also by device time (the calls enqueued behind a device-side
-     sleep); the membench kernels and the rw ladder also at the Runner's
+     sleep; flash also at granite-3-2b's shape, under ``dense``); the membench kernels and the rw ladder also at the Runner's
      small points, 32 KiB x 2048 passes and 1 MiB x 64, float32, each held
      against its plain version there, at 8 passes and (all but fma) at the
      timed pass count.
@@ -158,7 +175,8 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.common import (apply_mlp, apply_norm,  # noqa: E402
                                        embed_tokens, init_params)
-from repro_torch.models.hybrid import _index as layer_params  # noqa: E402
+from repro_torch.models.common import (  # noqa: E402
+    tree_index as layer_params)
 from repro_torch.models.registry import build, make_batch  # noqa: E402
 from repro_torch.models.variant import BASELINE  # noqa: E402
 
@@ -971,6 +989,17 @@ SERVE_ARGV = ["--arch", "zamba2-2.7b", "--batch", str(SERVE_B),
 #: SSD (B, H, S, P, N, chunk), bf16 x/B/C, B and C shared by a row's heads
 FLASH_SERVE = (SERVE_B, SERVE_P, 32, 32, 80)
 SSD_SERVE = (SERVE_B, 80, SERVE_P, 64, 64, 256)
+#: the dense / vlm serving path: granite-3-2b at full width (40 layers) on
+#: the hybrid's batch, prompt and generation, then the other four configs
+#: of the families at full width cut to DENSE_DEPTH layers (at full depth
+#: internlm2-20b and chameleon-34b do not fit 80 GB in float32); every
+#: real attention shape of the families stays on the card
+DENSE_SERVE = "granite-3-2b"
+DENSE_CUT = ("stablelm-3b", "phi3-medium-14b", "internlm2-20b",
+             "chameleon-34b")
+DENSE_DEPTH = 2
+DENSE_ARGV = ["--arch", DENSE_SERVE, "--batch", str(SERVE_B),
+              "--prompt-len", str(SERVE_P), "--gen", str(SERVE_G)]
 #: tests/test_kernels.py's flash shapes, plus the serving head dim 80 (G 1
 #: and G 4) and 128
 FLASH_SHAPES = [(2, 128, 8, 4, 64), (1, 256, 4, 4, 32), (2, 128, 8, 2, 64),
@@ -983,6 +1012,13 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: in another order, in float32
 SSD_SHAPES = [(4, 128, 32, 16, 32), (2, 256, 64, 32, 64), (1, 64, 16, 8, 16)]
 SSD_TOL = 2e-4
+
+
+def dense_flash_shape(arch: str) -> tuple:
+    """flash's (B, S, H, KV, D) on the dense serving path of ``arch``."""
+    cfg = get_arch(arch)
+    return (SERVE_B, SERVE_P, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim)
 
 
 def _randn(shape, dtype, gen, scale=1.0) -> torch.Tensor:
@@ -1083,6 +1119,17 @@ def phase_model_kernels(quick: bool) -> dict[str, float]:
         f"{serve_flash:.3e} (tolerance {FLASH_TOL['bfloat16']} + "
         f"{FLASH_TOL['bfloat16']}|value|); block-shape invariant, "
         f"repeatable")
+    # the dense / vlm serving shapes (phase 3d): head dims 64, 80 and 128,
+    # GQA groups 1, 4, 6 and 8
+    dense = {}
+    for arch in (DENSE_SERVE,) + DENSE_CUT:
+        shape = dense_flash_shape(arch)
+        q, k, v = flash_inputs(*shape, torch.bfloat16, seed=sum(shape))
+        dense[arch] = hold_flash(q, k, v, True, f"{arch} {shape}")
+        del q, k, v
+    say(f"  flash at the dense / vlm serving shapes, bf16 causal, max abs "
+        f"err: " + "; ".join(f"{a} {dense_flash_shape(a)} {e:.3e}"
+                             for a, e in dense.items()))
 
     n = 0
     for BH, S, P, N, Q in SSD_SHAPES:
@@ -1138,7 +1185,8 @@ def phase_model_kernels(quick: bool) -> dict[str, float]:
         f"{plan['route']}, {plan['grid']} CTAs, {plan['ctas_per_sm']} an SM, "
         f"{plan['waves']:.2f} waves, last {plan['last_wave']} of "
         f"{plan['slots']})")
-    return {"flash_attn": serve_flash, "ssd_scan": serve_ssd}
+    return {"flash_attn": serve_flash, "ssd_scan": serve_ssd,
+            "flash_attn_dense": dense}
 
 
 # ---------------------------------------------------------------------------
@@ -1970,6 +2018,116 @@ def phase_figures_path(quick: bool) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 3i — the collective and straggler studies
+# ---------------------------------------------------------------------------
+
+#: the collective study's global buffer: the reference's full size
+COLLECTIVE_BYTES = 8 * MiB
+
+
+def phase_collectives_path(quick: bool) -> dict[str, int]:
+    """3i: ``benchmarks_torch.collective_bench_main --mesh 1x1`` through
+    ``launch_local`` (one NCCL rank; its one axis has one device, so it
+    measures nothing and says so); the five collectives through
+    ``bench_collective`` on a one-rank NCCL group, each output equal to the
+    host's (n = 1: every op returns its input); ``probe_devices`` on the
+    card (acc.cu load_sum, reps + 1 launches) and its scalar against the
+    plain load_sum on the benchmark's working set and the ramp input;
+    ``examples_torch/characterize_machine.py``.  Returns acc.cu's
+    launches by the probe."""
+    import torch.distributed as tdist
+
+    from repro_torch.bench import distributed as dist
+    from repro_torch.core import collective_bench as cb
+    from repro_torch.ft import stragglers
+    from repro_torch.launch.mesh import make_mesh
+    say("== phase 3i: the collective and straggler studies")
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "benchmarks_torch.collective_bench_main", "--mesh",
+                        "1x1"] + (["--quick"] if quick else []), cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0 or "has two devices; nothing measured" \
+            not in r.stdout:
+        raise AssertionError(f"collective_bench_main --mesh 1x1 exited "
+                             f"{r.returncode}:\n{r.stdout}\n"
+                             f"{r.stderr[-4000:]}")
+    say(f"  collective_bench_main --mesh 1x1 (one NCCL rank through "
+        f"launch_local): exit 0 in {time.perf_counter() - t0:.1f} s: "
+        f"{r.stdout.strip().splitlines()[-1]}")
+
+    own = not tdist.is_initialized()
+    if own:
+        dist.initialize(f"127.0.0.1:{dist.pick_free_port()}", 1, 0, DEV)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
+        host = cb.global_input(1, COLLECTIVE_BYTES, device="cpu")
+        for op in cb.OPS:
+            fn, arg, payload = cb.collective_case(mesh, "model", op,
+                                                  COLLECTIVE_BYTES)
+            got = fn(arg).cpu()
+            if not torch.equal(got, cb.plain_output(op, host, 0)):
+                raise AssertionError(f"{op} on a one-rank NCCL group: not "
+                                     f"the host's value")
+            res = cb.bench_collective(mesh, "model", op, COLLECTIVE_BYTES)
+            say(f"  {op:14s} one rank, {payload / MiB:.0f} MiB: equal to the "
+                f"host's; {res.mean_s * 1e6:.1f} us (σ "
+                f"{res.std_s * 1e6:.1f}), algo {res.algo_gbps:.1f} GB/s "
+                f"(a copy on one card; link {res.link_gbps:.1f})")
+    finally:
+        if own:
+            dist._shutdown()
+
+    mb.reset_launch_counts()
+    nbytes, passes, reps = 4 * MiB, 4, 5
+    probes = stragglers.probe_devices(nbytes=nbytes, passes=passes, reps=reps,
+                                      device=DEV)
+    launched = dict(mb.launch_counts)
+    want = {k: (reps + 1 if k == "load_sum" else 0) for k in launched}
+    if launched != want or len(probes) != torch.cuda.device_count():
+        raise AssertionError(f"probe_devices launched {launched}, expected "
+                             f"{want}")
+    x = working_set(nbytes, device=DEV)
+    for label, buf, cancels in (("working set", x, True),
+                                ("ramp", ramp_input(x), False)):
+        got = float(stragglers.load_sum_fn(buf, passes)())
+        want_v = mb.plain_load_sum(buf, passes)
+        err, tol, _ = max_err("load_sum", got, want_v, buf, passes, cancels)
+        if not err <= tol:
+            raise AssertionError(f"probe scalar on the {label}: {got} vs "
+                                 f"{float(want_v)}, err {err} > {tol}")
+        say(f"  probe scalar ({label}, {passes} passes): {got:.6g} against "
+            f"the plain {float(want_v):.6g}, err {err:.3e} (tolerance "
+            f"{tol:.3e})")
+    say(f"  probe_devices({nbytes // MiB} MiB, {passes} passes, {reps} "
+        f"reps): " + "; ".join(f"{p.device} {p.gbps:.1f} GB/s "
+                               f"z={p.z_score:+.2f}" for p in probes)
+        + f"; acc.cu launches {launched['load_sum']}")
+
+    t0 = time.perf_counter()
+    out = OUT_DIR / "characterize_machine"
+    r = subprocess.run([sys.executable, str(ROOT / "examples_torch" /
+                                            "characterize_machine.py"),
+                        "--out-dir", str(out)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    files = sorted(f.name for f in out.glob("*.json"))
+    if r.returncode != 0 or len(files) != 3:
+        raise AssertionError(f"characterize_machine.py exited "
+                             f"{r.returncode}, wrote {files}:\n"
+                             f"{r.stderr[-4000:]}")
+    probe_line = [line for line in r.stdout.splitlines()
+                  if line.strip().startswith("cuda:")]
+    say(f"  examples_torch/characterize_machine.py: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s, wrote {files}; "
+        + "; ".join(line.strip() for line in probe_line))
+    say(f"  phase 3i: {time.perf_counter() - t_phase:.1f} s")
+    return {"load_sum": launched["load_sum"]}
+
+
 #: the kernel route against the plain route, at full width.  The routes
 #: round at different places by design (the kernels keep the SSD's CB*L,
 #: decays and carried state and the attention probabilities in float32, the
@@ -2155,6 +2313,173 @@ def phase_serve_path(quick: bool) -> dict[str, int]:
     del params, ck, lk, lp
     torch.cuda.empty_cache()
     return counts
+
+
+def dense_layerwise_routes(model, params, tokens) -> float:
+    """Both attention routes from the same input at every layer, following
+    the plain route's activations: the worst relative RMS difference of the
+    attention outputs."""
+    cfg = model.cfg
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=DEV)
+    inv_freq = attention.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
+                                    cfg.rope_theta, device=DEV)
+    worst = 0.0
+    x = embed_tokens(params["embed"], tokens)
+    for layer in range(cfg.n_layers):
+        p = layer_params(params["blocks"], layer)
+        q, k, v = attention.gqa_project_qkv(
+            cfg, p["attn"], apply_norm(cfg, p["ln1"], x), pos, inv_freq)
+        o = attention.chunked_attention(q, k, v, causal=True, kv_block=S)
+        worst = max(worst, _rms_rel(fa_ops.flash(q, k, v, causal=True), o))
+        x = x + attention.out_proj(o, p["attn"]["wo"]).to(x.dtype)
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    return worst
+
+
+def _prefill_routes(model, params, tokens, label: str) -> tuple:
+    """The prefill's logits on the kernel route against the plain route's
+    (relative RMS within SERVE_LOGITS_RMS_TOL, finite); returns the kernel
+    route's cache and logits."""
+    V = model.cfg.vocab_size
+    lk, ck = model.prefill(params, tokens, None,
+                           replace(BASELINE, use_pallas=True))
+    lp, _ = model.prefill(params, tokens, None, BASELINE)
+    sync()
+    lk, lp = lk[:, :V], lp[:, :V]
+    rms = _rms_rel(lk, lp)
+    agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    say(f"  {label}: prefill logits, kernel route vs plain route "
+        f"({model.cfg.n_layers} layers): relative RMS {rms:.4e} (tolerance "
+        f"{SERVE_LOGITS_RMS_TOL}), max abs {float((lk - lp).abs().max()):.3e}"
+        f" of largest {float(lp.abs().max()):.3e}; first greedy token equal "
+        f"in {agree} of {lk.shape[0]} rows")
+    if not rms <= SERVE_LOGITS_RMS_TOL or not bool(lk.isfinite().all()):
+        raise AssertionError(f"{label}: prefill routes disagree: relative "
+                             f"RMS {rms} > {SERVE_LOGITS_RMS_TOL}")
+    return ck, lk
+
+
+def phase_dense_serve_path(quick: bool) -> dict[str, int]:
+    """3d, the dense / vlm families: ``serve`` on granite-3-2b at full width
+    (one flash launch a layer in its prefill, no SSD, no membench), then in
+    process the routes layer by layer and whole, warm prefill and decode
+    times; then the other four configs at full width, DENSE_DEPTH layers,
+    through ``serve.run``.  Returns flash launches by config."""
+    say("== phase 3d (dense / vlm): python -m repro_torch.launch.serve "
+        + " ".join(DENSE_ARGV) + (" --reduced" if quick else ""))
+    t_phase = time.perf_counter()
+    launches: dict[str, int] = {}
+    cfg = get_arch(DENSE_SERVE)
+    if quick:
+        cfg = reduced(cfg)
+    model = build(cfg)
+    for mod in (mb, fa, sk):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(DENSE_ARGV + (["--reduced"] if quick else []))
+    sync()
+    lines = buf.getvalue().strip().splitlines()
+    counts = {**fa.launch_counts, **sk.launch_counts}
+    say(f"  serve: exit {rc}, {time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        say("  | " + line)
+    say(f"  launches on the serving path: {counts}; membench "
+        f"{sum(mb.launch_counts.values())}")
+    if rc != 0 or len(lines) != 4:
+        raise AssertionError(f"serve exited {rc} with {len(lines)} lines")
+    want = {"flash_attn": cfg.n_layers, "ssd_scan": 0}
+    if counts != want or any(mb.launch_counts.values()):
+        raise AssertionError(f"serve launched {counts} and membench "
+                             f"{mb.launch_counts}, expected {want} and none")
+    launches[DENSE_SERVE] = counts["flash_attn"]
+
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=DEV).manual_seed(0))
+    tokens = make_batch(cfg, (SERVE_B, SERVE_P), torch.Generator(
+        device=DEV).manual_seed(1))["tokens"]
+    V = cfg.vocab_size
+    kern = replace(BASELINE, use_pallas=True)
+    with torch.inference_mode():
+        worst = dense_layerwise_routes(model, params, tokens)
+        say(f"  every layer's attention fed the same input, kernel route vs "
+            f"plain route, worst relative RMS {worst:.4e} (tolerance "
+            f"{LAYER_TOL})")
+        if not worst <= LAYER_TOL:
+            raise AssertionError(f"a layer's attention routes disagree: "
+                                 f"{worst}")
+        ck, lk = _prefill_routes(model, params, tokens, DENSE_SERVE)
+        for name, variant in (("kernel route", kern),
+                              ("plain route", BASELINE)):
+            run = lambda v=variant: model.prefill(params, tokens, None, v)  # noqa: E731
+            wall, _ = wall_ms(run)
+            busy, _ = device_busy_ms(run)
+            say(f"  warm prefill, {name}: {wall:.1f} ms wall, device busy "
+                f"{'not measured' if busy is None else f'{busy:.1f} ms'}")
+        for key in ("k", "v"):
+            ck[key] = torch.nn.functional.pad(ck[key], (0, 0, 0, 0, 0, 3))
+        tok = lk.argmax(-1)[:, None]
+        for i in range(3):
+            step = lambda: model.decode_step(params, ck, tok, SERVE_P + i)  # noqa: E731
+            if i < 2:
+                wall, (logits, _) = wall_ms(step)
+            else:
+                busy, (logits, _) = device_busy_ms(step)
+            if not bool(logits.isfinite().all()):
+                raise AssertionError(f"decode step {i}: non-finite logits")
+            tok = logits[:, :, :V].argmax(-1)
+    say(f"  decode steps from the kernel route's cache: finite logits; one "
+        f"step {wall:.1f} ms wall, device busy "
+        f"{'not measured' if busy is None else f'{busy:.1f} ms'}")
+    del params, ck, lk
+    torch.cuda.empty_cache()
+
+    for arch in DENSE_CUT:
+        cfg = replace(get_arch(arch), n_layers=DENSE_DEPTH)
+        if quick:
+            cfg = reduced(cfg)
+        for mod in (mb, fa, sk):
+            mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            r = serve.run(cfg, batch=SERVE_B, prompt_len=SERVE_P, gen=4,
+                          seed=0, device=DEV)
+        sync()
+        counts = {**fa.launch_counts, **sk.launch_counts}
+        if counts != {"flash_attn": cfg.n_layers, "ssd_scan": 0} \
+                or any(mb.launch_counts.values()) \
+                or [len(t) for t in r["tokens"]] != [4] * SERVE_B \
+                or not all(0 <= t < cfg.vocab_size for row in r["tokens"]
+                           for t in row):
+            raise AssertionError(f"{arch}: serve.run launched {counts}, "
+                                 f"membench {mb.launch_counts}, tokens "
+                                 f"{r['tokens']}")
+        launches[arch] = counts["flash_attn"]
+        say(f"  {arch} (full width, {cfg.n_layers} layers, flash "
+            f"{dense_flash_shape(arch)}): serve.run exit ok in "
+            f"{time.perf_counter() - t0:.1f} s, launches {counts}, prefill "
+            f"{r['prefill_s'] * 1e3:.1f} ms (cold), decode "
+            f"{r['decode_s'] / r['decode_steps'] * 1e3:.1f} ms a step")
+        model = build(cfg)
+        params = init_params(model.param_specs(),
+                             torch.Generator(device=DEV).manual_seed(0))
+        tokens = make_batch(cfg, (SERVE_B, SERVE_P), torch.Generator(
+            device=DEV).manual_seed(1))["tokens"]
+        with torch.inference_mode():
+            worst = dense_layerwise_routes(model, params, tokens)
+            if not worst <= LAYER_TOL:
+                raise AssertionError(f"{arch}: a layer's attention routes "
+                                     f"disagree: {worst}")
+            _prefill_routes(model, params, tokens,
+                            f"{arch} (layers' attention within "
+                            f"{worst:.4e})")
+        del params, model, r
+        torch.cuda.empty_cache()
+    say(f"  phase 3d (dense / vlm): {time.perf_counter() - t_phase:.1f} s; "
+        f"flash launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2851,8 +3176,8 @@ def chase_entry(nbytes: int, launches: int) -> dict:
     return e
 
 
-def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
-                         ) -> list[dict]:
+def model_kernel_entries(counts: dict[str, int], errs: dict,
+                         dense_launches: dict[str, int]) -> list[dict]:
     """The ``kernels`` entries of flash_attn and ssd_scan at the serving
     shapes: kernel ms (CUDA events, back to back) and device ms (the calls
     enqueued behind a device-side sleep), plain ms, the library call's ms
@@ -2888,6 +3213,28 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
         "library_ms": library_ms, **dev, "flops": nf, "bytes": nb,
         "shape": list(FLASH_SERVE), "dtype": "bfloat16", "causal": True,
     })
+    del q, k, v, qt, kt, vt
+    # the dense path's shape (granite-3-2b, GQA group 4, head dim 64)
+    shape = dense_flash_shape(DENSE_SERVE)
+    q, k, v = flash_inputs(*shape, torch.bfloat16, seed=sum(shape))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    nb = 2 * (q.numel() + k.numel() + v.numel()) + 2 * q.numel()
+    nf = fa_ops.flops(q, k, True)
+    ms, host_ms = time_both_ms(lambda: fa.flash_attention(q, k, v), 20)
+    entries[0]["dense"] = {
+        "arch": DENSE_SERVE, "shape": list(shape), "dtype": "bfloat16",
+        "causal": True, "launches": dense_launches,
+        "max_abs_err": errs["flash_attn_dense"][DENSE_SERVE],
+        "max_abs_err_by_arch": errs["flash_attn_dense"], "ms": ms,
+        "host_ms": host_ms,
+        "device_ms": device_ms(lambda: fa.flash_attention(q, k, v), 20),
+        "plain_ms": time_ms(lambda: fa.plain_flash(q, k, v), 5),
+        **bound_fields(bytes_bound(nb, nb),
+                       nf / PEAK_FLOPS["bfloat16_tensor"]),
+        "library_ms": time_ms(sdpa, 20),
+        "library_device_ms": device_ms(sdpa, 20), "flops": nf, "bytes": nb}
     del q, k, v, qt, kt, vt
     xdt, dA, Bv, Cv = serve_ssd_inputs()
     chunk = SSD_SERVE[-1]
@@ -2925,6 +3272,13 @@ def model_kernel_entries(counts: dict[str, int], errs: dict[str, float]
             + (f"  device {e['device_ms']:.4f}" if "device_ms" in e else "")
             + (f" vs library {e['library_device_ms']:.4f}"
                if "library_device_ms" in e else ""))
+    d = entries[0]["dense"]
+    say(f"  flash_attn bfloat16 {d['shape']} ({d['arch']})  ms "
+        f"{d['ms']:.4f}  (host {d['host_ms']:.4f})  {bound_note(d)} "
+        f"({d['flops'] / 1e9:.2f} GFLOP, {d['bytes'] / 1e6:.2f} MB)  plain "
+        f"{d['plain_ms']:.4f}  library {d['library_ms']:.4f}  device "
+        f"{d['device_ms']:.4f} vs library {d['library_device_ms']:.4f}; "
+        f"launches on the dense path {d['launches']}")
     return entries
 
 
@@ -2950,15 +3304,19 @@ def main(argv=None) -> int:
     counts["rw"] = phase_rw_path(args.quick)["rw"]
     counts["chase"] = phase_latency_path(args.quick)["chase"]
     counts.update(phase_serve_path(args.quick))
+    dense = phase_dense_serve_path(args.quick)
     characterized = phase_characterize_path(args.quick)
     audited = phase_audit_path(args.quick)
     phase_mesh_path(args.quick)
     figures = phase_figures_path(args.quick)
+    probed = phase_collectives_path(args.quick)
     phase_real(args.quick)
     phase_real_rw_chase(args.quick)
     line = phase_kernels_line(counts, args.quick)
-    line["kernels"] += model_kernel_entries(counts, errs)
+    line["kernels"] += model_kernel_entries(counts, errs, dense)
     for e in line["kernels"]:
+        if e["name"] == "load_sum":
+            e["launches_probe"] = probed["load_sum"]
         if e["name"] in ("load_sum", "fma", "copy"):
             e["launches_characterize"] = characterized[e["name"]]
         if e["name"] in ("load_sum", "copy", "rw", "chase"):

@@ -7,7 +7,9 @@ this package).  Shapes (the assigned input-shape set) are global and shared by a
 LM-family archs.  ``REDUCED`` variants are derived mechanically for CPU smoke tests.
 The dataclasses, ``reduced`` and ``param_count`` are the reference's, field for
 field; the registry holds only the architectures whose model family the port
-runs (``zamba2-2.7b``; the other families wait, ROADMAP Queue A 5).
+runs (hybrid ``zamba2-2.7b``; dense and vlm ``granite-3-2b``,
+``stablelm-3b``, ``internlm2-20b``, ``phi3-medium-14b``, ``chameleon-34b``;
+the other families wait, ROADMAP Queue A 4-6).
 """
 from __future__ import annotations
 
@@ -179,7 +181,8 @@ def list_archs() -> list[str]:
 
 #: one module per registered architecture (the reference registers ten; the
 #: port those whose family it builds)
-_ARCH_MODULES = ["zamba2_2p7b"]
+_ARCH_MODULES = ["zamba2_2p7b", "granite_3_2b", "stablelm_3b",
+                 "internlm2_20b", "phi3_medium_14b", "chameleon_34b"]
 
 _loaded = False
 

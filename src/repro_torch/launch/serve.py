@@ -1,20 +1,20 @@
 """Serving launcher: batched prefill + greedy decode with the KV cache
 (counterpart of ``repro.launch.serve``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --batch 4 --prompt-len 512 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --reduced --device cpu --batch 2 --prompt-len 32 --gen 4
 
 The batch of prompts is prefilled in ONE full-sequence pass with
-``Variant.use_pallas`` set, so the site attention runs on the hand-written
-flash-attention kernel and every Mamba layer's SSD on the hand-written SSD
-kernel; the first token comes from the prefill's logits, and the other
-``gen - 1`` are decoded greedily from the cache (decode is plain PyTorch, as
-the reference computes it outside any Pallas kernel).  Weights and prompts
-are random, drawn from ``--seed`` on the device.  The device defaults to
-``cuda`` and raises without one; ``--device cpu`` runs the kernels' plain
-versions on the CPU.
+``Variant.use_pallas`` set, so every attention layer (the hybrid's shared
+sites) runs on the hand-written flash-attention kernel and every Mamba
+layer's SSD on the hand-written SSD kernel; the first token comes from the
+prefill's logits, and the other ``gen - 1`` are decoded greedily from the
+cache (decode is plain PyTorch, as the reference computes it outside any
+Pallas kernel).  Weights and prompts are random, drawn from ``--seed`` on
+the device.  The device defaults to ``cuda`` and raises without one;
+``--device cpu`` runs the kernels' plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -28,11 +28,14 @@ FLASH_BLOCK = 256
 
 
 def check_prompt_len(cfg, prompt_len: int) -> None:
-    """Raise unless the prompt length suits both kernels' block rules: the
-    flash wrapper's ``Sq % min(256, Sq) == 0`` and the SSD's ``S %
-    min(chunk, S) == 0`` (so P <= 256 or P % 256 == 0 at chunk 256)."""
-    for what, block in (("flash-attention block", FLASH_BLOCK),
-                        ("SSD chunk", cfg.ssm.chunk_size)):
+    """Raise unless the prompt length suits the prefill kernels' block
+    rules: the flash wrapper's ``Sq % min(256, Sq) == 0`` and, where the
+    model has SSM layers, the SSD's ``S % min(chunk, S) == 0`` (so P <= 256
+    or P % 256 == 0 at chunk 256)."""
+    blocks = [("flash-attention block", FLASH_BLOCK)]
+    if cfg.ssm is not None:
+        blocks.append(("SSD chunk", cfg.ssm.chunk_size))
+    for what, block in blocks:
         if prompt_len < 1 or prompt_len % min(block, prompt_len):
             raise ValueError(
                 f"--prompt-len {prompt_len} is not a multiple of the "

@@ -48,6 +48,22 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_index(tree, *idx):
+    """The slice ``[idx]`` of every leaf of a stacked nested dict (one
+    layer's parameters or cache of an ``(L, ...)`` stack)."""
+    if isinstance(tree, dict):
+        return {k: tree_index(v, *idx) for k, v in tree.items()}
+    return tree[idx]
+
+
+def tree_stack(trees: list):
+    """Stack a list of equally shaped nested dicts leaf by leaf (the
+    reference's scan outputs)."""
+    if isinstance(trees[0], dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def _fan_in(shape: tuple[int, ...]) -> int:
     # convention: last dim is the output dim for 2D+; fan-in is the product of the
     # remaining non-layer dims.  For stacked (L, ..., out) weights the leading

@@ -25,26 +25,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_mlp, apply_norm, cast_compute,
                                        embed_specs, embed_tokens, lm_logits,
                                        mlp_specs, norm_specs, rms_norm,
-                                       stack_specs)
+                                       stack_specs, tree_index, tree_stack)
 from repro_torch.models.ssm import (_project, ssd_chunked, ssd_kernel_route,
                                     ssm_cache_shapes, ssm_decode, ssm_dims,
                                     ssm_specs)
 from repro_torch.models.variant import BASELINE, Variant
-
-
-def _index(tree, *idx):
-    """The slice ``[idx]`` of every leaf of a stacked nested dict."""
-    if isinstance(tree, dict):
-        return {k: _index(v, *idx) for k, v in tree.items()}
-    return tree[idx]
-
-
-def _stack(trees: list):
-    """Stack a list of equally shaped nested dicts leaf by leaf (the
-    reference's scan outputs)."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 class HybridLM:
@@ -125,7 +110,7 @@ class HybridLM:
         shared = params["shared"]
         caches = []
         for site in range(self.n_sites):
-            h = apply_norm(cfg, _index(params["site_norms"], site), x)
+            h = apply_norm(cfg, tree_index(params["site_norms"], site), x)
             h1 = apply_norm(cfg, shared["ln1"], h)
             q, k, v = attn.gqa_project_qkv(cfg, shared["attn"], h1, positions,
                                            inv_freq)
@@ -140,12 +125,12 @@ class HybridLM:
             layer_caches = []
             for layer in range(cfg.attn_every):
                 x, entry = self._mamba_prefill(
-                    _index(params["mamba"], site, layer), x, variant)
+                    tree_index(params["mamba"], site, layer), x, variant)
                 layer_caches.append(entry)
-            caches.append({"ssm": _stack(layer_caches),
+            caches.append({"ssm": tree_stack(layer_caches),
                            "k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)})
         x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
-        return lm_logits(cfg, params["embed"], x)[:, 0], _stack(caches)
+        return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
                     variant: Variant = BASELINE):
@@ -157,7 +142,7 @@ class HybridLM:
         x = embed_tokens(params["embed"], tokens)
         shared = params["shared"]
         for site in range(self.n_sites):
-            h = apply_norm(cfg, _index(params["site_norms"], site), x)
+            h = apply_norm(cfg, tree_index(params["site_norms"], site), x)
             h1 = apply_norm(cfg, shared["ln1"], h)
             a, _, _ = attn.gqa_decode(cfg, shared["attn"], h1, cache["k"][site],
                                       cache["v"][site], pos)
@@ -165,10 +150,10 @@ class HybridLM:
             h2 = apply_norm(cfg, shared["ln2"], h)
             x = x + h + apply_mlp(cfg, shared["mlp"], h2)
             for layer in range(cfg.attn_every):
-                p = _index(params["mamba"], site, layer)
+                p = tree_index(params["mamba"], site, layer)
                 h = apply_norm(cfg, p["ln"], x)
                 y, new = ssm_decode(cfg, p["ssm"], h,
-                                    _index(cache["ssm"], site, layer))
+                                    tree_index(cache["ssm"], site, layer))
                 for name, t in new.items():
                     cache["ssm"][name][site, layer] = t
                 x = x + y

@@ -3,8 +3,9 @@
 ``build(cfg)`` returns a model object exposing ``param_specs()``,
 ``prefill(params, tokens, ctx, variant)`` and ``decode_step(params, cache,
 tokens, pos, ctx, variant)``.  The port builds the hybrid family
-(``zamba2-2.7b``); every other family raises until it is ported (ROADMAP
-Queue A 5).  ``make_batch`` and ``init_cache`` make concrete tensors on an
+(``zamba2-2.7b``) and the dense and vlm families (``DecoderLM``); the
+ssm, moe and encdec families raise until they are ported (ROADMAP Queue A
+4-6).  ``make_batch`` and ``init_cache`` make concrete tensors on an
 explicit device.
 """
 from __future__ import annotations
@@ -13,15 +14,22 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.transformer import DecoderLM
+
+#: the families still to port, and where ROADMAP Queue A has them
+NOT_PORTED = {"ssm": "Queue A 4", "moe": "Queue A 5", "encdec": "Queue A 6"}
 
 
 def build(cfg: ArchConfig):
+    if cfg.family in ("dense", "vlm"):
+        return DecoderLM(cfg)
     if cfg.family == "hybrid":
         return HybridLM(cfg)
-    if cfg.family in ("dense", "vlm", "moe", "ssm", "encdec"):
+    if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} model family is not ported yet "
-            f"(ROADMAP Queue A 5); the port builds the hybrid family")
+            f"(ROADMAP {NOT_PORTED[cfg.family]}); the port builds the "
+            f"dense, vlm and hybrid families")
     raise ValueError(cfg.family)
 
 
@@ -36,11 +44,14 @@ def make_batch(cfg: ArchConfig, shape, generator: torch.Generator) -> dict:
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
-    """The reference's ``cache_abstract`` (hybrid branch) as concrete
-    (shape, dtype) pairs: SSM caches stacked (sites, group, ...), KV caches
-    (sites, ...)."""
+    """The reference's ``cache_abstract`` as concrete (shape, dtype) pairs:
+    for the hybrid, SSM caches stacked (sites, group, ...) and KV caches
+    (sites, ...); for the others, every entry stacked (n_layers, ...)."""
     model = build(cfg)
     shapes = model.cache_shapes(batch, seq_len)
+    if cfg.family != "hybrid":
+        return {k: ((cfg.n_layers,) + shp, dt)
+                for k, (shp, dt) in shapes.items()}
     n_sites, group = model.n_sites, cfg.attn_every
     out: dict = {"ssm": {k: ((n_sites, group) + shp, dt)
                          for k, (shp, dt) in shapes["ssm"].items()}}

@@ -261,13 +261,14 @@ def test_run_bench_and_table1_match_the_reference(monkeypatch, capsys,
 
 def test_run_keeps_the_reference_entries():
     """The entries the reference's ``run.py`` asks ``want`` about, in its
-    order; the two whose modules are not ported are named."""
+    order; the one whose modules are not ported is named (``collectives``
+    runs: ``tests/test_torch_collectives.py``)."""
     ref = re.findall(r'want\("(\w+)"\)', inspect.getsource(ref_run))
     assert sorted(run.ENTRIES) == sorted(ref)
-    assert set(run.NOT_PORTED) == {"collectives", "roofline"}
+    assert set(run.NOT_PORTED) == {"roofline"}
 
 
-@pytest.mark.parametrize("entry", ["collectives", "roofline"])
+@pytest.mark.parametrize("entry", ["roofline"])
 def test_run_entries_not_ported_exit_nonzero(capsys, entry):
     assert run.main(["--only", entry, "--device", "cpu"]) == 1
     assert "not ported yet" in capsys.readouterr().out

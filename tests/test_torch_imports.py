@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, no figure
-script of ``benchmarks_torch/``, no script of ``scripts_torch/`` and not
-``chip_smoke.py`` imports ``jax``, the JAX reference package ``repro`` or
-the reference's ``benchmarks``."""
+script of ``benchmarks_torch/``, no script of ``scripts_torch/`` or
+``examples_torch/`` and not ``chip_smoke.py`` imports ``jax``, the JAX
+reference package ``repro`` or the reference's ``benchmarks``."""
 import ast
 import subprocess
 import sys
@@ -16,7 +16,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
 #: torch, numpy and the port only)
 TOOLS = sorted((ROOT / "tools").glob("*.py"))
 FIGURES = sorted((ROOT / "benchmarks_torch").glob("*.py")) \
-    + sorted((ROOT / "scripts_torch").glob("*.py"))
+    + sorted((ROOT / "scripts_torch").glob("*.py")) \
+    + sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks"}
 
 
@@ -62,7 +63,12 @@ def test_the_port_has_the_slice_modules():
                  "istream/emulate.py", "istream/analyze.py",
                  "istream/classify.py", "audit/__init__.py",
                  "audit/verify.py", "audit/ecm.py", "bench/distributed.py",
-                 "core/scaling.py", "core/device.py"):
+                 "core/scaling.py", "core/device.py",
+                 "core/collective_bench.py", "launch/mesh.py",
+                 "ft/__init__.py", "ft/stragglers.py",
+                 "models/transformer.py", "configs/granite_3_2b.py",
+                 "configs/stablelm_3b.py", "configs/internlm2_20b.py",
+                 "configs/phi3_medium_14b.py", "configs/chameleon_34b.py"):
         assert want in have, want
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     for package, sources in (
@@ -81,10 +87,12 @@ def test_the_port_has_the_figure_scripts():
     for want in ("common.py", "fig1_addressing.py", "fig2_hierarchy.py",
                  "fig3_blockshape.py", "fig4_scaling.py", "fig5_rw_ratio.py",
                  "fig6_istream.py", "fig7_loaded_latency.py",
-                 "table1_machine.py", "run.py", "launch_distributed.py"):
+                 "table1_machine.py", "run.py", "launch_distributed.py",
+                 "collective_bench_main.py", "characterize_machine.py",
+                 "serve_lm.py"):
         assert want in have, want
-        assert (ROOT / "benchmarks" / want).exists() or \
-            (ROOT / "scripts" / want).exists(), want
+        assert any((ROOT / d / want).exists()
+                   for d in ("benchmarks", "scripts", "examples")), want
 
 
 @pytest.mark.parametrize("path", FILES + TOOLS + FIGURES,
@@ -110,6 +118,8 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.core.sweep, repro_torch.core.machine_model\n"
         "import repro_torch.launch.serve, repro_torch.models.hybrid\n"
         "import repro_torch.bench.distributed, repro_torch.core.scaling\n"
+        "import repro_torch.core.collective_bench, repro_torch.launch.mesh\n"
+        "import repro_torch.ft.stragglers, repro_torch.models.transformer\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
         "from repro_torch.characterize import characterize\n"
         "m, s = characterize(('copy', 'load_sum'), primary='copy',\n"

@@ -169,7 +169,10 @@ def test_config_matches_the_reference():
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert dataclasses.asdict(reduced(t)) == dataclasses.asdict(j_reduced(j))
     assert param_count(t) == j_param_count(j) == (2_420_826_560,) * 2
-    assert list_archs() == [ARCH]
+    # the registry holds the hybrid and the dense / vlm configs
+    assert list_archs() == sorted([ARCH, "granite-3-2b", "stablelm-3b",
+                                   "internlm2-20b", "phi3-medium-14b",
+                                   "chameleon-34b"])
 
 
 @pytest.mark.parametrize("full", [False, True], ids=["reduced4", "full"])
@@ -224,12 +227,20 @@ def test_params_carried_across_bit_for_bit(setup):
 
 
 def test_registry_builds_only_the_hybrid_family():
+    """The hybrid, dense and vlm families build; moe, ssm and encdec raise,
+    each naming its queue item."""
+    from repro_torch.models.transformer import DecoderLM
     cfg = get_arch(ARCH)
     assert build(cfg).n_sites == 9
-    dense = ArchConfig(name="d", family="dense", n_layers=2, d_model=8,
-                       n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=32)
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        build(dense)
+    small = dict(n_layers=2, d_model=8, n_heads=2, n_kv_heads=2, d_ff=16,
+                 vocab_size=32)
+    for family in ("dense", "vlm"):
+        assert isinstance(build(ArchConfig(name="d", family=family,
+                                           **small)), DecoderLM)
+    for family, item in (("moe", "Queue A 5"), ("ssm", "Queue A 4"),
+                         ("encdec", "Queue A 6")):
+        with pytest.raises(NotImplementedError, match=item):
+            build(ArchConfig(name="d", family=family, **small))
 
 
 def test_init_cache_matches_the_reference():

@@ -40,10 +40,21 @@ by default), any failure raises and the script exits non-zero:
            spawns;
   fig4     ``python -m benchmarks_torch.fig4_scaling --quick`` (the sharded
            ladder 1, 2, 4, ...) and ``--quick --distributed --processes 2
-           --devices-per-process N/2``: every row printed, the speedups read.
+           --devices-per-process N/2``: every row printed, the speedups read;
+  collectives
+           the collective study (``core.collective_bench``) on meshes 1 x N
+           and 2 x N/2 of processes, one a device, at the reference's 8 MiB
+           and 256 MiB: every op's first output within n ulps of
+           ``plain_output``, then its time, algorithm and ring-model link
+           GB/s; on CUDA the NCCL transport its channels take, from
+           ``NCCL_DEBUG=INFO``;
+  stragglers
+           ``ft.stragglers.probe_devices`` over the pool at 4 MiB and 1 GiB:
+           one ``acc.cu`` load_sum launch a device a rep on CUDA.
 
-The one kernel of the port that runs is ``chase.cu``, the chase probe of a
-CUDA shard (checked: no other launch).  On the CPU the sizes shrink to 1 MiB
+The kernels of the port that run are ``chase.cu``, the chase probe of a
+CUDA shard, and ``acc.cu``'s load_sum, the straggler probe (checked: no
+other launch).  On the CPU the sizes shrink to 1 MiB
 (256 KiB for the chase) and no number is a device's.  Prints each card's
 name and power limit and, last, one JSON line of the figures.  Imports
 nothing of JAX.
@@ -385,7 +396,135 @@ def check_fig4(dev, n, src, log) -> dict:
     return out
 
 
-STEPS = ("enqueue", "sharded", "scaling", "launch", "fig4")
+def collective_worker(shape, sizes, device: str) -> int:
+    """One rank of the ``collectives`` step: at each global size, every op
+    on every axis of two or more ranks, its first output held to
+    ``plain_output`` (n ulps), then ``bench_collective``'s time; rank 0
+    prints one JSON line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import distributed as dist
+    from repro_torch.core import collective_bench as cb
+    from repro_torch.launch.mesh import make_mesh
+    dist.ensure_initialized(device)
+    mesh = make_mesh(shape, ("data", "model"), device=device)
+    rows = []
+    for nbytes in sizes:
+        for axis in mesh.axis_names:
+            n = mesh.shape[axis]
+            if n < 2:
+                continue
+            host = cb.global_input(n, nbytes, device="cpu")
+            for op in cb.OPS:
+                fn, arg, _ = cb.collective_case(mesh, axis, op, nbytes)
+                got = fn(arg).to("cpu", torch.float64)
+                want = cb.plain_output(op, host, mesh.coords[axis]).double()
+                ulps = float(((got - want).abs() / torch.from_numpy(
+                    np.spacing(want.abs().float().numpy())).double()).max())
+                r = cb.bench_collective(mesh, axis, op, nbytes)
+                rows.append({**r.__dict__, "global_bytes": nbytes,
+                             "max_ulps": ulps})
+    worst = max(dist._all_gather(max((r["max_ulps"] for r in rows),
+                                     default=0.0)))
+    if dist.is_primary():
+        print("COLLECTIVES " + json.dumps({"rows": rows, "max_ulps": worst}),
+              flush=True)
+    return 0
+
+
+def check_collectives(dev, n, src, log) -> dict:
+    """The collective study on meshes 1 x n and 2 x n/2 at the reference's
+    8 MiB and, on CUDA, at 256 MiB (where the links, not the calls'
+    latency, should bound it), 1 MiB on the CPU: one launch a mesh (one
+    process a device; NCCL on CUDA, with ``NCCL_DEBUG=INFO`` to name the
+    transport its channels take), every op's values within n ulps of the
+    host's, times, algorithm and ring-model link GB/s."""
+    import os
+    import re
+
+    from repro_torch.bench.distributed import launch_local
+    sizes = (8 * MiB, 256 * MiB) if dev.type == "cuda" else (1 * MiB,)
+    env = dict(os.environ, PYTHONPATH=str(src))
+    if dev.type == "cuda":
+        env.update(NCCL_DEBUG="INFO", NCCL_DEBUG_SUBSYS="INIT,P2P,SHM,NET")
+    via = re.compile(r"via (\S+)")
+    out = {}
+    for shape in ((1, n), (2, n // 2)):
+        code = (f"import sys; sys.path[:0] = [{str(src)!r}, "
+                f"{str(ROOT / 'tools')!r}]; import mesh_check; "
+                f"sys.exit(mesh_check.collective_worker({shape!r}, "
+                f"{sizes!r}, {dev.type!r}))")
+        lines: list[str] = []
+
+        class Sink:
+            def write(self, s):
+                lines.append(s)
+
+            def flush(self):
+                pass
+        t0 = time.perf_counter()
+        rc = launch_local([sys.executable, "-c", code], processes=n,
+                          env=env, timeout=600, stream_to=Sink(),
+                          device=dev.type)
+        text = "".join(lines)
+        doc = next((json.loads(line.split("COLLECTIVES ", 1)[1])
+                    for line in text.splitlines() if "COLLECTIVES " in line),
+                   None)
+        if rc != 0 or doc is None:
+            raise AssertionError(f"collectives {shape} exited {rc}:\n"
+                                 f"{text[-6000:]}")
+        transports: dict[str, int] = {}
+        for m in via.finditer(text):
+            transports[m.group(1)] = transports.get(m.group(1), 0) + 1
+        if doc["max_ulps"] > n:
+            raise AssertionError(f"collectives {shape}: a value "
+                                 f"{doc['max_ulps']} ulps off the host's "
+                                 f"(limit {n})")
+        key = f"{shape[0]}x{shape[1]}"
+        out[key] = {"rows": doc["rows"], "max_ulps": doc["max_ulps"],
+                    "transports": transports,
+                    "wall_s": time.perf_counter() - t0}
+        log(f"  mesh {key}: values within {doc['max_ulps']:.1f} ulps of the "
+            f"host's; transports {transports or '(none logged)'}; "
+            f"{out[key]['wall_s']:.1f} s")
+        for r in doc["rows"]:
+            log(f"    {r['global_bytes'] // MiB:4d} MiB {r['op']:14s} "
+                f"{r['axis']}{r['group_size']}  {r['mean_s'] * 1e6:9.1f} us "
+                f"(σ {r['std_s'] * 1e6:.1f})  algo {r['algo_gbps']:8.2f} "
+                f"GB/s  link {r['link_gbps']:8.2f} GB/s")
+    return out
+
+
+def check_stragglers(dev, log) -> dict:
+    """``probe_devices`` over the pool: at the reference's defaults (4 MiB,
+    4 passes, 5 reps) and at 1 GiB (past the L2 on the card), one
+    ``acc.cu`` load_sum launch a device a rep (plus one to warm) on CUDA."""
+    from repro_torch.ft.stragglers import probe_devices
+    from repro_torch.kernels.membench import membench as mb
+    out = {}
+    for nbytes in ((4 * MiB, 1024 * MiB) if dev.type == "cuda"
+                   else (4 * MiB,)):
+        before = mb.launch_counts["load_sum"]
+        probes = probe_devices(nbytes=nbytes, device=dev)
+        launched = mb.launch_counts["load_sum"] - before
+        want = len(probes) * 6 if dev.type == "cuda" else 0
+        if launched != want:
+            raise AssertionError(f"probe_devices launched acc.cu load_sum "
+                                 f"{launched} times, expected {want}")
+        out[f"{nbytes // MiB}M"] = [
+            {"device": p.device, "gbps": float(p.gbps),
+             "z_score": float(p.z_score),
+             "is_straggler": bool(p.is_straggler)} for p in probes]
+        log(f"  probe_devices {nbytes // MiB} MiB: "
+            + "; ".join(f"{p.device} {p.gbps:.1f} GB/s z={p.z_score:+.2f}"
+                        + (" STRAGGLER" if p.is_straggler else "")
+                        for p in probes) + f"; acc.cu launches {launched}")
+    return out
+
+
+STEPS = ("enqueue", "sharded", "scaling", "launch", "fig4", "collectives",
+         "stragglers")
 
 
 def main(argv=None) -> int:
@@ -460,12 +599,20 @@ def main(argv=None) -> int:
     if "fig4" in steps:
         log("== fig4: benchmarks_torch.fig4_scaling --quick")
         summary["fig4"] = check_fig4(dev, n, src, log)
+    if "collectives" in steps:
+        log("== collectives: the five ops on meshes 1 x n and 2 x n/2")
+        summary["collectives"] = check_collectives(dev, n, src, log)
+    if "stragglers" in steps:
+        log("== stragglers: probe_devices over the pool")
+        summary["stragglers"] = check_stragglers(dev, log)
     launched = {k: v for mod in (mb, fa, sk)
                 for k, v in mod.launch_counts.items() if v}
-    if set(launched) - {"chase"} or (dev.type == "cpu" and launched):
+    allowed = {"chase"} | ({"load_sum"} if "stragglers" in steps else set())
+    if set(launched) - allowed or (dev.type == "cpu" and launched):
         raise AssertionError(f"kernels launched: {launched}")
     log(f"== all checks passed in {time.perf_counter() - t0:.1f} s; "
-        f"launches {launched} (the chase probe of a CUDA shard)")
+        f"launches {launched} (the chase probe of a CUDA shard, the "
+        f"straggler probe's load_sum)")
     summary = {"mesh_check": summary}
     (out_dir / f"mesh_check{suffix}.json").write_text(
         json.dumps(summary, indent=1))
