@@ -6,10 +6,11 @@ Every architecture is expressed as an ``ArchConfig`` (one file per arch in
 this package).  Shapes (the assigned input-shape set) are global and shared by all
 LM-family archs.  ``REDUCED`` variants are derived mechanically for CPU smoke tests.
 The dataclasses, ``reduced`` and ``param_count`` are the reference's, field for
-field; the registry holds only the architectures whose model family the port
-runs (hybrid ``zamba2-2.7b``; dense and vlm ``granite-3-2b``,
+field, and the registry holds the reference's ten architectures: hybrid
+``zamba2-2.7b``; ssm ``mamba2-2.7b``; dense and vlm ``granite-3-2b``,
 ``stablelm-3b``, ``internlm2-20b``, ``phi3-medium-14b``, ``chameleon-34b``;
-the other families wait, ROADMAP Queue A 4-6).
+moe ``arctic-480b`` and ``deepseek-v2-236b`` (mla); encdec
+``whisper-medium``.
 """
 from __future__ import annotations
 
@@ -179,10 +180,10 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-#: one module per registered architecture (the reference registers ten; the
-#: port those whose family it builds)
-_ARCH_MODULES = ["zamba2_2p7b", "granite_3_2b", "stablelm_3b",
-                 "internlm2_20b", "phi3_medium_14b", "chameleon_34b"]
+#: one module per registered architecture, the reference's ten
+_ARCH_MODULES = ["zamba2_2p7b", "mamba2_2p7b", "granite_3_2b", "stablelm_3b",
+                 "internlm2_20b", "phi3_medium_14b", "chameleon_34b",
+                 "arctic_480b", "deepseek_v2_236b", "whisper_medium"]
 
 _loaded = False
 

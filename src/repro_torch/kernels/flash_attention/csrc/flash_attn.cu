@@ -5,9 +5,13 @@
 // (the Pallas kernel behind flash_attention(), grid (B*KV, q_blocks,
 // kv_blocks) with (m, l, acc) in VMEM scratch across the sequential kv axis).
 //
-// Layout: q (B, Sq, H, D), k/v (B, Sk, KV, D), o (B, Sq, H, D), contiguous,
-// float32 or bfloat16; math in float32, o rounded to the input type.  H = G*KV:
-// query head h = kv*G + g reads kv head kv.
+// Layout: q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, DV), o (B, Sq, H,
+// DV), contiguous, float32 or bfloat16; math in float32, o rounded to the
+// input type.  H = G*KV: query head h = kv*G + g reads kv head kv.  Both
+// routes are templates over (D, DV), as _attn_kernel takes value heads of
+// their own width: DV == D for the GQA models, (192, 128) for MLA's expanded
+// prefill (q and k: 128 nope + 64 rope dims, v 128).  Where DV != D, K and V
+// are staged with their own row widths and the output has DV columns.
 //
 // Two routes, chosen by dtype:
 //
@@ -79,15 +83,17 @@ constexpr float kMasked = -1e30f;
 // float32: the exact route
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
           int KV, int causal, float scale) {
-  static_assert(D % kLanes == 0, "head dim must be a multiple of 4");
-  constexpr int DL = D / kLanes;           // head dims per thread
+  static_assert(D % kLanes == 0 && DV % kLanes == 0,
+                "head dims must be multiples of 4");
+  constexpr int DL = D / kLanes;           // q / k head dims per thread
+  constexpr int DVL = DV / kLanes;         // v / o head dims per thread
   __shared__ float ks[kKeys][D];
-  __shared__ float vs[kKeys][D];
+  __shared__ float vs[kKeys][DV];
 
   const int G = H / KV;
   const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
@@ -103,27 +109,39 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   // causal skip: key tiles that start after the CTA's last row are not run
   const int k_end = causal ? (Sk < s_last + 1 ? Sk : s_last + 1) : Sk;
 
-  const long long q_off = (((long long)b * Sq + s) * H + kvh * G + g) * D;
-  float qr[DL], acc[DL];
+  // this row's (position, head): q at head * D, o at head * DV
+  const long long head = ((long long)b * Sq + s) * H + kvh * G + g;
+  const long long q_off = head * D;
+  float qr[DL], acc[DVL];
 #pragma unroll
-  for (int i = 0; i < DL; ++i) {
-    qr[i] = active ? q[q_off + i * kLanes + lane] : 0.f;
-    acc[i] = 0.f;
-  }
+  for (int i = 0; i < DL; ++i) qr[i] = active ? q[q_off + i * kLanes + lane] : 0.f;
+#pragma unroll
+  for (int i = 0; i < DVL; ++i) acc[i] = 0.f;
   float m = kMasked, l = 0.f;
 
   for (int j0 = 0; j0 < k_end; j0 += kKeys) {
     __syncthreads();                       // the previous tile is consumed
-    for (int e = threadIdx.x; e < kKeys * D; e += kThreads) {
-      const int j = e / D, d = e % D, jj = j0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (jj < Sk) {
-        const long long off = (((long long)b * Sk + jj) * KV + kvh) * D + d;
-        kv = k[off];
-        vv = v[off];
+    if constexpr (D == DV) {
+      for (int e = threadIdx.x; e < kKeys * D; e += kThreads) {
+        const int j = e / D, d = e % D, jj = j0 + j;
+        float kv = 0.f, vv = 0.f;
+        if (jj < Sk) {
+          const long long off = (((long long)b * Sk + jj) * KV + kvh) * D + d;
+          kv = k[off];
+          vv = v[off];
+        }
+        ks[j][d] = kv;
+        vs[j][d] = vv;
       }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
+    } else {
+      for (int e = threadIdx.x; e < kKeys * D; e += kThreads) {
+        const int j = e / D, d = e % D, jj = j0 + j;
+        ks[j][d] = jj < Sk ? k[(((long long)b * Sk + jj) * KV + kvh) * D + d] : 0.f;
+      }
+      for (int e = threadIdx.x; e < kKeys * DV; e += kThreads) {
+        const int j = e / DV, d = e % DV, jj = j0 + j;
+        vs[j][d] = jj < Sk ? v[(((long long)b * Sk + jj) * KV + kvh) * DV + d] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -151,11 +169,11 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     }
     l = l * corr + psum;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) acc[i] *= corr;
+    for (int i = 0; i < DVL; ++i) acc[i] *= corr;
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
 #pragma unroll
-      for (int i = 0; i < DL; ++i)
+      for (int i = 0; i < DVL; ++i)
         acc[i] = fmaf(sc[j], vs[j][i * kLanes + lane], acc[i]);
     }
     m = m_new;
@@ -164,8 +182,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   if (active) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DL; ++i)
-      o[q_off + i * kLanes + lane] = acc[i] / den;
+    for (int i = 0; i < DVL; ++i)
+      o[head * DV + i * kLanes + lane] = acc[i] / den;
   }
 }
 
@@ -183,28 +201,35 @@ constexpr int kTcKeys = 64;                // keys per tile
 constexpr int kTcStages = 2;               // slots of (K, V) in the ring
 constexpr float kLog2e = 1.4426950408889634f;
 
-// shared memory: Q, then kTcStages slots of (K, V); rows padded to D + 8
-template <int D> struct TcSmem {
-  static constexpr int kStride = D + 8;
-  static constexpr int kTile = kTcKeys * kStride;        // elements
-  static constexpr int kBytes =
-      (kTcRows * kStride + 2 * kTcStages * kTile) * 2;
+// shared memory: Q, then kTcStages slots of (K, V); Q and K rows padded to
+// D + 8 elements, V rows to DV + 8 (at (192, 128): 25,600 B of Q and a
+// 86,016 B ring, 111,616 B a CTA, 2 an SM)
+template <int D, int DV> struct TcSmem {
+  static constexpr int kStride = D + 8;                  // Q and K rows
+  static constexpr int kStrideV = DV + 8;                // V rows
+  static constexpr int kTile = kTcKeys * kStride;        // elements of K
+  static constexpr int kSlot = kTile + kTcKeys * kStrideV;  // K and V
+  static constexpr int kBytes = (kTcRows * kStride + kTcStages * kSlot) * 2;
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
 flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
              int Sq, int Sk, int H, int KV, int causal, float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int S = TcSmem<D>::kStride, TILE = TcSmem<D>::kTile;
-  constexpr int NC = D / 8;                // 16-byte pieces per row
+  static_assert(D % 16 == 0 && DV % 16 == 0,
+                "head dims must be multiples of 16");
+  using Smem = TcSmem<D, DV>;
+  constexpr int S = Smem::kStride, SV = Smem::kStrideV;
+  constexpr int TILE = Smem::kTile, SLOT = Smem::kSlot;
+  constexpr int NC = D / 8;                // 16-byte pieces per q / k row
+  constexpr int NCV = DV / 8;              // ... per v row
   constexpr int KD = D / 16;               // k-steps of Q K^T
-  constexpr int ND = D / 8;                // n-tiles of O
+  constexpr int ND = DV / 8;               // n-tiles of O
   extern __shared__ __align__(16) __nv_bfloat16 sm[];
   __nv_bfloat16* qs = sm;
-  __nv_bfloat16* kv0 = sm + kTcRows * S;   // slot s: K at kv0 + 2s TILE, V after
+  __nv_bfloat16* kv0 = sm + kTcRows * S;   // slot s: K at kv0 + s SLOT, V after
 
   const int G = H / KV;
   const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
@@ -231,21 +256,49 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   }
   // key and value tiles: thread t < RPI * NC copies piece t % NC of rows
   // t / NC, + RPI, + 2 RPI, ...; its offsets are worked out once, so a tile
-  // costs two cp.async and a few adds a row
+  // costs two cp.async and a few adds a row.  Where DV != D the values are
+  // copied by a second such walk over their own row width.
   constexpr int RPI = kTcThreads / NC;     // rows a pass of the CTA copies
   const int pc = threadIdx.x % NC, pr = threadIdx.x / NC;
   const size_t row_elems = (size_t)KV * D;
   const size_t g0 = ((size_t)b * Sk + pr) * row_elems + kvh * D + pc * 8;
+  constexpr int RPIV = kTcThreads / NCV;
+  const int pcv = threadIdx.x % NCV, prv = threadIdx.x / NCV;
+  const size_t row_elems_v = (size_t)KV * DV;
+  const size_t g0v = ((size_t)b * Sk + prv) * row_elems_v + kvh * DV + pcv * 8;
   auto load_kv = [&](int slot, int j0) {
-    if (pr >= RPI) return;
-    __nv_bfloat16* dst = kv0 + TILE * 2 * slot + pr * S + pc * 8;
-    size_t src = g0 + (size_t)j0 * row_elems;
-    for (int r = pr; r < kTcKeys; r += RPI) {
-      const int sz = j0 + r < Sk ? 16 : 0; // keys past Sk: zeros
-      tc::cp_async16(dst, k + (sz ? src : 0), sz);
-      tc::cp_async16(dst + TILE, v + (sz ? src : 0), sz);
-      dst += RPI * S;
-      src += RPI * row_elems;
+    if constexpr (D == DV) {
+      if (pr >= RPI) return;
+      __nv_bfloat16* dst = kv0 + SLOT * slot + pr * S + pc * 8;
+      size_t src = g0 + (size_t)j0 * row_elems;
+      for (int r = pr; r < kTcKeys; r += RPI) {
+        const int sz = j0 + r < Sk ? 16 : 0;  // keys past Sk: zeros
+        tc::cp_async16(dst, k + (sz ? src : 0), sz);
+        tc::cp_async16(dst + TILE, v + (sz ? src : 0), sz);
+        dst += RPI * S;
+        src += RPI * row_elems;
+      }
+    } else {
+      if (pr < RPI) {
+        __nv_bfloat16* dst = kv0 + SLOT * slot + pr * S + pc * 8;
+        size_t src = g0 + (size_t)j0 * row_elems;
+        for (int r = pr; r < kTcKeys; r += RPI) {
+          const int sz = j0 + r < Sk ? 16 : 0;
+          tc::cp_async16(dst, k + (sz ? src : 0), sz);
+          dst += RPI * S;
+          src += RPI * row_elems;
+        }
+      }
+      if (prv < RPIV) {
+        __nv_bfloat16* dst = kv0 + SLOT * slot + TILE + prv * SV + pcv * 8;
+        size_t src = g0v + (size_t)j0 * row_elems_v;
+        for (int r = prv; r < kTcKeys; r += RPIV) {
+          const int sz = j0 + r < Sk ? 16 : 0;
+          tc::cp_async16(dst, v + (sz ? src : 0), sz);
+          dst += RPIV * SV;
+          src += RPIV * row_elems_v;
+        }
+      }
     }
   };
   // the ring: Q joins key tile 0's group; tiles 1 .. kTcStages-2 follow
@@ -275,7 +328,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     const int nxt = jt + kTcStages - 1;
     if (nxt < n_kt) load_kv(nxt % kTcStages, nxt * kTcKeys);
     tc::cp_async_commit();
-    const __nv_bfloat16* ks = kv0 + TILE * 2 * (jt % kTcStages);
+    const __nv_bfloat16* ks = kv0 + SLOT * (jt % kTcStages);
     const __nv_bfloat16* vs = ks + TILE;
     const int j0 = jt * kTcKeys;
 
@@ -352,7 +405,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t r[4];
         tc::ldmatrix_x4_trans(
-            r, vs + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * S +
+            r, vs + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * SV +
                    dp * 16 + (lane / 16) * 8);
         tc::mma_bf16(oacc[2 * dp], pa, r[0], r[1]);
         tc::mma_bf16(oacc[2 * dp + 1], pa, r[2], r[3]);
@@ -371,7 +424,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
     const int s = srow[h];
     __nv_bfloat16* dst =
-        o + ((size_t)(b * Sq + s) * H + kvh * G + t - s * G) * D + 2 * tq;
+        o + ((size_t)(b * Sq + s) * H + kvh * G + t - s * G) * DV + 2 * tq;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) =
@@ -379,7 +432,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
               int Sq, int Sk, int H, int KV, int causal, float scale,
               cudaStream_t stream) {
@@ -388,24 +441,24 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
       (long long)B * Sk >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((n_rows + kTcRows - 1) / kTcRows), (unsigned)(B * KV));
-  constexpr int smem = TcSmem<D>::kBytes;
+  constexpr int smem = TcSmem<D, DV>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_tc<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_tc<D><<<grid, kTcThreads, smem, stream>>>(
+  flash_fwd_tc<D, DV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
       Sk, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Sk, int H, int KV, int causal, float scale,
                cudaStream_t stream) {
   const long long n_rows = (long long)Sq * (H / KV);
   dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), (unsigned)(B * KV));
-  flash_fwd<D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd<D, DV><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
       causal, scale);
@@ -415,26 +468,25 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace fa
 
 // dtype: 0 float32 (the exact route), 1 bfloat16 (the tensor cores).
-// Returns cudaGetLastError() of the launch (cudaErrorInvalidValue for a head
-// dim it was not built for).
+// Returns cudaGetLastError() of the launch (cudaErrorInvalidValue for a
+// (D, Dv) pair it was not built for).
 extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
                               const void* v, void* o, int B, int Sq, int Sk,
-                              int H, int KV, int D, int causal, float scale,
-                              cudaStream_t stream) {
+                              int H, int KV, int D, int Dv, int causal,
+                              float scale, cudaStream_t stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-#define FA_CASE(DIM)                                                          \
-  case DIM:                                                                   \
-    return dtype ? fa::launch_tc<DIM>(q, k, v, o, B, Sq, Sk, H, KV, causal,   \
-                                      scale, stream)                          \
-                 : fa::launch_f32<DIM>(q, k, v, o, B, Sq, Sk, H, KV, causal,  \
-                                       scale, stream);
-  switch (D) {
-    FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(80)
-    FA_CASE(96)
-    FA_CASE(128)
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FA_CASE(DIM, DIMV)                                                    \
+  if (D == DIM && Dv == DIMV)                                                 \
+    return dtype ? fa::launch_tc<DIM, DIMV>(q, k, v, o, B, Sq, Sk, H, KV,     \
+                                            causal, scale, stream)            \
+                 : fa::launch_f32<DIM, DIMV>(q, k, v, o, B, Sq, Sk, H, KV,    \
+                                             causal, scale, stream);
+  FA_CASE(32, 32)
+  FA_CASE(64, 64)
+  FA_CASE(80, 80)
+  FA_CASE(96, 96)
+  FA_CASE(128, 128)
+  FA_CASE(192, 128)
 #undef FA_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -22,8 +22,10 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary, launch, raise_on
 
-#: head dims the CUDA kernel is built for (a template over D; Dv == D)
-HEAD_DIMS = (32, 64, 80, 96, 128)
+#: the (D, Dv) pairs the CUDA kernel is built for (a template over both):
+#: the GQA head dims with Dv == D, and MLA's expanded prefill, q and k of 128
+#: nope + 64 rope dims against v of 128
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128), (192, 128))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the kernel since the last ``reset_launch_counts``
@@ -38,10 +40,10 @@ def reset_launch_counts() -> None:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).resolve().parent / "csrc", {
-        # dtype q k v o B Sq Sk H KV D causal scale stream
+        # dtype q k v o B Sq Sk H KV D Dv causal scale stream
         "flash_attn.cu": ("flash_attn_fwd",
                           [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           ctypes.c_float, _P]),
+                           _I, ctypes.c_float, _P]),
     }, headers=("../../tensor_core.cuh",))
 
 
@@ -97,6 +99,14 @@ def _check(q, k, v, q_block: int, kv_block: int) -> None:
                          f"capped at its sequence length)")
 
 
+def check_built(D: int, Dv: int) -> None:
+    """Raise unless the CUDA kernel is built for head dims (D, Dv) (its
+    plain version takes any)."""
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attn.cu is built for the (D, Dv) pairs "
+                         f"{HEAD_DIMS}; got D={D}, Dv={Dv}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 256,
                     kv_block: int = 256) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D/Dv) -> (B, Sq, H, Dv), GQA with
@@ -109,15 +119,13 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 256,
         return plain_flash(q, k, v, causal=causal)
     B, Sq, H, D = q.shape
     _, Sk, KV, Dv = v.shape
-    if D not in HEAD_DIMS or Dv != D:
-        raise ValueError(f"flash_attn.cu is built for head dims {HEAD_DIMS} "
-                         f"with Dv == D; got D={D}, Dv={Dv}")
+    check_built(D, Dv)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     err = launch(LIBRARY.entry("flash_attn.cu"), q, _DTYPE_CODE[q.dtype],
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-                 Sq, Sk, H, KV, D, int(causal), 1.0 / (D ** 0.5))
+                 Sq, Sk, H, KV, D, Dv, int(causal), 1.0 / (D ** 0.5))
     launch_counts["flash_attn"] += 1
     raise_on(err, "flash_attn")
     return o

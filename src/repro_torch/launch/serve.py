@@ -6,15 +6,20 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --reduced --device cpu --batch 2 --prompt-len 32 --gen 4
 
-The batch of prompts is prefilled in ONE full-sequence pass with
+Every architecture of the registry serves (``--arch``: zamba2-2.7b,
+mamba2-2.7b, granite-3-2b, stablelm-3b, internlm2-20b, phi3-medium-14b,
+chameleon-34b, arctic-480b, deepseek-v2-236b, whisper-medium).  The batch
+of prompts is prefilled in ONE full-sequence pass with
 ``Variant.use_pallas`` set, so every attention layer (the hybrid's shared
-sites) runs on the hand-written flash-attention kernel and every Mamba
-layer's SSD on the hand-written SSD kernel; the first token comes from the
-prefill's logits, and the other ``gen - 1`` are decoded greedily from the
-cache (decode is plain PyTorch, as the reference computes it outside any
-Pallas kernel).  Weights and prompts are random, drawn from ``--seed`` on
-the device.  The device defaults to ``cuda`` and raises without one;
-``--device cpu`` runs the kernels' plain versions on the CPU.
+sites; whisper's encoder, self- and cross-attention; deepseek's latent
+attention, expanded) runs on the hand-written flash-attention kernel and
+every Mamba layer's SSD on the hand-written SSD kernel; the first token
+comes from the prefill's logits, and the other ``gen - 1`` are decoded
+greedily from the cache (decode is plain PyTorch, as the reference computes
+it outside any Pallas kernel).  Weights, prompts and whisper's frame
+embeddings are random, drawn from ``--seed`` on the device.  The device
+defaults to ``cuda`` and raises without one; ``--device cpu`` runs the
+kernels' plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -43,6 +48,30 @@ def check_prompt_len(cfg, prompt_len: int) -> None:
                 f"<= {block} or a multiple of it")
 
 
+def pad_cache(cfg, cache: dict, batch: int, prompt_len: int,
+              extra: int) -> dict:
+    """The prefill's cache with room for ``extra`` more tokens: every entry
+    whose shape grows with the sequence (``init_cache``'s shapes at
+    ``prompt_len`` against ``prompt_len + extra``: k/v, mla's c and k_rope)
+    is padded with zeros on that axis; the others (an SSM layer's state and
+    conv windows, encdec's xk/xv over the encoder frames) stay as they
+    are."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.registry import cache_shapes
+
+    def pad(t, now, want):
+        if isinstance(t, dict):
+            return {k: pad(t[k], now[k], want[k]) for k in t}
+        grown = [i for i, (a, b) in enumerate(zip(now[0], want[0])) if a != b]
+        if not grown:
+            return t
+        (axis,) = grown
+        return F.pad(t, (0, 0) * (t.ndim - 1 - axis) + (0, extra))
+    return pad(cache, cache_shapes(cfg, batch, prompt_len),
+               cache_shapes(cfg, batch, prompt_len + extra))
+
+
 def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int,
         device) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens through the
@@ -50,7 +79,6 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int,
     tokens (batch, gen), the prefill and decode seconds and the number of
     decode steps."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.models.common import init_params
     from repro_torch.models.registry import build, make_batch
@@ -62,8 +90,11 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int,
     model = build(cfg)
     params = init_params(model.param_specs(),
                          torch.Generator(device=device).manual_seed(seed))
-    tokens = make_batch(cfg, (batch, prompt_len), torch.Generator(
-        device=device).manual_seed(seed + 1))["tokens"]
+    inputs = make_batch(cfg, (batch, prompt_len), torch.Generator(
+        device=device).manual_seed(seed + 1))
+    # encdec's prefill takes the batch (tokens and frames), the others the
+    # tokens
+    prompt = inputs if cfg.family == "encdec" else inputs["tokens"]
     variant = replace(BASELINE, use_pallas=True)
     V = cfg.vocab_size
 
@@ -74,12 +105,11 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int,
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, tokens, None, variant)
+        logits, cache = model.prefill(params, prompt, None, variant)
         sync()
         prefill_s = time.perf_counter() - t0
         # room for the generated tokens, zeros as init_cache makes them
-        for k in ("k", "v"):
-            cache[k] = F.pad(cache[k], (0, 0, 0, 0, 0, gen))
+        cache = pad_cache(cfg, cache, batch, prompt_len, gen)
         toks = torch.argmax(logits[:, :V], dim=-1)[:, None]
         out = [toks]
         t0 = time.perf_counter()

@@ -18,17 +18,15 @@ outside any Pallas kernel.  ``ctx`` (sharding) is accepted and ignored.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_mlp, apply_norm, cast_compute,
-                                       embed_specs, embed_tokens, lm_logits,
-                                       mlp_specs, norm_specs, rms_norm,
-                                       stack_specs, tree_index, tree_stack)
-from repro_torch.models.ssm import (_project, ssd_chunked, ssd_kernel_route,
-                                    ssm_cache_shapes, ssm_decode, ssm_dims,
-                                    ssm_specs)
+from repro_torch.models.common import (apply_mlp, apply_norm, embed_specs,
+                                       embed_tokens, lm_logits, mlp_specs,
+                                       norm_specs, stack_specs, tree_index,
+                                       tree_stack)
+from repro_torch.models.ssm import (mamba_prefill, ssm_cache_shapes,
+                                    ssm_decode, ssm_specs)
 from repro_torch.models.variant import BASELINE, Variant
 
 
@@ -70,33 +68,6 @@ class HybridLM:
         kv = ((batch, seq_len, cfg.n_kv_heads, hd), torch.bfloat16)
         return {"ssm": ssm_cache_shapes(cfg, batch), "k": kv, "v": kv}
 
-    def _mamba_prefill(self, p, x, variant: Variant):
-        """One Mamba layer over the whole prompt; returns (x, its cache)."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        h = apply_norm(cfg, p["ln"], x)
-        z, xh, Bm, Cm, dt = _project(cfg, p["ssm"], h)
-        A = -torch.exp(p["ssm"]["A_log"].to(torch.float32))
-        ssd = ssd_kernel_route if variant.use_pallas else ssd_chunked
-        y, state = ssd(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size)
-        y = y + p["ssm"]["D"].to(torch.float32)[None, None, :, None] * \
-            xh.to(torch.float32)
-        d_in, H = ssm_dims(cfg)
-        y = y.reshape(B, S, d_in)
-        y = y.to(torch.float32) * F.silu(z.to(torch.float32))
-        y = rms_norm(y.to(x.dtype), p["ssm"]["gate_norm"], cfg.norm_eps)
-        out = x + (cast_compute(y) @ cast_compute(p["ssm"]["w_out"])).to(x.dtype)
-        W = cfg.ssm.conv_width
-        # conv caches: last W-1 *pre-activation* conv inputs
-        xc = cast_compute(h)[:, S - (W - 1):, :]
-        entry = {
-            "state": state,
-            "conv_x": xc @ cast_compute(p["ssm"]["w_x"]),
-            "conv_B": xc @ cast_compute(p["ssm"]["w_B"]),
-            "conv_C": xc @ cast_compute(p["ssm"]["w_C"]),
-        }
-        return out, entry
-
     def prefill(self, params, tokens, ctx=None, variant: Variant = BASELINE):
         """tokens (B, S) -> (logits of the last position (B, V_padded) f32,
         cache {"ssm": {name: (sites, group, ...)}, "k"/"v": (sites, B, S, KV,
@@ -124,8 +95,8 @@ class HybridLM:
             x = x + h + apply_mlp(cfg, shared["mlp"], h2)
             layer_caches = []
             for layer in range(cfg.attn_every):
-                x, entry = self._mamba_prefill(
-                    tree_index(params["mamba"], site, layer), x, variant)
+                x, entry = mamba_prefill(
+                    cfg, tree_index(params["mamba"], site, layer), x, variant)
                 layer_caches.append(entry)
             caches.append({"ssm": tree_stack(layer_caches),
                            "k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)})

@@ -1,46 +1,52 @@
 """Model registry (counterpart of ``repro.models.registry``).
 
 ``build(cfg)`` returns a model object exposing ``param_specs()``,
-``prefill(params, tokens, ctx, variant)`` and ``decode_step(params, cache,
-tokens, pos, ctx, variant)``.  The port builds the hybrid family
-(``zamba2-2.7b``) and the dense and vlm families (``DecoderLM``); the
-ssm, moe and encdec families raise until they are ported (ROADMAP Queue A
-4-6).  ``make_batch`` and ``init_cache`` make concrete tensors on an
-explicit device.
+``cache_shapes(batch, seq_len)``, ``prefill(params, <tokens|batch>, ctx,
+variant)`` and ``decode_step(params, cache, tokens, pos, ctx, variant)``,
+for every family the reference registers: ``DecoderLM`` (dense, vlm, moe),
+``SSMLM`` (ssm), ``HybridLM`` (hybrid) and ``EncDecLM`` (encdec, whose
+prefill takes the batch with its ``frames``).  ``make_batch`` and
+``init_cache`` make concrete tensors on an explicit device.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import DecoderLM
-
-#: the families still to port, and where ROADMAP Queue A has them
-NOT_PORTED = {"ssm": "Queue A 4", "moe": "Queue A 5", "encdec": "Queue A 6"}
 
 
 def build(cfg: ArchConfig):
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe"):
         return DecoderLM(cfg)
+    if cfg.family == "ssm":
+        return SSMLM(cfg)
     if cfg.family == "hybrid":
         return HybridLM(cfg)
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} model family is not ported yet "
-            f"(ROADMAP {NOT_PORTED[cfg.family]}); the port builds the "
-            f"dense, vlm and hybrid families")
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
     raise ValueError(cfg.family)
 
 
 def make_batch(cfg: ArchConfig, shape, generator: torch.Generator) -> dict:
-    """Concrete random batch ``{"tokens", "labels"}`` of ``shape`` = (B, S),
-    drawn from ``generator`` on its device (labels = tokens shifted by one,
-    as in the reference)."""
+    """Concrete random batch of ``shape`` = (B, S), drawn from ``generator``
+    on its device: ``tokens``, ``labels`` (tokens shifted by one, as in the
+    reference) and, for encdec, the frame embeddings ``frames`` (B,
+    n_audio_ctx, d_model), bfloat16 normal x 0.02 as the reference draws
+    them."""
     B, S = shape
+    dev = generator.device
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=generator,
-                           device=generator.device, dtype=torch.int64)
-    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+                           device=dev, dtype=torch.int64)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (B, cfg.n_audio_ctx, cfg.d_model), generator=generator,
+            device=dev).to(torch.bfloat16) * 0.02
+    return batch
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:

@@ -7,6 +7,8 @@ chunks (the reference's ``lax.scan``), with the reference's bfloat16
 roundings of the einsum operands.  The prefill's kernel route
 (``Variant.use_pallas``) goes to ``repro_torch.kernels.ssd_scan`` instead
 (``ssd_kernel_route``).  Projections are split per stream (z/x/B/C/dt).
+``mamba_prefill`` is one whole Mamba layer of a prefill, shared by the
+hybrid and the ssm-only model.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.models.common import ParamSpec, cast_compute, rms_norm
+from repro_torch.models.common import (ParamSpec, apply_norm, cast_compute,
+                                       rms_norm)
 
 
 def ssm_dims(cfg):
@@ -175,6 +178,37 @@ def ssd_kernel_route(xh, dt, A, Bm, Cm, chunk: int):
     y, st = ssd_ops.ssd(xk, dAk, per_head(Bm), per_head(Cm), chunk=chunk)
     y = y.reshape(B, H, S, P).permute(0, 2, 1, 3).to(torch.float32)
     return y, st.reshape(B, H, N, P).transpose(-1, -2)
+
+
+def mamba_prefill(cfg, p, x, variant):
+    """One Mamba layer ``{"ln", "ssm"}`` over the whole prompt, residual
+    included (the layer the reference writes out twice, in ``HybridLM`` and
+    ``SSMLM``'s prefill); the SSD through the hand-written kernel where
+    ``variant.use_pallas``, else ``ssd_chunked``.  Returns (x + the layer's
+    output, its decode cache)."""
+    B, S, _ = x.shape
+    h = apply_norm(cfg, p["ln"], x)
+    z, xh, Bm, Cm, dt = _project(cfg, p["ssm"], h)
+    A = -torch.exp(p["ssm"]["A_log"].to(torch.float32))
+    ssd = ssd_kernel_route if variant.use_pallas else ssd_chunked
+    y, state = ssd(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size)
+    y = y + p["ssm"]["D"].to(torch.float32)[None, None, :, None] * \
+        xh.to(torch.float32)
+    d_in, H = ssm_dims(cfg)
+    y = y.reshape(B, S, d_in)
+    y = y.to(torch.float32) * F.silu(z.to(torch.float32))
+    y = rms_norm(y.to(x.dtype), p["ssm"]["gate_norm"], cfg.norm_eps)
+    out = x + (cast_compute(y) @ cast_compute(p["ssm"]["w_out"])).to(x.dtype)
+    W = cfg.ssm.conv_width
+    # conv caches: last W-1 *pre-activation* conv inputs
+    xc = cast_compute(h)[:, S - (W - 1):, :]
+    entry = {
+        "state": state,
+        "conv_x": xc @ cast_compute(p["ssm"]["w_x"]),
+        "conv_B": xc @ cast_compute(p["ssm"]["w_B"]),
+        "conv_C": xc @ cast_compute(p["ssm"]["w_C"]),
+    }
+    return out, entry
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,71 @@
+"""Pure Mamba2 LM, attention-free (counterpart of ``repro.models.ssm_lm``:
+the serving half, ``prefill`` and ``decode_step``).
+
+Block parameters are stacked ``(L, ...)`` as in the reference; where the
+reference scans over the stack, the port loops over its layers.  A layer of
+the prefill is ``models.ssm.mamba_prefill``, the hybrid's Mamba layer:
+under ``Variant.use_pallas`` its SSD goes through the hand-written SSD
+kernel, one launch a layer; without it, through ``ssd_chunked``.  Decode
+stays plain PyTorch (``ssm_decode``), as the reference computes it outside
+any Pallas kernel.  ``hidden_states`` and ``loss`` are training-side
+(ROADMAP Queue A 7).  ``ctx`` (sharding) is accepted and ignored.
+"""
+from __future__ import annotations
+
+from repro_torch.models.common import (apply_norm, embed_specs, embed_tokens,
+                                       lm_logits, norm_specs, stack_specs,
+                                       tree_index, tree_stack)
+from repro_torch.models.ssm import (mamba_prefill, ssm_cache_shapes,
+                                    ssm_decode, ssm_specs)
+from repro_torch.models.variant import BASELINE, Variant
+
+
+class SSMLM:
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        block = {"ln": norm_specs(cfg, cfg.d_model), "ssm": ssm_specs(cfg)}
+        return {
+            "embed": embed_specs(cfg),
+            "blocks": stack_specs(block, cfg.n_layers),
+            "ln_f": norm_specs(cfg, cfg.d_model),
+        }
+
+    # -- serving -------------------------------------------------------------
+    def cache_shapes(self, batch: int, seq_len: int) -> dict:
+        """One Mamba layer's decode cache, name -> (shape, dtype) (stacked
+        over layers by the registry); no entry grows with the sequence."""
+        return ssm_cache_shapes(self.cfg, batch)
+
+    def prefill(self, params, tokens, ctx=None, variant: Variant = BASELINE):
+        """tokens (B, S) -> (logits of the last position (B, V_padded) f32,
+        cache {"state", "conv_x", "conv_B", "conv_C"}: (L, B, ...))."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens)
+        caches = []
+        for layer in range(cfg.n_layers):
+            x, entry = mamba_prefill(cfg, tree_index(params["blocks"], layer),
+                                     x, variant)
+            caches.append(entry)
+        x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
+        return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
+
+    def decode_step(self, params, cache, tokens, pos: int, ctx=None,
+                    variant: Variant = BASELINE):
+        """tokens (B, 1) -> (logits (B, 1, V_padded) f32, cache).  The
+        cache's tensors are updated in place (the reference returns a new
+        cache), and the same dict is returned; ``pos`` is not read (the
+        recurrence has no position)."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens)
+        for layer in range(cfg.n_layers):
+            p = tree_index(params["blocks"], layer)
+            y, new = ssm_decode(cfg, p["ssm"], apply_norm(cfg, p["ln"], x),
+                                tree_index(cache, layer))
+            for name, t in new.items():
+                cache[name][layer] = t
+            x = x + y
+        x = apply_norm(cfg, params["ln_f"], x)
+        return lm_logits(cfg, params["embed"], x), cache

@@ -1,16 +1,19 @@
-"""Decoder-only LM for the dense and vlm (early-fusion) families
+"""Decoder-only LM for the dense, vlm (early-fusion) and moe families
 (counterpart of ``repro.models.transformer``: the serving half,
 ``prefill`` and ``decode_step``).
 
 Block parameters are stacked ``(L, ...)`` as in the reference; where the
 reference scans over the stack, the port loops over its layers.  The moe
-and mla branches of the reference's ``DecoderLM`` are not ported: a config
-with ``moe`` or ``mla`` raises (ROADMAP Queue A 5).  ``hidden_states`` and
-``loss`` are training-side (Queue A 7).
+branch replaces a layer's MLP with ``models.moe.moe_layer`` (arctic,
+deepseek); the mla branch replaces its attention with DeepSeek-V2's latent
+attention (``models.mla``), whose cache is the compressed ``c`` and
+``k_rope``.  ``hidden_states`` and ``loss`` are training-side (ROADMAP
+Queue A 7).
 
 ``Variant.use_pallas`` keeps the reference's meaning: the prefill's causal
 attention goes through the hand-written flash-attention kernel, one launch
-a layer; without it, through ``chunked_attention``, the port of the
+a layer (mla: q/k of 192 dims against v of 128, the kernel's (192, 128)
+instance); without it, through ``chunked_attention``, the port of the
 reference's default path.  Decode stays plain PyTorch, as the reference
 computes it outside any Pallas kernel.  ``ctx`` (sharding) is accepted and
 ignored.
@@ -21,6 +24,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (apply_mlp, apply_norm, embed_specs,
                                        embed_tokens, lm_logits, mlp_specs,
                                        norm_specs, stack_specs, tree_index,
@@ -30,21 +35,24 @@ from repro_torch.models.variant import BASELINE, Variant
 
 class DecoderLM:
     def __init__(self, cfg):
-        if cfg.moe is not None or cfg.mla is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the moe and mla branches of DecoderLM are not "
-                f"ported yet (ROADMAP Queue A 5)")
         self.cfg = cfg
+        self.is_moe = cfg.moe is not None
+        self.is_mla = cfg.mla is not None
 
     # -- parameters ----------------------------------------------------------
     def block_specs(self) -> dict:
         cfg = self.cfg
-        return {
+        block = {
             "ln1": norm_specs(cfg, cfg.d_model),
-            "attn": attn.gqa_specs(cfg, cfg.d_model),
+            "attn": (mla_mod.mla_specs(cfg) if self.is_mla
+                     else attn.gqa_specs(cfg, cfg.d_model)),
             "ln2": norm_specs(cfg, cfg.d_model),
-            "mlp": mlp_specs(cfg, cfg.d_model, cfg.d_ff),
         }
+        if self.is_moe:
+            block["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            block["mlp"] = mlp_specs(cfg, cfg.d_model, cfg.d_ff)
+        return block
 
     def param_specs(self) -> dict:
         cfg = self.cfg
@@ -54,39 +62,63 @@ class DecoderLM:
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
 
+    def _ffn(self, p, h, variant: Variant):
+        """The layer's MLP, or its MoE (whose aux loss serving drops)."""
+        if self.is_moe:
+            return moe_mod.moe_layer(
+                None, self.cfg, p["moe"], h,
+                capacity_factor=variant.moe_capacity_factor,
+                psum_dtype=variant.psum_dtype)[0]
+        return apply_mlp(self.cfg, p["mlp"], h)
+
     # -- serving -------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:
         """Per-layer cache entries, name -> (shape, dtype) (stacked over
-        layers by the registry)."""
+        layers by the registry): k/v, or mla's compressed c and k_rope."""
         cfg = self.cfg
+        if self.is_mla:
+            m = cfg.mla
+            return {"c": ((batch, seq_len, m.kv_lora_rank), torch.bfloat16),
+                    "k_rope": ((batch, seq_len, m.rope_head_dim),
+                               torch.bfloat16)}
         kv = ((batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim),
               torch.bfloat16)
         return {"k": kv, "v": kv}
 
     def prefill(self, params, tokens, ctx=None, variant: Variant = BASELINE):
         """tokens (B, S) -> (logits of the last position (B, V_padded) f32,
-        cache {"k"/"v": (L, B, S, KV, hd) bf16})."""
+        cache {"k"/"v": (L, B, S, KV, hd)} or, mla, {"c": (L, B, S,
+        kv_lora), "k_rope": (L, B, S, rope)}, bf16)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = embed_tokens(params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
-        inv_freq = attn.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
-                                   cfg.rope_theta, device=tokens.device)
+        inv_freq = (mla_mod.mla_rope_freqs(cfg, tokens.device) if self.is_mla
+                    else attn.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
+                                         cfg.rope_theta,
+                                         device=tokens.device))
         caches = []
         for layer in range(cfg.n_layers):
             p = tree_index(params["blocks"], layer)
             h = apply_norm(cfg, p["ln1"], x)
-            q, k, v = attn.gqa_project_qkv(cfg, p["attn"], h, positions,
-                                           inv_freq)
+            if self.is_mla:
+                q, k, v, c, kr = mla_mod.mla_expand(cfg, p["attn"], h,
+                                                    positions, inv_freq)
+                entry = {"c": c.to(torch.bfloat16),
+                         "k_rope": kr.to(torch.bfloat16)}
+            else:
+                q, k, v = attn.gqa_project_qkv(cfg, p["attn"], h, positions,
+                                               inv_freq)
+                entry = {"k": k.to(torch.bfloat16),
+                         "v": v.to(torch.bfloat16)}
             if variant.use_pallas:
                 o = fa_ops.flash(q, k, v, causal=True)
             else:
                 o = attn.chunked_attention(q, k, v, causal=True,
                                            kv_block=min(variant.kv_block, S))
             x = x + attn.out_proj(o, p["attn"]["wo"]).to(x.dtype)
-            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-            caches.append({"k": k.to(torch.bfloat16),
-                           "v": v.to(torch.bfloat16)})
+            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant)
+            caches.append(entry)
         x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
         return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
 
@@ -101,9 +133,15 @@ class DecoderLM:
         for layer in range(cfg.n_layers):
             p = tree_index(params["blocks"], layer)
             h = apply_norm(cfg, p["ln1"], x)
-            a, _, _ = attn.gqa_decode(cfg, p["attn"], h, cache["k"][layer],
-                                      cache["v"][layer], pos)
+            if self.is_mla:
+                a, _, _ = mla_mod.mla_decode(cfg, p["attn"], h,
+                                             cache["c"][layer],
+                                             cache["k_rope"][layer], pos)
+            else:
+                a, _, _ = attn.gqa_decode(cfg, p["attn"], h,
+                                          cache["k"][layer],
+                                          cache["v"][layer], pos)
             x = x + a
-            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant)
         x = apply_norm(cfg, params["ln_f"], x)
         return lm_logits(cfg, params["embed"], x), cache

@@ -34,7 +34,7 @@ from repro.configs import reduced as j_reduced
 from repro.models.registry import build as j_build
 from repro.models.registry import init_cache as j_init_cache
 from repro.models.variant import BASELINE as J_BASELINE
-from repro_torch.configs import MLAConfig, MoEConfig, get_arch, list_archs
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs import param_count, reduced
 from repro_torch.convert import params_from_reference
 from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -42,7 +42,6 @@ from repro_torch.launch import serve
 from repro_torch.models.common import spec_map
 from repro_torch.models.registry import (build, cache_shapes, init_cache,
                                          make_batch)
-from repro_torch.models.transformer import DecoderLM
 from repro_torch.models.variant import BASELINE
 from test_torch_models import (CTX, MODEL_TOL, _hold_prefill, j_compile,
                                j_kernel_attention, leaves_with_paths,
@@ -103,7 +102,12 @@ def test_config_matches_the_reference(arch):
 
 
 def test_registry_lists_the_ported_archs():
-    assert list_archs() == sorted(ARCHS + ("zamba2-2.7b",))
+    """Every architecture the reference registers: the five dense / vlm
+    configs, the hybrid, and the ssm, moe and encdec ones."""
+    from repro.configs import list_archs as j_list_archs
+    assert list_archs() == j_list_archs() == sorted(
+        ARCHS + ("zamba2-2.7b", "mamba2-2.7b", "arctic-480b",
+                 "deepseek-v2-236b", "whisper-medium"))
 
 
 @pytest.mark.parametrize("full", [False, True], ids=["reduced", "full"])
@@ -134,15 +138,6 @@ def test_init_cache_and_cache_shapes_match_the_reference(case):
     shapes = {p: (shp, str(dt).removeprefix("torch.")) for p, (shp, dt) in
               leaves_with_paths(cache_shapes(cfg, B, S + G))}
     assert shapes == jc
-
-
-def test_decoder_refuses_the_moe_and_mla_branches():
-    cfg = reduced(get_arch("granite-3-2b"))
-    for extra in (dict(moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)),
-                  dict(mla=MLAConfig())):
-        with pytest.raises(NotImplementedError, match="Queue A 5"):
-            DecoderLM(replace(cfg, **extra))
-    assert isinstance(build(reduced(get_arch("chameleon-34b"))), DecoderLM)
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,11 @@ def test_the_port_has_the_slice_modules():
                  "ft/__init__.py", "ft/stragglers.py",
                  "models/transformer.py", "configs/granite_3_2b.py",
                  "configs/stablelm_3b.py", "configs/internlm2_20b.py",
-                 "configs/phi3_medium_14b.py", "configs/chameleon_34b.py"):
+                 "configs/phi3_medium_14b.py", "configs/chameleon_34b.py",
+                 "configs/mamba2_2p7b.py", "configs/whisper_medium.py",
+                 "configs/arctic_480b.py", "configs/deepseek_v2_236b.py",
+                 "models/ssm_lm.py", "models/encdec.py", "models/moe.py",
+                 "models/mla.py"):
         assert want in have, want
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     for package, sources in (
@@ -120,6 +124,7 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.bench.distributed, repro_torch.core.scaling\n"
         "import repro_torch.core.collective_bench, repro_torch.launch.mesh\n"
         "import repro_torch.ft.stragglers, repro_torch.models.transformer\n"
+        "import repro_torch.models.registry\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
         "from repro_torch.characterize import characterize\n"
         "m, s = characterize(('copy', 'load_sum'), primary='copy',\n"

@@ -169,10 +169,9 @@ def test_config_matches_the_reference():
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert dataclasses.asdict(reduced(t)) == dataclasses.asdict(j_reduced(j))
     assert param_count(t) == j_param_count(j) == (2_420_826_560,) * 2
-    # the registry holds the hybrid and the dense / vlm configs
-    assert list_archs() == sorted([ARCH, "granite-3-2b", "stablelm-3b",
-                                   "internlm2-20b", "phi3-medium-14b",
-                                   "chameleon-34b"])
+    # the registry holds every config of the reference
+    from repro.configs import list_archs as j_list_archs
+    assert list_archs() == j_list_archs()
 
 
 @pytest.mark.parametrize("full", [False, True], ids=["reduced4", "full"])
@@ -227,20 +226,27 @@ def test_params_carried_across_bit_for_bit(setup):
 
 
 def test_registry_builds_only_the_hybrid_family():
-    """The hybrid, dense and vlm families build; moe, ssm and encdec raise,
-    each naming its queue item."""
+    """Every family the reference registers builds its class: the hybrid
+    ``HybridLM``; dense, vlm and moe ``DecoderLM``; ssm ``SSMLM``; encdec
+    ``EncDecLM``; an unknown family raises."""
+    from repro_torch.configs import MoEConfig, SSMConfig
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.ssm_lm import SSMLM
     from repro_torch.models.transformer import DecoderLM
     cfg = get_arch(ARCH)
     assert build(cfg).n_sites == 9
     small = dict(n_layers=2, d_model=8, n_heads=2, n_kv_heads=2, d_ff=16,
                  vocab_size=32)
-    for family in ("dense", "vlm"):
-        assert isinstance(build(ArchConfig(name="d", family=family,
-                                           **small)), DecoderLM)
-    for family, item in (("moe", "Queue A 5"), ("ssm", "Queue A 4"),
-                         ("encdec", "Queue A 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            build(ArchConfig(name="d", family=family, **small))
+    for family, extra, cls in (
+            ("dense", {}, DecoderLM), ("vlm", {}, DecoderLM),
+            ("moe", dict(moe=MoEConfig(n_experts=4, top_k=2,
+                                       d_ff_expert=16)), DecoderLM),
+            ("ssm", dict(ssm=SSMConfig()), SSMLM),
+            ("encdec", dict(n_encoder_layers=2), EncDecLM)):
+        assert type(build(ArchConfig(name="d", family=family, **small,
+                                     **extra))) is cls
+    with pytest.raises(ValueError):
+        build(ArchConfig(name="d", family="other", **small))
 
 
 def test_init_cache_matches_the_reference():

@@ -50,7 +50,7 @@ __device__ __forceinline__ unsigned long long gtime() {
     ("    const int nxt = jt + kTcStages - 1;\n",
      "    { const unsigned long long t_ = gtime();\n"
      "      if (jt == 0) Tw0 = t_ - ta_; else Tw += t_ - ta_; ta_ = t_; }\n", ""),
-    ("    const __nv_bfloat16* ks = kv0 + TILE * 2 * (jt % kTcStages);\n",
+    ("    const __nv_bfloat16* ks = kv0 + SLOT * (jt % kTcStages);\n",
      "    { const unsigned long long t_ = gtime(); Tis += t_ - ta_; ta_ = t_; }\n",
      ""),
     ("    // scale (base 2), mask, online softmax;",
