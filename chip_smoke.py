@@ -118,6 +118,18 @@ Phases (any failure raises and the script exits non-zero):
      host's value, with their times; ``ft.stragglers.probe_devices`` on the
      card (acc.cu's load_sum, reps + 1 launches; its scalar against the
      plain load_sum); ``examples_torch/characterize_machine.py``.
+     3j: training — ``Trainer`` on granite-3-2b at full width (2.53 G
+     float32 parameters, remat full), batch 4 x 512, 8 steps of AdamW: every
+     loss printed and finite, the last below the first; step wall and
+     device-busy time, tokens/s, model TFLOP/s, peak memory, one AdamW
+     update alone; training's last-position logits (``hidden_states``)
+     against the serving prefill on the same weights and tokens (plain
+     route within 1e-2, kernel route within 3d's 0.15); the card against
+     the CPU at full width on 2 layers (loss and every gradient leaf within
+     2e-2); one step of each of the ten archs reduced; a checkpoint round at
+     reduced width restored bit for bit and resumed.  Training launches
+     neither model kernel (the reference's are forward only): 0 flash, 0
+     SSD, 0 membench launches, ``launches_train`` in the kernels line.
   4  the measurement is real: doubling ``passes`` doubles the time (also
      for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
      memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
@@ -205,6 +217,13 @@ from repro_torch.models.registry import build, make_batch  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.ssm import mamba_prefill  # noqa: E402
 from repro_torch.models.variant import BASELINE  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.configs import list_archs  # noqa: E402
+from repro_torch.data.pipeline import make_pipeline  # noqa: E402
+from repro_torch.models.common import (  # noqa: E402
+    spec_map, tree_leaves, tree_leaves_with_paths)
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 # the plain mxu version must multiply in exact float32, as the kernel does
@@ -2796,6 +2815,253 @@ def phase_family_serve_path(quick: bool) -> dict[str, dict[str, int]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 3j — training
+# ---------------------------------------------------------------------------
+
+#: the model trained at full width, its batch and its run: 8 steps through
+#: the Trainer, a checkpoint interval above the step count (a full-width
+#: checkpoint would write ~40 GB)
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 8
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+#: training's last-position logits against the serving prefill's on the
+#: same weights and tokens: the plain route runs the same chunked attention
+#: and products, so only the order of a few reductions may differ; the
+#: kernel route is held to the logits bound of 3d
+TRAIN_SERVE_PLAIN_TOL = 1e-2
+#: the card against the CPU, the same port code at full width on 2 layers
+#: (one batch of 128 tokens: 3.3 s on the CPU): the loss, and every
+#: gradient leaf on the relative RMS, within the bound the CPU tests hold
+#: the CPU to the reference with (cuBLAS and the CPU's bf16 products round
+#: their float32 sums at other places)
+TRAIN_CPU_DEPTH, TRAIN_CPU_B, TRAIN_CPU_S = 2, 1, 128
+TRAIN_GRAD_TOL = 2e-2
+#: every arch reduced takes one step at this shape
+TRAIN_SMALL = (2, 64)
+
+
+def _train_counts() -> dict[str, int]:
+    return {**fa.launch_counts, **sk.launch_counts,
+            "membench": sum(mb.launch_counts.values())}
+
+
+def _finite_metrics(label: str, hist: list) -> None:
+    bad = [(h["step"], k, v) for h in hist for k, v in h.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {bad}")
+
+
+def _param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def train_full_width(quick: bool) -> tuple:
+    """The Trainer on TRAIN_ARCH at full width: TRAIN_STEPS steps, every
+    loss printed and finite, the last below the first; a further step and
+    one AdamW update alone by device-busy time; peak memory.  Returns
+    (the model, the trained params)."""
+    cfg = get_arch(TRAIN_ARCH)
+    if quick:
+        cfg = reduced(cfg)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1,
+                       ckpt_dir=str(OUT_DIR / "train_full"), log_every=1,
+                       opt=adamw.AdamWConfig(**TRAIN_OPT))
+    trainer = Trainer(cfg, (TRAIN_B, TRAIN_S), None, tcfg, device=DEV)
+    torch.cuda.init()                    # the allocator's stats need it
+    torch.cuda.reset_peak_memory_stats(DEV)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        params, opt_state, hist = trainer.train(resume=False)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(DEV)
+    for line in buf.getvalue().strip().splitlines():
+        say("  | " + line)
+    n = _param_count(params)
+    _finite_metrics(TRAIN_ARCH, hist)
+    if len(hist) != TRAIN_STEPS or not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"{TRAIN_ARCH}: {len(hist)} steps logged, loss "
+                             f"{hist[0]['loss']} -> {hist[-1]['loss']}: not "
+                             f"lower")
+    tokens = TRAIN_B * TRAIN_S
+    warm = [h["dt"] for h in hist[1:]]
+    step_s = sorted(warm)[len(warm) // 2]
+    say(f"  {TRAIN_ARCH}{' (reduced)' if quick else ''}: {n} float32 "
+        f"parameters, {cfg.n_layers} layers, batch {TRAIN_B} x {TRAIN_S}, "
+        f"{TRAIN_STEPS} steps in {run_s:.1f} s; loss {hist[0]['loss']:.4f} "
+        f"-> {hist[-1]['loss']:.4f}; step wall ms "
+        f"{[round(h['dt'] * 1e3, 1) for h in hist]} (the first with the "
+        f"process's first backward); peak memory allocated "
+        f"{peak / 2**30:.2f} GiB")
+    say(f"  median warm step {step_s * 1e3:.1f} ms wall: "
+        f"{tokens / step_s:.0f} tokens/s, model "
+        f"{6 * n * tokens / step_s / 1e12:.1f} TFLOP/s (6 N tokens a step, "
+        f"N = {n})")
+    # one more step, and the optimiser alone, by device-busy time
+    batch = trainer.pipeline.batch(TRAIN_STEPS)
+    wall, _ = wall_ms(lambda: trainer.step_fn(params, opt_state, batch))
+    busy, (_, _, m) = device_busy_ms(
+        lambda: trainer.step_fn(params, opt_state, batch))
+    opt_busy, _ = device_busy_ms(lambda: adamw.apply(
+        tcfg.opt, params, opt_state, opt_state["mu"]))
+    say(f"  a further step: {wall:.1f} ms wall, device busy "
+        f"{'not measured' if busy is None else f'{busy:.1f} ms'}; one AdamW "
+        f"update alone (every leaf, float32 moments) device busy "
+        f"{'not measured' if opt_busy is None else f'{opt_busy:.1f} ms'}; "
+        f"loss {float(m['loss']):.4f}")
+    del opt_state, trainer, batch
+    torch.cuda.empty_cache()
+    return build(cfg), params
+
+
+def train_against_serving(model, params) -> dict[str, int]:
+    """The same weights and tokens through training's ``hidden_states``
+    and the serving prefill: the last position's logits, plain route
+    within TRAIN_SERVE_PLAIN_TOL, kernel route within the 3d bound.
+    Returns the kernel route's flash launches (a comparison, not
+    training)."""
+    cfg = model.cfg
+    V = cfg.vocab_size
+    tokens = make_pipeline(cfg, (TRAIN_B, TRAIN_S), seed=0,
+                           device=DEV).batch(0)["tokens"]
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        h, _ = model.hidden_states(params, tokens, None, BASELINE)
+        lt = lm_logits(cfg, params["embed"], h[:, -1:])[:, 0, :V]
+        lp = model.prefill(params, tokens, None, BASELINE)[0][:, :V]
+        lk = model.prefill(params, tokens, None,
+                           replace(BASELINE, use_pallas=True))[0][:, :V]
+    sync()
+    plain, kern = _rms_rel(lt, lp), _rms_rel(lk, lt)
+    say(f"  training's last-position logits (hidden_states + lm_logits) vs "
+        f"the serving prefill on the same trained weights and tokens: plain "
+        f"route relative RMS {plain:.4e} (tolerance "
+        f"{TRAIN_SERVE_PLAIN_TOL}), kernel route {kern:.4e} (tolerance "
+        f"{SERVE_LOGITS_RMS_TOL}); kernel-route flash launches "
+        f"{fa.launch_counts['flash_attn']} (this comparison's, not "
+        f"training's)")
+    if not (plain <= TRAIN_SERVE_PLAIN_TOL and kern <= SERVE_LOGITS_RMS_TOL
+            and bool(lt.isfinite().all())):
+        raise AssertionError(f"training and serving disagree: plain {plain}, "
+                             f"kernel {kern}")
+    return dict(fa.launch_counts)
+
+
+def train_card_against_cpu(quick: bool) -> None:
+    """TRAIN_ARCH at full width on TRAIN_CPU_DEPTH layers, the same params
+    and batch on the card and on the CPU: the loss and every gradient leaf
+    within TRAIN_GRAD_TOL relative."""
+    cfg = replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_CPU_DEPTH)
+    if quick:
+        cfg = reduced(cfg)
+    model = build(cfg)
+    cpu_params = init_params(model.param_specs(),
+                             torch.Generator().manual_seed(0))
+    batch = make_pipeline(cfg, (TRAIN_CPU_B, TRAIN_CPU_S), seed=0,
+                          device="cpu").batch(0)
+    out = {}
+    for where, params in (("cpu", cpu_params), ("cuda", {})):
+        if where == "cuda":
+            params = spec_map(lambda t: t.detach().to(DEV), cpu_params)
+        b = {k: v.to(params["embed"]["embedding"].device)
+             for k, v in batch.items()}
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss, _ = model.loss(params, b, None, BASELINE)
+        grads = torch.autograd.grad(loss, leaves)
+        out[where] = (float(loss.detach()), [g.float().cpu() for g in grads],
+                      time.perf_counter() - t0)
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out["cuda"]
+    errs = [_rms_rel(a, b) for a, b in zip(gg, gc)]
+    names = [n for n, _ in tree_leaves_with_paths(cpu_params)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    say(f"  {TRAIN_ARCH} at full width on {cfg.n_layers} layers, batch "
+        f"{TRAIN_CPU_B} x {TRAIN_CPU_S}, the card vs the CPU (same port "
+        f"code, params, batch): loss {lg:.6f} vs {lc:.6f}; worst gradient "
+        f"leaf {names[worst]} relative RMS {errs[worst]:.4e} (tolerance "
+        f"{TRAIN_GRAD_TOL}); loss + gradients {sg * 1e3:.0f} ms on the card "
+        f"(first call), {sc:.1f} s on the CPU")
+    if abs(lg - lc) > 2e-3 * abs(lc) or errs[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"card and CPU disagree: loss {lg} vs {lc}, "
+                             f"{names[worst]} {errs[worst]}")
+
+
+def train_every_arch_and_resume() -> None:
+    """One Trainer step for each of the ten archs reduced (finite
+    metrics); then reduced granite 4 steps with checkpoints at 2 and 4
+    into the output directory, the newest restored bit for bit, and a
+    second Trainer resuming from it at step 4."""
+    for arch in sorted(list_archs()):
+        cfg = reduced(get_arch(arch))
+        tr = Trainer(cfg, TRAIN_SMALL, None, TrainConfig(
+            steps=1, ckpt_every=2, ckpt_dir=str(OUT_DIR / "train_small"),
+            opt=adamw.AdamWConfig(**TRAIN_OPT)), device=DEV)
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, _, hist = tr.train(resume=False)
+        _finite_metrics(arch, hist)
+        say(f"  {arch} (reduced): one step, loss {hist[0]['loss']:.4f}, "
+            f"gnorm {hist[0]['grad_norm']:.4f}, {hist[0]['dt'] * 1e3:.0f} ms")
+    cfg = reduced(get_arch(TRAIN_ARCH))
+    ckpt_dir = OUT_DIR / "train_resume"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def run(steps):
+        tcfg = TrainConfig(steps=steps, ckpt_every=2, ckpt_dir=str(ckpt_dir),
+                           log_every=1, opt=adamw.AdamWConfig(**TRAIN_OPT))
+        with contextlib.redirect_stdout(io.StringIO()):
+            return Trainer(cfg, TRAIN_SMALL, None, tcfg, device=DEV).train()
+    params, opt_state, _ = run(4)
+    step = ckpt.latest_step(ckpt_dir)
+    restored, _ = ckpt.restore(ckpt_dir, {"params": params, "opt": opt_state})
+    same = all(a.dtype == b.dtype and a.device == b.device
+               and torch.equal(a.detach(), b) for a, b in zip(
+                   tree_leaves({"params": params, "opt": opt_state}),
+                   tree_leaves(restored)))
+    _, _, hist = run(6)
+    say(f"  checkpoint round at reduced width: newest step {step}, restored "
+        f"onto {DEV} bit for bit: {same}; a second Trainer resumed at step "
+        f"{hist[0]['step']}")
+    if step != 4 or not same or hist[0]["step"] != 4:
+        raise AssertionError(f"checkpoint round: step {step}, bit for bit "
+                             f"{same}, resumed at {hist[0]['step']}")
+
+
+def phase_train_path(quick: bool) -> dict[str, int]:
+    """3j: training — TRAIN_ARCH at full width through the Trainer, its
+    logits against the serving prefill's, the card against the CPU at full
+    width on 2 layers, every arch reduced for a step and a checkpoint
+    round.  Training launches neither model kernel (the reference's are
+    forward only); returns training's launches (0 each)."""
+    say(f"== phase 3j: training (Trainer on {TRAIN_ARCH}"
+        f"{' reduced' if quick else ' at full width'}, batch {TRAIN_B} x "
+        f"{TRAIN_S}, {TRAIN_STEPS} steps, AdamW {TRAIN_OPT})")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    for mod in (mb, fa, sk):
+        mod.reset_launch_counts()
+    model, params = train_full_width(quick)
+    counts = _train_counts()
+    compare = train_against_serving(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    for mod in (mb, fa, sk):
+        mod.reset_launch_counts()
+    train_card_against_cpu(quick)
+    train_every_arch_and_resume()
+    counts = {k: v + _train_counts()[k] for k, v in counts.items()}
+    say(f"  launches while training (the full-width run, the card-vs-CPU "
+        f"gradients, the ten archs, the checkpoint round): {counts}; the "
+        f"serving comparison's: {compare}")
+    if any(counts.values()):
+        raise AssertionError(f"training launched a kernel: {counts}")
+    say(f"  phase 3j: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 3e — the characterize path
 # ---------------------------------------------------------------------------
 
@@ -3693,6 +3959,7 @@ def main(argv=None) -> int:
     counts.update(phase_serve_path(args.quick))
     dense = phase_dense_serve_path(args.quick)
     families = phase_family_serve_path(args.quick)
+    trained = phase_train_path(args.quick)
     characterized = phase_characterize_path(args.quick)
     audited = phase_audit_path(args.quick)
     phase_mesh_path(args.quick)
@@ -3712,6 +3979,8 @@ def main(argv=None) -> int:
             e["launches_audit"] = audited[e["name"]]
         if e["name"] in mb.launch_counts:
             e["launches_figures"] = figures.get(e["name"], 0)
+        if e["name"] in trained:
+            e["launches_train"] = trained[e["name"]]
     say(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
     say(info["smi"])
     say(json.dumps(line))

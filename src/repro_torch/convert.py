@@ -1,10 +1,11 @@
 """What crosses between this package and the JAX reference package: buffers,
-model weights and caches, specs and results.
+model weights and caches, optimiser states and batches, specs and results.
 
 Nothing here imports ``jax`` or ``repro``: buffers cross as numpy arrays
-(``np.asarray(jax_array)`` on the reference's side), weight and cache trees
-as nested dicts of them (``jax.tree.map(np.asarray, params)``), specs and
-results as the plain dicts of ``to_dict()``.
+(``np.asarray(jax_array)`` on the reference's side), weight, cache,
+optimiser-state and batch trees as nested dicts of them
+(``jax.tree.map(np.asarray, params)``), specs and results as the plain
+dicts of ``to_dict()``.
 
 bfloat16 is the trap: numpy has no bfloat16, the reference hands back an
 ``ml_dtypes`` array that ``torch.from_numpy`` refuses, so the bits go across
@@ -26,7 +27,7 @@ def tensor_from_reference(a, device=None) -> torch.Tensor:
     """A numpy array taken from the reference (``np.asarray(jax_array)``) ->
     a torch tensor of the same dtype, shape and bits.  ``device=None`` keeps
     it on the CPU (this is a conversion, not a measurement entry point)."""
-    a = np.ascontiguousarray(a)
+    a = np.array(a, order="C")      # ascontiguousarray would make 0-d 1-d
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(a.view(np.uint16).copy())
         t = bits.view(torch.bfloat16)
@@ -65,6 +66,26 @@ def cache_from_reference(tree, device=None):
     ``prefill`` returns it or ``init_cache`` makes it) -> the port's, leaf
     for leaf."""
     return params_from_reference(tree, device)
+
+
+def batch_from_reference(batch, device=None) -> dict:
+    """A reference batch (``tokens`` / ``labels`` int32, encdec's ``frames``
+    bfloat16) -> the port's: the token ids as int64, as the port's
+    pipeline draws them, the frames bit for bit."""
+    out = params_from_reference(batch, device)
+    for k in ("tokens", "labels"):
+        if k in out:
+            out[k] = out[k].long()
+    return out
+
+
+def tree_to_reference(tree):
+    """A nested dict of tensors (parameters, gradients, an optimiser
+    state) -> the same nested dict of numpy arrays, bits kept, that
+    ``jax.tree.map(jnp.asarray, ...)`` takes."""
+    if isinstance(tree, dict):
+        return {k: tree_to_reference(v) for k, v in tree.items()}
+    return to_reference(tree)
 
 
 def _map_backend(name, table):

@@ -1,0 +1,1 @@
+"""Data (counterpart of ``repro.data``): the synthetic token pipeline."""

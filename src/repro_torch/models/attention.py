@@ -1,17 +1,23 @@
-"""Attention: GQA with (partial) RoPE, chunked online-softmax attention and
-the decode step (counterpart of ``repro.models.attention``).
+"""Attention: GQA with (partial) RoPE, chunked online-softmax attention, the
+folded causal variant, the training attention and the decode step
+(counterpart of ``repro.models.attention``).
 
 ``chunked_attention`` is the port of the reference's default path (its XLA
-form, blocked over queries and keys with an online softmax).  The prefill's
-kernel route (``Variant.use_pallas``) goes to
-``repro_torch.kernels.flash_attention`` instead.  Layouts are the
-reference's: q ``(B, S, H, Dh)``, k/v ``(B, S, KV, Dh)``.  ``ctx`` (the
-reference's sharding context) is accepted and ignored: the multi-device port
-is later work (ROADMAP Queue A 3).
+form, blocked over queries and keys with an online softmax); training runs
+it (``gqa_attention``), with each KV block's body a checkpoint under
+autograd, so that the backward pass recomputes the block's scores and
+probabilities instead of keeping them (the reference's ``@jax.checkpoint``
+body: the flash-attention backward).  The prefill's kernel route
+(``Variant.use_pallas``) goes to ``repro_torch.kernels.flash_attention``
+instead.  Layouts are the reference's: q ``(B, S, H, Dh)``, k/v ``(B, S,
+KV, Dh)``.  ``ctx`` (the reference's sharding context) is accepted and
+ignored, and so is ``unroll`` (its scans' unrolling): the multi-device
+model side is ROADMAP Queue A 8.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ParamSpec, cast_compute, rms_norm
 
@@ -53,7 +59,7 @@ def apply_rope(x, positions, inv_freq):
 
 def chunked_attention(q, k, v, *, causal: bool, kv_block: int = 1024,
                       q_block: int = 1024, q_positions=None, kv_positions=None,
-                      ctx=None):
+                      ctx=None, unroll: bool = False):
     """q: (B, Sq, H, Dh); k/v: (B, Sk, KV, Dh|Dv).  GQA by head grouping (no
     materialised repeat).  Returns (B, Sq, H, Dv).  Online softmax, blocked
     over queries and keys: temporaries are O(q_block * kv_block) per head."""
@@ -69,6 +75,30 @@ def chunked_attention(q, k, v, *, causal: bool, kv_block: int = 1024,
         return torch.cat(outs, dim=1)
     return _kv_scan_attention(q, k, v, causal=causal, kv_block=kv_block,
                               q_positions=q_positions, kv_positions=kv_positions)
+
+
+def _kv_block(causal, scale, qc, k_b, v_b, kpos_b, kval_b, q_positions,
+              m, l, acc):
+    """One KV block of the online softmax: (m, l, acc) after the block."""
+    k_b = cast_compute(k_b).to(torch.float32)
+    v_b = cast_compute(v_b)
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qc, k_b) * scale  # (B,KV,G,Sq,kb)
+    mask = kval_b[None, None, None, None, :]
+    if causal:
+        mask = mask & (q_positions[None, None, None, :, None]
+                       >= kpos_b[None, None, None, None, :])
+    # -1e30, not -inf: a fully-masked block would make m == -inf and
+    # exp(-inf - -inf) == nan in the online-softmax update.
+    s = torch.where(mask, s, torch.tensor(-1e30, device=s.device))
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + torch.sum(p, dim=-1)
+    # the probabilities are rounded to the value dtype (bf16), as the
+    # reference's einsum takes them
+    pv = torch.einsum("bkgqj,bjkd->bkgqd", p.to(v_b.dtype).to(torch.float32),
+                      v_b.to(torch.float32))
+    return m_new, l_new, acc * corr[..., None] + pv
 
 
 def _kv_scan_attention(q, k, v, *, causal: bool, kv_block: int,
@@ -100,35 +130,51 @@ def _kv_scan_attention(q, k, v, *, causal: bool, kv_block: int,
     m = torch.full((B, KV, G, Sq), -1e30, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KV, G, Sq, Dv), dtype=torch.float32, device=dev)
+    # under autograd each block is a checkpoint: the backward pass
+    # recomputes its (q, kb) scores and probabilities from the block's
+    # inputs instead of keeping them (O(Sq * Sk) f32 otherwise)
+    remat = torch.is_grad_enabled()
     for j0 in range(0, Sk, kv_block):
-        k_b = cast_compute(k[:, j0:j0 + kv_block]).to(torch.float32)
-        v_b = cast_compute(v[:, j0:j0 + kv_block])
-        s = torch.einsum("bqkgd,bjkd->bkgqj", qc, k_b) * scale  # (B,KV,G,Sq,kb)
-        mask = kv_valid[j0:j0 + kv_block][None, None, None, None, :]
-        if causal:
-            mask = mask & (q_positions[None, None, None, :, None]
-                           >= kv_positions[j0:j0 + kv_block][None, None, None, None, :])
-        # -1e30, not -inf: a fully-masked block would make m == -inf and
-        # exp(-inf - -inf) == nan in the online-softmax update.
-        s = torch.where(mask, s, torch.tensor(-1e30, device=dev))
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + torch.sum(p, dim=-1)
-        # the probabilities are rounded to the value dtype (bf16), as the
-        # reference's einsum takes them
-        pv = torch.einsum("bkgqj,bjkd->bkgqd",
-                          p.to(v_b.dtype).to(torch.float32),
-                          v_b.to(torch.float32))
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        blk = (qc, k[:, j0:j0 + kv_block], v[:, j0:j0 + kv_block],
+               kv_positions[j0:j0 + kv_block], kv_valid[j0:j0 + kv_block],
+               q_positions, m, l, acc)
+        if remat:
+            m, l, acc = checkpoint(_kv_block, causal, scale, *blk,
+                                   use_reentrant=False)
+        else:
+            m, l, acc = _kv_block(causal, scale, *blk)
     out = acc / torch.clamp(l, min=1e-30)[..., None]            # (B,KV,G,Sq,Dv)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
     return out.to(q.dtype)
 
 
+def folded_causal_attention(q, k, v, *, q_block: int = 1024,
+                            kv_block: int = 1024, ctx=None,
+                            unroll: bool = False):
+    """Causal attention that does ~half the block work of
+    ``chunked_attention``: query block i visits KV blocks [0, i] only, a
+    static prefix, so nq(nq + 1)/2 block pairs against nq^2."""
+    B, S, H, Dh = q.shape
+    if S % q_block or S % kv_block or q_block != kv_block:
+        raise ValueError(f"folded attention needs S ({S}) a multiple of "
+                         f"q_block == kv_block ({q_block}, {kv_block})")
+    nq = S // q_block
+    if nq <= 1:
+        return chunked_attention(q, k, v, causal=True, kv_block=kv_block)
+    dev = q.device
+    outs = []
+    for i in range(nq):
+        kv_len = (i + 1) * kv_block
+        outs.append(_kv_scan_attention(
+            q[:, i * q_block:(i + 1) * q_block], k[:, :kv_len], v[:, :kv_len],
+            causal=True, kv_block=kv_block,
+            q_positions=torch.arange(q_block, device=dev) + i * q_block,
+            kv_positions=torch.arange(kv_len, device=dev)))
+    return torch.cat(outs, dim=1)
+
+
 # ---------------------------------------------------------------------------
-# GQA attention layer (params + prefill/decode application)
+# GQA attention layer (params + train/prefill/decode application)
 # ---------------------------------------------------------------------------
 
 def gqa_specs(cfg, d: int) -> dict:
@@ -169,6 +215,28 @@ def gqa_project_qkv(cfg, p: dict, x, positions, inv_freq):
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     return q, k, v
+
+
+def gqa_attention(cfg, p: dict, x, *, causal: bool = True, positions=None,
+                  kv_block: int = 1024, variant: str = "masked", ctx=None,
+                  unroll: bool = False):
+    """The training attention, x (B, S, D) -> (B, S, D): the plain route
+    (``chunked_attention``, or ``folded_causal_attention`` for
+    ``variant="folded"`` where S is a multiple of ``kv_block`` above it),
+    never the flash kernel, which is forward only."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    inv_freq = rope_freqs(cfg.resolved_head_dim, cfg.rope_pct, cfg.rope_theta,
+                          device=x.device)
+    q, k, v = gqa_project_qkv(cfg, p, x, positions, inv_freq)
+    if causal and variant == "folded" and S > kv_block and S % kv_block == 0:
+        o = folded_causal_attention(q, k, v, q_block=kv_block,
+                                    kv_block=kv_block)
+    else:
+        o = chunked_attention(q, k, v, causal=causal,
+                              kv_block=min(kv_block, S))
+    return out_proj(o, p["wo"]).to(x.dtype)
 
 
 def gqa_decode(cfg, p: dict, x, cache_k, cache_v, pos: int):

@@ -1,5 +1,6 @@
-"""Shared model machinery: param specs, initialisers, norms, MLPs, embeddings
-(counterpart of ``repro.models.common``).
+"""Shared model machinery: param specs, initialisers, norms, MLPs,
+embeddings, the chunked cross-entropy (counterpart of
+``repro.models.common``).
 
 Every model declares its parameters once as a nested dict of ``ParamSpec`` —
 shape, logical axes and initialiser — and ``init_params`` draws the tensors
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -48,12 +50,43 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_with_paths(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """(name "a/b/c", leaf) for every leaf, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_leaves_with_paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def tree_unflatten(like, leaves: list):
+    """``leaves`` (in ``tree_leaves`` order) in the structure of ``like``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
+
+
 def tree_index(tree, *idx):
     """The slice ``[idx]`` of every leaf of a stacked nested dict (one
     layer's parameters or cache of an ``(L, ...)`` stack)."""
     if isinstance(tree, dict):
         return {k: tree_index(v, *idx) for k, v in tree.items()}
     return tree[idx]
+
+
+def tree_unbind(tree) -> list:
+    """The layers of a stacked nested dict, one dict of views each (the
+    reference's scan over the stack).  One ``unbind`` a leaf: its backward
+    stacks the layers' gradients once, where indexing each layer would
+    write each into a zeroed copy of the whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: tree_unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def tree_stack(trees: list):
@@ -171,7 +204,7 @@ def stack_specs(specs, n: int, axis_name: str = "layers"):
 
 
 # ---------------------------------------------------------------------------
-# Embedding + logits
+# Embedding + logits + chunked cross-entropy (never materialises (B, S, V))
 # ---------------------------------------------------------------------------
 
 def vocab_padded(cfg) -> int:
@@ -208,3 +241,38 @@ def lm_logits(cfg, p: dict, h):
         pad_mask = torch.arange(vp, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_mask, -1e30)
     return logits
+
+
+def chunked_softmax_xent(cfg, p: dict, h, labels, chunk: int = 512,
+                         unroll: bool = False):
+    """Mean token cross-entropy over sequence chunks of ``chunk`` (and the
+    remainder), summed in float32 in the reference's order.
+
+    h: (B, S, D); labels: (B, S) int.  Each chunk's (B, c, V) float32
+    logits live only inside the chunk: under autograd the chunk is a
+    checkpoint, so its logits are recomputed in the backward pass (the
+    reference's ``@jax.checkpoint``).  ``unroll`` (the reference's scan
+    unrolling) is accepted and ignored.
+    """
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+
+    def piece(h_c, y_c):
+        logits = lm_logits(cfg, p, h_c)                      # (B, c, V) f32
+        lse = torch.logsumexp(logits, dim=-1)                # (B, c)
+        gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        return torch.sum(lse - gold)
+
+    def one(h_c, y_c):
+        if torch.is_grad_enabled():
+            return checkpoint(piece, h_c, y_c, use_reentrant=False)
+        return piece(h_c, y_c)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        total = total + one(h[:, i * chunk:(i + 1) * chunk],
+                            labels[:, i * chunk:(i + 1) * chunk])
+    if S - n * chunk:
+        total = total + one(h[:, n * chunk:], labels[:, n * chunk:])
+    return total / (B * S)

@@ -1,5 +1,6 @@
 """Whisper-style encoder-decoder (counterpart of ``repro.models.encdec``:
-the serving half, ``encode``, ``prefill`` and ``decode_step``).
+``encode``; ``hidden_states`` and ``loss`` for training; ``prefill`` and
+``decode_step`` for serving).
 
 The audio frontend (conv1d stack + log-mel) is a stub, as in the reference:
 the batch carries precomputed frame embeddings ``frames`` (B, n_audio_ctx,
@@ -15,21 +16,26 @@ not a multiple of the flash wrapper's default block of 256, and the
 reference's block rule (``Sq % q_block == 0``, ``Sk % kv_block == 0``)
 allows a block that spans the whole sequence: the kernel route passes the
 sequence length as the block wherever 256 does not divide it (the CUDA
-kernel tiles by 64 whatever the blocks, and masks the ragged tail).  Decode
+kernel tiles by 64 whatever the blocks, and masks the ragged tail).
+Training (``loss``) takes the plain route whatever ``use_pallas`` says,
+every encoder and decoder layer under ``remat_wrap``.  Decode
 stays plain PyTorch, its cross-attention against the cached ``xk``/``xv``
 as the reference computes it.  ``ctx`` (sharding) is accepted and ignored.
 """
 from __future__ import annotations
+
+from dataclasses import replace
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_mlp, apply_norm, cast_compute,
-                                       embed_specs, embed_tokens, lm_logits,
-                                       mlp_specs, norm_specs, stack_specs,
-                                       tree_index, tree_stack)
-from repro_torch.models.variant import BASELINE, Variant
+                                       chunked_softmax_xent, embed_specs,
+                                       embed_tokens, lm_logits, mlp_specs,
+                                       norm_specs, stack_specs, tree_index,
+                                       tree_stack, tree_unbind)
+from repro_torch.models.variant import BASELINE, Variant, remat_wrap
 
 #: the flash wrapper's default block (``flash_attention`` q/kv blocks)
 FLASH_BLOCK = 256
@@ -102,14 +108,64 @@ class EncDecLM:
         x = cast_compute(frames) + sinusoid(A, D, device=frames.device)[None] \
             .to(torch.bfloat16)
         positions = torch.arange(A, device=frames.device)
-        for layer in range(cfg.n_encoder_layers):
-            p = tree_index(params["enc_blocks"], layer)
+
+        def body(p, x):
             h = apply_norm(cfg, p["ln1"], x)
             q, k, v = attn.gqa_project_qkv(cfg, p["attn"], h, positions, None)
             o = attend(q, k, v, causal=False, variant=variant)
             x = x + attn.out_proj(o, p["attn"]["wo"]).to(x.dtype)
-            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+            return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+        body = remat_wrap(body, variant)
+        for p in tree_unbind(params["enc_blocks"]):
+            x = body(p, x)
         return apply_norm(cfg, params["enc_ln_f"], x)
+
+    # -- decoder (teacher-forced train) -----------------------------------------
+    def _dec_block(self, p, x, enc_out, variant, positions):
+        cfg = self.cfg
+        h = apply_norm(cfg, p["ln1"], x)
+        x = x + attn.gqa_attention(cfg, p["self_attn"], h, causal=True,
+                                   positions=positions,
+                                   kv_block=variant.kv_block,
+                                   variant=variant.attn_variant)
+        h = apply_norm(cfg, p["ln_x"], x)
+        # cross attention: q from the decoder, k/v from the encoder output
+        q, _, _ = attn.gqa_project_qkv(cfg, p["cross_attn"], h, positions,
+                                       None)
+        enc = cast_compute(enc_out)
+        k = attn._proj_heads(enc, p["cross_attn"]["wk"])
+        v = attn._proj_heads(enc, p["cross_attn"]["wv"])
+        o = attn.chunked_attention(q, k, v, causal=False,
+                                   kv_block=min(variant.kv_block, k.shape[1]))
+        x = x + attn.out_proj(o, p["cross_attn"]["wo"]).to(x.dtype)
+        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+    def hidden_states(self, params, tokens, enc_out, ctx=None,
+                      variant: Variant = BASELINE):
+        """tokens (B, S), the encoder's output (B, A, D) -> the decoder's
+        final hidden states (B, S, D) bf16."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        dev = tokens.device
+        x = embed_tokens(params["embed"], tokens)
+        x = x + sinusoid(S, cfg.d_model, device=dev)[None].to(x.dtype)
+        positions = torch.arange(S, device=dev)
+        body = remat_wrap(lambda p, x: self._dec_block(p, x, enc_out, variant,
+                                                       positions), variant)
+        for p in tree_unbind(params["dec_blocks"]):
+            x = body(p, x)
+        return apply_norm(cfg, params["ln_f"], x)
+
+    def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
+        # training's encoder attention is the plain route: the flash kernel
+        # is forward only
+        variant = replace(variant, use_pallas=False)
+        enc_out = self.encode(params, batch["frames"], ctx, variant)
+        h = self.hidden_states(params, batch["tokens"], enc_out, ctx, variant)
+        xent = chunked_softmax_xent(self.cfg, params["embed"], h,
+                                    batch["labels"], chunk=variant.xent_chunk)
+        return xent, {"xent": xent}
 
     # -- serving -------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:

@@ -1,12 +1,17 @@
 """Zamba2-style hybrid: Mamba2 backbone + one *shared* transformer block
-(counterpart of ``repro.models.hybrid``: the serving half, ``prefill`` and
-``decode_step``).
+(counterpart of ``repro.models.hybrid``: ``hidden_states`` and ``loss`` for
+training, ``prefill`` and ``decode_step`` for serving).
 
 The shared block (GQA attention + FFN, one parameter set) is applied before
 every ``attn_every``-th group of Mamba layers with a per-site input norm.
 Parameters are stacked ``(sites, group, ...)`` as in the reference; where the
 reference scans over the stacks, the port loops.  Zamba2's per-site LoRA
-deltas are omitted, as in the reference.
+deltas are omitted, as in the reference.  In training each site (the
+shared block and its group of Mamba layers) runs under ``remat_wrap``, and
+so does each Mamba layer inside it: the nested remat of the reference,
+without which the site's recompute would keep every layer's SSD score
+matrices of the group at once.  Training takes the plain routes
+(``gqa_attention``, ``ssm_block``) whatever ``Variant.use_pallas`` says.
 
 ``Variant.use_pallas`` keeps the reference's meaning: the prefill's site
 attention goes through the hand-written flash-attention kernel and every
@@ -21,13 +26,14 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_mlp, apply_norm, embed_specs,
+from repro_torch.models.common import (apply_mlp, apply_norm,
+                                       chunked_softmax_xent, embed_specs,
                                        embed_tokens, lm_logits, mlp_specs,
                                        norm_specs, stack_specs, tree_index,
-                                       tree_stack)
-from repro_torch.models.ssm import (mamba_prefill, ssm_cache_shapes,
-                                    ssm_decode, ssm_specs)
-from repro_torch.models.variant import BASELINE, Variant
+                                       tree_stack, tree_unbind)
+from repro_torch.models.ssm import (mamba_prefill, ssm_block,
+                                    ssm_cache_shapes, ssm_decode, ssm_specs)
+from repro_torch.models.variant import BASELINE, Variant, remat_wrap
 
 
 class HybridLM:
@@ -58,6 +64,52 @@ class HybridLM:
             "shared": shared_block,
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
+
+    # -- training ----------------------------------------------------------------
+    def _shared_block(self, params, site_norm, x, variant, positions):
+        cfg = self.cfg
+        p = params["shared"]
+        h = apply_norm(cfg, site_norm, x)      # per-site input norm
+        h1 = apply_norm(cfg, p["ln1"], h)
+        a = attn.gqa_attention(cfg, p["attn"], h1, causal=True,
+                               positions=positions, kv_block=variant.kv_block,
+                               variant=variant.attn_variant)
+        h = h + a
+        h2 = apply_norm(cfg, p["ln2"], h)
+        return x + h + apply_mlp(cfg, p["mlp"], h2)  # residual onto the backbone
+
+    def hidden_states(self, params, tokens, ctx=None,
+                      variant: Variant = BASELINE):
+        """tokens (B, S) -> final hidden states (B, S, D) bf16."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = embed_tokens(params["embed"], tokens)
+        positions = torch.arange(S, device=tokens.device)
+
+        def mamba_body(p, x):
+            return x + ssm_block(cfg, p["ssm"], apply_norm(cfg, p["ln"], x))
+
+        # nested remat: the inner loop checkpoints its own body, or the
+        # site-level recompute keeps every layer's SSD score matrices
+        mamba_fn = remat_wrap(mamba_body, variant)
+
+        def site_body(group_p, site_norm, x):
+            x = self._shared_block(params, site_norm, x, variant, positions)
+            for p in tree_unbind(group_p):
+                x = mamba_fn(p, x)
+            return x
+
+        site_fn = remat_wrap(site_body, variant)
+        for group_p, site_norm in zip(tree_unbind(params["mamba"]),
+                                      tree_unbind(params["site_norms"])):
+            x = site_fn(group_p, site_norm, x)
+        return apply_norm(cfg, params["ln_f"], x)
+
+    def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
+        h = self.hidden_states(params, batch["tokens"], ctx, variant)
+        xent = chunked_softmax_xent(self.cfg, params["embed"], h,
+                                    batch["labels"], chunk=variant.xent_chunk)
+        return xent, {"xent": xent}
 
     # -- serving -----------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:

@@ -1,14 +1,15 @@
 """Multi-head Latent Attention, DeepSeek-V2 (counterpart of
 ``repro.models.mla``).
 
-Prefill uses the expanded form: the latent ``c`` is projected up to per-head
-keys (128 nope dims, joined by the 64 shared rope dims) and values (128
-dims), and the attention runs over q/k of 192 and v of 128 dims (``Dv !=
-D``): through ``chunked_attention`` on the plain route, through
-``flash_attn.cu``'s (192, 128) instance under ``Variant.use_pallas``.
-Decode uses weight absorption against the compressed cache ``(c, k_rope)``,
-plain PyTorch as the reference computes it.  The reference's ``folded``
-attention variant is training-side (ROADMAP Queue A 7).
+Training and prefill use the expanded form: the latent ``c`` is projected
+up to per-head keys (128 nope dims, joined by the 64 shared rope dims) and
+values (128 dims), and the attention runs over q/k of 192 and v of 128
+dims (``Dv != D``): through ``chunked_attention`` (or, in training under
+the ``folded`` variant, ``folded_causal_attention``) on the plain route,
+through ``flash_attn.cu``'s (192, 128) instance under
+``Variant.use_pallas`` in the prefill.  Decode uses weight absorption
+against the compressed cache ``(c, k_rope)``, plain PyTorch as the
+reference computes it.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import math
 import torch
 
 from repro_torch.models.attention import (_proj_heads, apply_rope,
-                                          chunked_attention, out_proj,
+                                          chunked_attention,
+                                          folded_causal_attention, out_proj,
                                           rope_freqs)
 from repro_torch.models.common import ParamSpec, cast_compute, rms_norm
 
@@ -73,16 +75,18 @@ def mla_expand(cfg, p, x, positions, inv_freq):
 
 def mla_attention(cfg, p: dict, x, *, positions=None, kv_block: int = 1024,
                   variant: str = "masked", ctx=None, unroll: bool = False):
-    """Expanded-form causal MLA.  x: (B, S, D) -> (B, S, D)."""
+    """Expanded-form causal MLA for training, on the plain route.  x: (B,
+    S, D) -> (B, S, D)."""
     B, S, _ = x.shape
-    if variant == "folded" and S > kv_block and S % kv_block == 0:
-        raise NotImplementedError("the folded causal attention is "
-                                  "training-side (ROADMAP Queue A 7)")
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v, _, _ = mla_expand(cfg, p, x, positions,
                                mla_rope_freqs(cfg, x.device))
-    o = chunked_attention(q, k, v, causal=True, kv_block=min(kv_block, S))
+    if variant == "folded" and S > kv_block and S % kv_block == 0:
+        o = folded_causal_attention(q, k, v, q_block=kv_block,
+                                    kv_block=kv_block)
+    else:
+        o = chunked_attention(q, k, v, causal=True, kv_block=min(kv_block, S))
     return out_proj(o, p["wo"]).to(x.dtype)
 
 

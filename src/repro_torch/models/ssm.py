@@ -1,5 +1,5 @@
-"""Mamba2 SSD (state-space duality) block: chunked prefill + O(1) decode
-(counterpart of ``repro.models.ssm``).
+"""Mamba2 SSD (state-space duality) block: chunked train/prefill + O(1)
+decode (counterpart of ``repro.models.ssm``).
 
 ``ssd_chunked`` is the port of the reference's default path: intra-chunk
 quadratic term, chunk states, and the inter-chunk recurrence as a loop over
@@ -8,7 +8,8 @@ roundings of the einsum operands.  The prefill's kernel route
 (``Variant.use_pallas``) goes to ``repro_torch.kernels.ssd_scan`` instead
 (``ssd_kernel_route``).  Projections are split per stream (z/x/B/C/dt).
 ``mamba_prefill`` is one whole Mamba layer of a prefill, shared by the
-hybrid and the ssm-only model.
+hybrid and the ssm-only model; ``ssm_block`` is the block for training,
+always on ``ssd_chunked`` (the kernel is forward only).
 """
 from __future__ import annotations
 
@@ -180,6 +181,27 @@ def ssd_kernel_route(xh, dt, A, Bm, Cm, chunk: int):
     return y, st.reshape(B, H, N, P).transpose(-1, -2)
 
 
+def _gated_out(cfg, p, x, y, z, xh):
+    """The block's tail from the SSD's y: the D skip, the SiLU gate, the
+    gated RMS norm and the output projection, (B, S, D) in x's dtype."""
+    B, S, _ = x.shape
+    y = y + p["D"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
+    d_in, H = ssm_dims(cfg)
+    y = y.reshape(B, S, d_in)
+    y = y.to(torch.float32) * F.silu(z.to(torch.float32))
+    y = rms_norm(y.to(x.dtype), p["gate_norm"], cfg.norm_eps)
+    return (cast_compute(y) @ cast_compute(p["w_out"])).to(x.dtype)
+
+
+def ssm_block(cfg, p: dict, x, ctx=None):
+    """The Mamba2 block for training, x (B, S, D) -> (B, S, D): the block
+    output only, no cache, its SSD through ``ssd_chunked``."""
+    z, xh, Bm, Cm, dt = _project(cfg, p, x)
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size)
+    return _gated_out(cfg, p, x, y, z, xh)
+
+
 def mamba_prefill(cfg, p, x, variant):
     """One Mamba layer ``{"ln", "ssm"}`` over the whole prompt, residual
     included (the layer the reference writes out twice, in ``HybridLM`` and
@@ -192,13 +214,7 @@ def mamba_prefill(cfg, p, x, variant):
     A = -torch.exp(p["ssm"]["A_log"].to(torch.float32))
     ssd = ssd_kernel_route if variant.use_pallas else ssd_chunked
     y, state = ssd(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size)
-    y = y + p["ssm"]["D"].to(torch.float32)[None, None, :, None] * \
-        xh.to(torch.float32)
-    d_in, H = ssm_dims(cfg)
-    y = y.reshape(B, S, d_in)
-    y = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    y = rms_norm(y.to(x.dtype), p["ssm"]["gate_norm"], cfg.norm_eps)
-    out = x + (cast_compute(y) @ cast_compute(p["ssm"]["w_out"])).to(x.dtype)
+    out = x + _gated_out(cfg, p["ssm"], x, y, z, xh)
     W = cfg.ssm.conv_width
     # conv caches: last W-1 *pre-activation* conv inputs
     xc = cast_compute(h)[:, S - (W - 1):, :]

@@ -1,5 +1,6 @@
 """Pure Mamba2 LM, attention-free (counterpart of ``repro.models.ssm_lm``:
-the serving half, ``prefill`` and ``decode_step``).
+``hidden_states`` and ``loss`` for training, ``prefill`` and
+``decode_step`` for serving).
 
 Block parameters are stacked ``(L, ...)`` as in the reference; where the
 reference scans over the stack, the port loops over its layers.  A layer of
@@ -7,17 +8,19 @@ the prefill is ``models.ssm.mamba_prefill``, the hybrid's Mamba layer:
 under ``Variant.use_pallas`` its SSD goes through the hand-written SSD
 kernel, one launch a layer; without it, through ``ssd_chunked``.  Decode
 stays plain PyTorch (``ssm_decode``), as the reference computes it outside
-any Pallas kernel.  ``hidden_states`` and ``loss`` are training-side
-(ROADMAP Queue A 7).  ``ctx`` (sharding) is accepted and ignored.
+any Pallas kernel.  Training runs each layer's ``ssm_block`` (always
+``ssd_chunked``) under ``remat_wrap``.  ``ctx`` (sharding) is accepted and
+ignored.
 """
 from __future__ import annotations
 
-from repro_torch.models.common import (apply_norm, embed_specs, embed_tokens,
-                                       lm_logits, norm_specs, stack_specs,
-                                       tree_index, tree_stack)
-from repro_torch.models.ssm import (mamba_prefill, ssm_cache_shapes,
-                                    ssm_decode, ssm_specs)
-from repro_torch.models.variant import BASELINE, Variant
+from repro_torch.models.common import (apply_norm, chunked_softmax_xent,
+                                       embed_specs, embed_tokens, lm_logits,
+                                       norm_specs, stack_specs, tree_index,
+                                       tree_stack, tree_unbind)
+from repro_torch.models.ssm import (mamba_prefill, ssm_block,
+                                    ssm_cache_shapes, ssm_decode, ssm_specs)
+from repro_torch.models.variant import BASELINE, Variant, remat_wrap
 
 
 class SSMLM:
@@ -32,6 +35,24 @@ class SSMLM:
             "blocks": stack_specs(block, cfg.n_layers),
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
+
+    # -- training ------------------------------------------------------------
+    def hidden_states(self, params, tokens, ctx=None,
+                      variant: Variant = BASELINE):
+        """tokens (B, S) -> final hidden states (B, S, D) bf16."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens)
+        body = remat_wrap(lambda p, x: x + ssm_block(
+            cfg, p["ssm"], apply_norm(cfg, p["ln"], x)), variant)
+        for p in tree_unbind(params["blocks"]):
+            x = body(p, x)
+        return apply_norm(cfg, params["ln_f"], x)
+
+    def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
+        h = self.hidden_states(params, batch["tokens"], ctx, variant)
+        xent = chunked_softmax_xent(self.cfg, params["embed"], h,
+                                    batch["labels"], chunk=variant.xent_chunk)
+        return xent, {"xent": xent}
 
     # -- serving -------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:

@@ -1,14 +1,16 @@
 """Decoder-only LM for the dense, vlm (early-fusion) and moe families
-(counterpart of ``repro.models.transformer``: the serving half,
-``prefill`` and ``decode_step``).
+(counterpart of ``repro.models.transformer``: ``hidden_states`` and
+``loss`` for training, ``prefill`` and ``decode_step`` for serving).
 
 Block parameters are stacked ``(L, ...)`` as in the reference; where the
-reference scans over the stack, the port loops over its layers.  The moe
-branch replaces a layer's MLP with ``models.moe.moe_layer`` (arctic,
-deepseek); the mla branch replaces its attention with DeepSeek-V2's latent
-attention (``models.mla``), whose cache is the compressed ``c`` and
-``k_rope``.  ``hidden_states`` and ``loss`` are training-side (ROADMAP
-Queue A 7).
+reference scans over the stack, the port loops over its layers (in
+training each layer under ``remat_wrap``).  The moe branch replaces a
+layer's MLP with ``models.moe.moe_layer`` (arctic, deepseek), whose aux
+loss training averages over the layers; the mla branch replaces its
+attention with DeepSeek-V2's latent attention (``models.mla``), whose
+cache is the compressed ``c`` and ``k_rope``.  Training runs the plain
+attention (``gqa_attention``, ``mla_attention``) whatever
+``Variant.use_pallas`` says, as the reference's does.
 
 ``Variant.use_pallas`` keeps the reference's meaning: the prefill's causal
 attention goes through the hand-written flash-attention kernel, one launch
@@ -26,11 +28,12 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (apply_mlp, apply_norm, embed_specs,
+from repro_torch.models.common import (apply_mlp, apply_norm,
+                                       chunked_softmax_xent, embed_specs,
                                        embed_tokens, lm_logits, mlp_specs,
                                        norm_specs, stack_specs, tree_index,
-                                       tree_stack)
-from repro_torch.models.variant import BASELINE, Variant
+                                       tree_stack, tree_unbind)
+from repro_torch.models.variant import BASELINE, Variant, remat_wrap
 
 
 class DecoderLM:
@@ -70,6 +73,61 @@ class DecoderLM:
                 capacity_factor=variant.moe_capacity_factor,
                 psum_dtype=variant.psum_dtype)[0]
         return apply_mlp(self.cfg, p["mlp"], h)
+
+    # -- training ------------------------------------------------------------
+    def _block(self, p, x, variant: Variant, positions):
+        """One layer for training: (x after the layer, its aux loss)."""
+        cfg = self.cfg
+        h = apply_norm(cfg, p["ln1"], x)
+        if self.is_mla:
+            a = mla_mod.mla_attention(cfg, p["attn"], h, positions=positions,
+                                      kv_block=variant.kv_block,
+                                      variant=variant.attn_variant)
+        else:
+            a = attn.gqa_attention(cfg, p["attn"], h, causal=True,
+                                   positions=positions,
+                                   kv_block=variant.kv_block,
+                                   variant=variant.attn_variant)
+        x = x + a
+        h = apply_norm(cfg, p["ln2"], x)
+        if self.is_moe:
+            y, aux = moe_mod.moe_layer(
+                None, cfg, p["moe"], h,
+                capacity_factor=variant.moe_capacity_factor,
+                psum_dtype=variant.psum_dtype)
+        else:
+            y = apply_mlp(cfg, p["mlp"], h)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + y, aux
+
+    def hidden_states(self, params, tokens, ctx=None,
+                      variant: Variant = BASELINE):
+        """tokens (B, S) -> (final hidden states (B, S, D) bf16, the aux
+        loss averaged over the layers)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = embed_tokens(params["embed"], tokens)
+        positions = torch.arange(S, device=tokens.device)
+        block = remat_wrap(
+            lambda p, x: self._block(p, x, variant, positions), variant)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for p in tree_unbind(params["blocks"]):
+            x, a = block(p, x)
+            aux = aux + a
+        x = apply_norm(cfg, params["ln_f"], x)
+        return x, aux / cfg.n_layers
+
+    def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
+        """(mean token cross-entropy, plus the weighted aux loss for moe;
+        {"xent", "aux"})."""
+        cfg = self.cfg
+        h, aux = self.hidden_states(params, batch["tokens"], ctx, variant)
+        xent = chunked_softmax_xent(cfg, params["embed"], h, batch["labels"],
+                                    chunk=variant.xent_chunk)
+        loss = xent
+        if self.is_moe:
+            loss = loss + cfg.moe.aux_loss_weight * aux
+        return loss, {"xent": xent, "aux": aux}
 
     # -- serving -------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:

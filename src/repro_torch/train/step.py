@@ -1,0 +1,112 @@
+"""Training / serving step factories (counterpart of ``repro.train.step``).
+
+``make_train_step``: the model loss and its gradients through autograd,
+then AdamW, with optional gradient accumulation (microbatches in turn,
+their float32 gradients summed) and optional int8 error-feedback gradient
+compression before the optimiser.  The step takes the plain route whatever
+``Variant.use_pallas`` says, as the reference's does: its flash-attention
+and SSD kernels are forward only ("training runs the XLA path",
+``repro/kernels/flash_attention/flash_attention.py:9-10``), so training
+launches neither hand-written kernel.  ``ctx`` (sharding) is accepted and
+ignored: one device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import spec_map, tree_leaves, tree_unflatten
+from repro_torch.models.registry import build
+from repro_torch.models.variant import BASELINE, Variant
+from repro_torch.optim import adamw
+from repro_torch.optim.compression import compress_grads
+
+
+def make_train_step(cfg, ctx=None, opt_cfg: adamw.AdamWConfig | None = None,
+                    variant: Variant = BASELINE, accum_steps: int | None = None,
+                    grad_compression: bool = False):
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics):
+    params and the moments are updated in place (and returned);
+    ``grad_compression`` keeps its error residual in
+    ``opt_state["ef_error"]``.  metrics: the loss's ({"xent"[, "aux"]}),
+    "loss", "grad_norm", "lr" (0-dim tensors)."""
+    model = build(cfg)
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    accum_steps = accum_steps if accum_steps is not None else variant.accum_steps
+
+    def loss_fn(params, batch):
+        if variant.cast_params:
+            # bf16 weights at step entry (norms and scales stay f32); the
+            # gradients still reach the f32 parameters through the cast
+            params = spec_map(
+                lambda p: p.to(torch.bfloat16)
+                if (p.dtype == torch.float32 and p.ndim > 1) else p, params)
+        return model.loss(params, batch, ctx, variant)
+
+    def value_and_grad(params, leaves, batch):
+        loss, metrics = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            grads
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        if accum_steps > 1:
+            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    for p in leaves]
+            losses, metrics_all = [], []
+            for i in range(accum_steps):
+                mb = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                                   + v.shape[1:])[i] for k, v in batch.items()}
+                loss_i, m_i, g = value_and_grad(params, leaves, mb)
+                gsum = [a + b for a, b in zip(gsum, g)]
+                losses.append(loss_i)
+                metrics_all.append(m_i)
+            grads = [g / accum_steps for g in gsum]
+            loss = torch.mean(torch.stack(losses))
+            metrics = {k: torch.mean(torch.stack([m[k] for m in metrics_all]))
+                       for k in metrics_all[0]}
+        else:
+            loss, metrics, grads = value_and_grad(params, leaves, batch)
+        grads = tree_unflatten(params, list(grads))
+        new_err = None
+        if grad_compression:
+            grads, new_err = compress_grads(grads, opt_state["ef_error"])
+        params, new_opt, opt_metrics = adamw.apply(
+            opt_cfg, params,
+            {k: v for k, v in opt_state.items() if k != "ef_error"}, grads)
+        if grad_compression:
+            new_opt["ef_error"] = new_err
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return params, new_opt, metrics
+
+    return train_step
+
+
+def make_prefill_step(cfg, ctx=None, variant: Variant = BASELINE):
+    """prefill_step(params, batch) -> (logits, cache), without autograd."""
+    model = build(cfg)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        if cfg.family == "encdec":
+            return model.prefill(params, batch, ctx, variant)
+        return model.prefill(params, batch["tokens"], ctx, variant)
+
+    return prefill_step
+
+
+def make_decode_step(cfg, ctx=None, variant: Variant = BASELINE):
+    """decode_step(params, cache, batch, pos) -> (logits, cache), without
+    autograd.  The reference's ``seq_shard_decode`` (a sequence-sharded
+    decode) is ROADMAP Queue A 8."""
+    model = build(cfg)
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch, pos):
+        return model.decode_step(params, cache, batch["tokens"], pos, ctx,
+                                 variant)
+
+    return decode_step

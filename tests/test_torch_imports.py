@@ -72,7 +72,9 @@ def test_the_port_has_the_slice_modules():
                  "configs/mamba2_2p7b.py", "configs/whisper_medium.py",
                  "configs/arctic_480b.py", "configs/deepseek_v2_236b.py",
                  "models/ssm_lm.py", "models/encdec.py", "models/moe.py",
-                 "models/mla.py"):
+                 "models/mla.py", "optim/adamw.py", "optim/compression.py",
+                 "data/pipeline.py", "checkpoint/checkpoint.py",
+                 "train/step.py", "train/trainer.py", "launch/train.py"):
         assert want in have, want
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     for package, sources in (
@@ -93,7 +95,7 @@ def test_the_port_has_the_figure_scripts():
                  "fig6_istream.py", "fig7_loaded_latency.py",
                  "table1_machine.py", "run.py", "launch_distributed.py",
                  "collective_bench_main.py", "characterize_machine.py",
-                 "serve_lm.py"):
+                 "serve_lm.py", "train_lm.py", "quickstart.py"):
         assert want in have, want
         assert any((ROOT / d / want).exists()
                    for d in ("benchmarks", "scripts", "examples")), want
@@ -124,7 +126,8 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.bench.distributed, repro_torch.core.scaling\n"
         "import repro_torch.core.collective_bench, repro_torch.launch.mesh\n"
         "import repro_torch.ft.stragglers, repro_torch.models.transformer\n"
-        "import repro_torch.models.registry\n"
+        "import repro_torch.models.registry, repro_torch.train.trainer\n"
+        "import repro_torch.launch.train, repro_torch.optim.compression\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
         "from repro_torch.characterize import characterize\n"
         "m, s = characterize(('copy', 'load_sum'), primary='copy',\n"
