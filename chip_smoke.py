@@ -130,6 +130,19 @@ Phases (any failure raises and the script exits non-zero):
      reduced width restored bit for bit and resumed.  Training launches
      neither model kernel (the reference's are forward only): 0 flash, 0
      SSD, 0 membench launches, ``launches_train`` in the kernels line.
+     3k: serving on a mesh, its one-card half, through ``make_smoke_ctx()``
+     — zamba2-2.7b at full width, batch 1: a 1 x 512 prefill through
+     ``make_prefill_step`` (9 flash, 54 SSD launches, ``launches_mesh_serve``
+     in the kernels line) fills the first rows of a 131,072-token KV cache
+     a site (12.08 GB: a GPU's share of long_500k over 4), a seed the rest;
+     16 greedy tokens through ``make_decode_step(seq_shard_decode=True)``,
+     the plain decode fed the same tokens on a copy (logits within 3d's
+     0.15, ms a token both ways), and at each position one step both ways
+     from the same state (``tools/mesh_check.hold_decode_at``: every
+     site's attention within 2e-2, the cache update bit for bit); then
+     ``moe_layer`` through the one-device ctx against no ctx at
+     deepseek-v2-236b's layer shapes, bit for bit.  The 4-GPU half is
+     ``tools/mesh_check.py --steps flash_decode,moe_ep``.
   4  the measurement is real: doubling ``passes`` doubles the time (also
      for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
      memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
@@ -173,6 +186,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT / "tools"))       # mesh_check (phase 3k)
 
 import torch  # noqa: E402
 
@@ -2815,6 +2829,190 @@ def phase_family_serve_path(quick: bool) -> dict[str, dict[str, int]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 3k — serving on a mesh, its one-card half
+# ---------------------------------------------------------------------------
+
+#: the sequence-sharded decode on one card: zamba2-2.7b at full width,
+#: batch 1, a KV cache of S_3K tokens a site (9 x 131,072 x 10,240 B =
+#: 12.08 GB: a GPU's share of long_500k over 4), a prompt of MESH_P tokens
+#: prefilled through the kernels, the rest up to the first decode position
+#: drawn from a seed; MESH_G greedy tokens
+S_3K, MESH_P, MESH_G = 131072, 512, 16
+#: the moe layer through a one-device ctx at deepseek-v2-236b's layer
+#: shapes: a prefill's tokens and a decode step's
+MOE_3K_SHAPES = ((SERVE_B, SERVE_P), (SERVE_B, 1))
+
+
+def phase_mesh_serve_path(quick: bool) -> dict[str, int]:
+    """3k: the mesh's serving path on one card, through ``make_smoke_ctx()``
+    (every axis one position: no collective).  zamba2-2.7b: a 1 x MESH_P
+    prefill (``make_prefill_step``, the kernels: one flash launch a site,
+    one SSD launch a Mamba layer) fills the first rows of an S_3K-token
+    cache and its SSM state, a seed the rest up to the first decode
+    position; MESH_G greedy tokens through ``make_decode_step(...,
+    seq_shard_decode=True)``, then the plain decode fed the same tokens on
+    a copy of the same cache (logits within SERVE_LOGITS_RMS_TOL, ms a
+    token both ways); at each of those positions one step both ways from
+    the same state (``mesh_check.hold_decode_at``: every site's attention
+    within 2e-2 on the same input, the logits, the cache update bit for
+    bit).  Then ``moe_layer`` through the one-device ctx against
+    ``moe_layer(None, ...)`` at deepseek-v2-236b's layer shapes, bit for
+    bit.  Returns the prefill's launches."""
+    import mesh_check
+    from repro_torch.distributed.sharding import make_smoke_ctx
+    from repro_torch.serve import flash_decode as fd
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.registry import shard_params
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    cfg = get_arch("zamba2-2.7b")
+    S, P = (1024, 32) if quick else (S_3K, MESH_P)
+    if quick:
+        cfg = reduced(cfg)
+    say(f"== phase 3k: serving on a mesh, one card (make_smoke_ctx): "
+        f"{cfg.name}{' reduced' if quick else ' at full width'}, batch 1, "
+        f"a {S}-token KV cache a site, a 1 x {P} prefill, {MESH_G} greedy "
+        f"tokens sequence-sharded; moe_layer at {MLA_SERVE}'s layer shapes")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ctx = make_smoke_ctx()
+    model = build(cfg)
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=DEV).manual_seed(0))
+    tokens = make_batch(cfg, (1, P), torch.Generator(
+        device=DEV).manual_seed(1))["tokens"]
+    variant = replace(BASELINE, use_pallas=True)
+    for mod in (mb, fa, sk):
+        mod.reset_launch_counts()
+    with torch.inference_mode():
+        logits, pre = make_prefill_step(cfg, ctx, variant)(
+            params, {"tokens": tokens})
+        sync()
+    launches = {**fa.launch_counts, **sk.launch_counts,
+                "membench": sum(mb.launch_counts.values())}
+    want = {"flash_attn": model.n_sites, "ssd_scan": cfg.n_layers,
+            "membench": 0}
+    say(f"  prefill 1 x {P}: launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"3k prefill launches {launches}, expected "
+                             f"{want}")
+    pos0 = S - 2 * MESH_G
+    shape = (model.n_sites, 1, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    whole = {}
+    for k in ("k", "v"):
+        t = torch.zeros(shape, dtype=torch.bfloat16, device=DEV)
+        t[:, :, :P] = pre[k]
+        t[:, :, P:pos0] = torch.randn((model.n_sites, 1, pos0 - P) + shape[3:],
+                                      generator=gen, device=DEV,
+                                      dtype=torch.bfloat16).mul_(0.3)
+        whole[k] = t
+    ssm = pre["ssm"]
+    kv_gb = sum(t.numel() * t.element_size() for t in whole.values()) / 1e9
+    first = torch.argmax(logits[:, :cfg.vocab_size], -1)[:, None]
+
+    def decode(seq_shard: bool, teacher=None) -> tuple:
+        """MESH_G tokens from pos0 on a copy of the cache: (logits, tokens,
+        ms a token); sequence-sharded, also one further step and one site's
+        attention alone by device-busy time beside their wall time."""
+        step = make_decode_step(cfg, ctx, BASELINE, seq_shard_decode=seq_shard)
+        cache = {"ssm": {k: v.clone() for k, v in ssm.items()},
+                 "k": whole["k"].clone(), "v": whole["v"].clone()}
+        tok, out, toks, ms = first, [], [], []
+        with torch.inference_mode():
+            for i in range(MESH_G):
+                if teacher is not None:
+                    tok = teacher[i]
+                t, (lg, cache) = wall_ms(lambda: step(params, cache,
+                                                      {"tokens": tok},
+                                                      pos0 + i))
+                ms.append(t)
+                out.append(lg)
+                toks.append(tok)
+                tok = torch.argmax(lg[:, :, :cfg.vocab_size], -1)
+            if seq_shard:
+                pos = pos0 + MESH_G
+                wall, _ = wall_ms(lambda: step(params, cache,
+                                               {"tokens": tok}, pos + 1))
+                busy, _ = device_busy_ms(lambda: step(
+                    params, cache, {"tokens": tok}, pos + 2))
+                x = torch.randn((1, 1, cfg.d_model), device=DEV,
+                                generator=torch.Generator(
+                                    device=DEV).manual_seed(4))
+                site = lambda: fd.seq_sharded_gqa_decode(  # noqa: E731
+                    ctx, cfg, params["shared"]["attn"], x, cache["k"][0],
+                    cache["v"][0], pos + 2)
+                site_wall, _ = wall_ms(site)
+                site_busy, _ = device_busy_ms(site)
+                say(f"  a sequence-sharded step: {wall:.2f} ms wall, device "
+                    f"busy {busy} ms; one site's attention alone "
+                    f"{site_wall:.2f} ms wall, busy {site_busy} ms "
+                    f"(x {model.n_sites} sites)")
+        del cache
+        torch.cuda.empty_cache()
+        return out, toks, ms
+
+    lg_sh, toks, ms_sh = decode(True)
+    lg_pl, _, ms_pl = decode(False, teacher=toks)
+    rms = [_rms_rel(a, b) for a, b in zip(lg_sh, lg_pl)]
+    finite = all(bool(torch.isfinite(x).all()) for x in lg_sh)
+    med = lambda v: sorted(v[1:])[len(v[1:]) // 2]  # noqa: E731
+    say(f"  {MESH_G} greedy tokens at pos {pos0}..{pos0 + MESH_G - 1}, "
+        f"{kv_gb:.2f} GB of KV: sequence-sharded {med(ms_sh):.2f} ms a token "
+        f"(median of tokens 2-{MESH_G}; first {ms_sh[0]:.2f}), plain "
+        f"{med(ms_pl):.2f} ms (first {ms_pl[0]:.2f}); logits relative RMS "
+        f"<= {max(rms):.4e} (limit {SERVE_LOGITS_RMS_TOL}), finite {finite}")
+    if not (finite and max(rms) <= SERVE_LOGITS_RMS_TOL):
+        raise AssertionError(f"3k: sequence-sharded logits {rms}")
+    holds = []
+    with torch.inference_mode():
+        for i, tok in enumerate(toks):
+            holds.append(mesh_check.hold_decode_at(ctx, cfg, params, whole,
+                                                   ssm, tok, pos0 + i))
+    bad = [h for h in holds if not (
+        h["attn_max_abs"] < mesh_check.ATTN_TOL and h["cache_equal"]
+        and h["logits_rms"] <= SERVE_LOGITS_RMS_TOL and h["finite"]
+        and h["sites"] == model.n_sites and h["changed_rows"] == [h["pos"]])]
+    say(f"  one step both ways from the same state at each of the {MESH_G} "
+        f"positions: every site's attention within "
+        f"{max(h['attn_max_abs'] for h in holds):.4e} (limit "
+        f"{mesh_check.ATTN_TOL}), logits <= "
+        f"{max(h['logits_rms'] for h in holds):.4e}, the cache update bit "
+        f"for bit, one row written a step")
+    if bad:
+        raise AssertionError(f"3k holds: {bad}")
+    del whole, ssm, pre, params, lg_sh, lg_pl
+    torch.cuda.empty_cache()
+
+    # moe_layer through the one-device ctx: E_local = E, no collective
+    mcfg = reduced(get_arch(MLA_SERVE)) if quick else get_arch(MLA_SERVE)
+    p = init_params(moe_mod.moe_specs(mcfg),
+                    torch.Generator(device=DEV).manual_seed(5))
+    held = ctx.tree_shard(p, {k: (s.axes if k in moe_mod.HELD else
+                                  (None,) * len(s.shape))
+                              for k, s in moe_mod.moe_specs(mcfg).items()})
+    same = []
+    with torch.inference_mode():
+        for b, s in MOE_3K_SHAPES:
+            x = torch.randn((b, s, mcfg.d_model), generator=torch.Generator(
+                device=DEV).manual_seed(b + s), device=DEV,
+                dtype=torch.bfloat16)
+            y0, a0 = moe_mod.moe_layer(None, mcfg, p, x)
+            y1, a1 = moe_mod.moe_layer(ctx, mcfg, held, x)
+            same.append(bool(torch.equal(y0, y1) and torch.equal(a0, a1)))
+    held_same = all(held[k] is p[k] for k in p)
+    say(f"  moe_layer at {mcfg.name}'s layer shapes {list(MOE_3K_SHAPES)} "
+        f"x {mcfg.d_model}: one-device ctx = no ctx bit for bit {same}; "
+        f"the held tree is the whole tree {held_same}")
+    if not (all(same) and held_same):
+        raise AssertionError("3k: moe_layer through the one-device ctx "
+                             "differs")
+    del p, held
+    torch.cuda.empty_cache()
+    say(f"  phase 3k: {time.perf_counter() - t_phase:.1f} s")
+    return {k: v for k, v in launches.items() if k != "membench"}
+
+
+# ---------------------------------------------------------------------------
 # phase 3j — training
 # ---------------------------------------------------------------------------
 
@@ -3959,6 +4157,7 @@ def main(argv=None) -> int:
     counts.update(phase_serve_path(args.quick))
     dense = phase_dense_serve_path(args.quick)
     families = phase_family_serve_path(args.quick)
+    mesh_served = phase_mesh_serve_path(args.quick)
     trained = phase_train_path(args.quick)
     characterized = phase_characterize_path(args.quick)
     audited = phase_audit_path(args.quick)
@@ -3981,6 +4180,8 @@ def main(argv=None) -> int:
             e["launches_figures"] = figures.get(e["name"], 0)
         if e["name"] in trained:
             e["launches_train"] = trained[e["name"]]
+        if e["name"] in mesh_served:
+            e["launches_mesh_serve"] = mesh_served[e["name"]]
     say(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
     say(info["smi"])
     say(json.dumps(line))

@@ -1,0 +1,304 @@
+"""Logical-axis sharding: rules, divisibility-checked resolution, ShardCtx
+(counterpart of ``repro.distributed.sharding``).
+
+Models annotate every tensor dim with a *logical* axis name; this module
+maps logical names to mesh axes.  A mapping is applied only when the dim
+size is divisible by the mesh-axes product; otherwise the dim falls back
+along the candidate chain (usually to replication), and the fallback is
+recorded in ``ShardCtx.fallbacks``.  ``DEFAULT_RULES``, ``_expand``,
+``resolve_dim`` and ``spec`` are the reference's to the letter; a spec is
+a plain tuple (``None``, an axis name or a tuple of names per dim, trailing
+``None`` trimmed), so that ``tuple(reference_spec)`` equals it.
+
+The mesh is any object with ``shape`` (axis name -> size, in order) and
+``axis_names``: ``AbstractMesh`` (no process behind it: resolution only,
+as ``jax.sharding.AbstractMesh`` serves the reference's rules) or
+``repro_torch.launch.mesh.Mesh`` (one ``torch.distributed`` group an axis
+line).  Where the reference leaves placement to ``NamedSharding`` /
+``device_put``, the port holds blocks: ``shard`` takes this rank's block of
+a full tensor from its mesh coordinates, ``gather`` all-gathers it back,
+``all_reduce`` / ``all_gather`` run one collective an axis.  Every
+collective on a CUDA tensor goes through NCCL (anything else raises), and
+a mesh axis of more than one position without a process group raises: the
+sharded path never runs on fewer ranks than the mesh names.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
+
+# logical axis -> ordered candidate mesh-axis tuples ("fsdp" expands to the
+# data axes present in the mesh).  First candidate whose size divides the
+# dim wins.
+DEFAULT_RULES: dict[str, list[Optional[tuple[str, ...]]]] = {
+    # weights
+    "vocab": [("model",), None],
+    "embed": [("fsdp",), None],
+    "heads": [("model",), None],
+    "kv_heads": [("model",), None],
+    "head_dim": [None],
+    "ffn": [("model",), None],
+    "experts": [("model",), None],
+    "kv_lora": [None],
+    "inner": [("model",), None],
+    "state": [None],
+    "conv": [None],
+    "layers": [None],
+    "sites": [None],
+    # activations
+    "batch": [("dp",), None],          # dp expands to pod+data axes
+    "seq": [None],
+    "act_seq": [("model",), None],     # sequence parallelism: residual-stream
+                                       # seq dim shards over model
+    "act_heads": [("model",), None],
+    # decode KV caches: batch takes the data axes first (if divisible), then
+    # the sequence dim takes whatever is left — a 500k x 1 cache shards seq
+    # over data.
+    "kv_seq": [("data",), ("model",), None],
+}
+
+FSDP_AXES = ("pod", "data")
+DP_AXES = ("pod", "data")
+
+#: a spec: one entry a dim (None, an axis name, or a tuple of names)
+Spec = tuple
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of axis names and sizes with no process behind it: enough to
+    resolve specs (any size), and to run on one rank where every axis has
+    one position (``make_smoke_ctx``)."""
+    sizes: tuple[int, ...]
+    names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.names, self.sizes))
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.names
+
+
+def _expand(candidate: Optional[tuple[str, ...]], mesh
+            ) -> Optional[tuple[str, ...]]:
+    if candidate is None:
+        return None
+    out: list[str] = []
+    for ax in candidate:
+        if ax == "fsdp":
+            out.extend(a for a in FSDP_AXES if a in mesh.axis_names)
+        elif ax == "dp":
+            out.extend(a for a in DP_AXES if a in mesh.axis_names)
+        elif ax in mesh.axis_names:
+            out.append(ax)
+    return tuple(out) if out else None
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names (() for None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _tree_map(fn, tree, axes_tree):
+    """``fn(leaf, axes)`` over a nested dict and its axes tree (a tuple at
+    each leaf)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, axes_tree[k]) for k, v in tree.items()}
+    return fn(tree, axes_tree)
+
+
+@dataclass
+class ShardCtx:
+    """Carries the mesh + rules through model code; resolves logical ->
+    physical, and holds a rank's blocks."""
+    mesh: Any
+    rules: dict[str, list[Optional[tuple[str, ...]]]] = field(
+        default_factory=lambda: dict(DEFAULT_RULES))
+    fallbacks: list[str] = field(default_factory=list)  # dropped axes
+
+    # -- mesh helpers -------------------------------------------------------
+    def axis_size(self, *names: str) -> int:
+        return int(math.prod([self.mesh.shape[n] for n in names
+                              if n in self.mesh.axis_names] or [1]))
+
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in DP_AXES if a in self.mesh.axis_names)
+
+    @property
+    def fsdp_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in FSDP_AXES if a in self.mesh.axis_names)
+
+    @property
+    def tp_axis(self) -> Optional[str]:
+        return "model" if "model" in self.mesh.axis_names else None
+
+    # -- resolution ---------------------------------------------------------
+    def resolve_dim(self, logical: Optional[str], size: int,
+                    used: Optional[set] = None) -> Optional[tuple[str, ...]]:
+        """First candidate that is present, unused, and divides the dim."""
+        if logical is None:
+            return None
+        used = used or set()
+        for cand in self.rules.get(logical, [None]):
+            axes = _expand(cand, self.mesh)
+            if axes is None:
+                return None
+            if any(a in used for a in axes):
+                continue  # axis already shards another dim: next candidate
+            total = int(math.prod([self.mesh.shape[a] for a in axes]))
+            if total <= 1:
+                continue
+            if size % total == 0:
+                return axes
+            self.fallbacks.append(f"{logical}({size}) !% {axes}({total})")
+        return None
+
+    def spec(self, shape: Sequence[int], axes: Sequence[Optional[str]]
+             ) -> Spec:
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)} "
+                             f"differ in length")
+        used: set[str] = set()
+        parts: list[Any] = []
+        for size, logical in zip(shape, axes):
+            r = self.resolve_dim(logical, size, used)
+            if r is None:
+                parts.append(None)
+            else:
+                used.update(r)
+                parts.append(r if len(r) > 1 else r[0])
+        while parts and parts[-1] is None:
+            parts.pop()
+        return tuple(parts)
+
+    def constrain(self, x, *axes: Optional[str]):
+        """The reference's ``with_sharding_constraint`` by logical axes.
+        The port keeps every activation replicated over the mesh (only the
+        experts and the sequence-sharded decode cache are held as blocks),
+        so this is the identity."""
+        if len(axes) != x.ndim:
+            raise ValueError(f"{len(axes)} axes for a {x.ndim}-d tensor")
+        return x
+
+    def layout(self, tree, axes_tree) -> dict[str, dict]:
+        """Every leaf's resolved spec and the bytes one rank would hold
+        under it beside the bytes of the whole leaf.  Leaves: anything with
+        ``shape`` and ``dtype`` (meta tensors, real ones), keyed "a/b/c"."""
+        out: dict[str, dict] = {}
+
+        def walk(t, ax, prefix):
+            if isinstance(t, dict):
+                for k in sorted(t):
+                    walk(t[k], ax[k], f"{prefix}{k}/")
+                return
+            spec = self.spec(t.shape, ax)
+            whole = math.prod(t.shape) * t.dtype.itemsize
+            ways = math.prod(self.mesh.shape[a] for e in spec
+                             for a in entry_axes(e))
+            out[prefix[:-1]] = {"spec": spec, "bytes": whole,
+                                "bytes_a_rank": whole // ways}
+        walk(tree, axes_tree, "")
+        return out
+
+    # -- blocks and collectives ----------------------------------------------
+    def _group(self, axis: str):
+        groups = getattr(self.mesh, "groups", None) or {}
+        if axis not in groups:
+            raise RuntimeError(
+                f"mesh axis {axis!r} has {self.mesh.shape[axis]} positions "
+                f"but no process group: the sharded path needs "
+                f"{math.prod(self.mesh.shape.values())} ranks "
+                f"(launch.mesh.make_mesh over that world), not one")
+        return groups[axis]
+
+    def coord(self, axes: Sequence[str]) -> int:
+        """This rank's row-major position over ``axes`` (0 over axes of one
+        position, or none)."""
+        idx = 0
+        for a in axes:
+            n = self.mesh.shape[a]
+            if n > 1:
+                self._group(a)
+                idx = idx * n + self.mesh.coords[a]
+        return idx
+
+    def shard(self, t, spec: Spec):
+        """This rank's block of the full tensor ``t`` under ``spec``: a new
+        tensor (``t`` itself where the spec shards nothing)."""
+        out = t
+        for dim, entry in enumerate(spec):
+            axes = entry_axes(entry)
+            n = self.axis_size(*axes)
+            if n == 1:
+                continue
+            if t.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} is not "
+                                 f"divisible by {axes} ({n} ways)")
+            block = t.shape[dim] // n
+            out = out.narrow(dim, self.coord(axes) * block, block)
+        return t if out is t else out.clone()
+
+    def tree_shard(self, tree, axes_tree):
+        """``shard`` over a nested dict, each leaf by its logical axes."""
+        return _tree_map(lambda t, ax: self.shard(t, self.spec(t.shape, ax)),
+                         tree, axes_tree)
+
+    def gather(self, t, spec: Spec):
+        """The full tensor back from every rank's block under ``spec``: an
+        all-gather over each dim's axes, minor axis first."""
+        for dim, entry in enumerate(spec):
+            for a in reversed(entry_axes(entry)):
+                t = self.all_gather(t, a, dim)
+        return t
+
+    def all_gather(self, t, axis: str, dim: int):
+        """Concatenate every position's ``t`` along ``dim``, in the order of
+        the ``axis`` coordinate."""
+        if self.mesh.shape[axis] == 1:
+            return t
+        import torch
+        import torch.distributed as dist
+        group = self._group(axis)
+        _check_transport(t, group)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.mesh.shape[axis])]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+
+    def all_reduce(self, t, axes: Sequence[str], op: str = "sum"):
+        """``t`` reduced (``sum`` or ``max``) over ``axes``, one collective an
+        axis of more than one position; in place, and returned."""
+        import torch.distributed as dist
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        for a in axes:
+            if self.mesh.shape[a] > 1:
+                group = self._group(a)
+                _check_transport(t, group)
+                dist.all_reduce(t, op=red, group=group)
+        return t
+
+    def all_mean(self, t):
+        """The reference's ``pmean`` over every mesh axis."""
+        n = self.axis_size(*self.mesh.axis_names)
+        return self.all_reduce(t, self.mesh.axis_names) / n
+
+
+def _check_transport(t, group) -> None:
+    """A CUDA tensor goes through NCCL and nothing else."""
+    import torch.distributed as dist
+    backend = dist.get_backend(group)
+    if t.device.type == "cuda" and backend != "nccl":
+        raise RuntimeError(f"a CUDA tensor reached a {backend} collective: "
+                           f"the mesh's CUDA collectives are NCCL only")
+
+
+def make_smoke_ctx() -> ShardCtx:
+    """One-rank mesh with the production axis names: every axis of one
+    position, no collective."""
+    return ShardCtx(AbstractMesh((1, 1, 1), ("pod", "data", "model")))

@@ -80,6 +80,7 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int,
     decode steps."""
     import torch
 
+    from repro_torch.distributed.sharding import make_smoke_ctx
     from repro_torch.models.common import init_params
     from repro_torch.models.registry import build, make_batch
     from repro_torch.models.variant import BASELINE
@@ -96,6 +97,7 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int,
     # tokens
     prompt = inputs if cfg.family == "encdec" else inputs["tokens"]
     variant = replace(BASELINE, use_pallas=True)
+    ctx = make_smoke_ctx()
     V = cfg.vocab_size
 
     def sync():
@@ -105,7 +107,7 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int,
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, prompt, None, variant)
+        logits, cache = model.prefill(params, prompt, ctx, variant)
         sync()
         prefill_s = time.perf_counter() - t0
         # room for the generated tokens, zeros as init_cache makes them
@@ -115,7 +117,7 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int,
         t0 = time.perf_counter()
         for i in range(gen - 1):
             logits, cache = model.decode_step(params, cache, toks,
-                                              prompt_len + i, None, variant)
+                                              prompt_len + i, ctx, variant)
             toks = torch.argmax(logits[:, :, :V], dim=-1)
             out.append(toks)
         sync()

@@ -11,8 +11,9 @@ body: the flash-attention backward).  The prefill's kernel route
 (``Variant.use_pallas``) goes to ``repro_torch.kernels.flash_attention``
 instead.  Layouts are the reference's: q ``(B, S, H, Dh)``, k/v ``(B, S,
 KV, Dh)``.  ``ctx`` (the reference's sharding context) is accepted and
-ignored, and so is ``unroll`` (its scans' unrolling): the multi-device
-model side is ROADMAP Queue A 8.
+ignored: attention stays replicated over a mesh (tensor parallel over
+``model`` is ROADMAP Queue A 8b; the sequence-sharded decode is
+``serve.flash_decode``), and so is ``unroll`` (its scans' unrolling).
 """
 from __future__ import annotations
 

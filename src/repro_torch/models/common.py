@@ -106,27 +106,31 @@ def _fan_in(shape: tuple[int, ...]) -> int:
     return max(math.prod(shape[:-1]), 1)
 
 
+def init_leaf(spec: ParamSpec, generator: torch.Generator, shape=None):
+    """One leaf drawn from ``generator`` on its device: ``spec.shape``, or
+    ``shape`` (a block of the leaf, as a mesh rank holds it) at the whole
+    leaf's standard deviation."""
+    device = generator.device
+    shape = spec.shape if shape is None else tuple(shape)
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=spec.dtype, device=device)
+    std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
+    if spec.init == "embed":
+        std = spec.scale if spec.scale is not None else 0.02
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(spec.dtype)
+
+
 def init_params(specs, generator: torch.Generator):
     """Materialise a parameter tree from specs, drawn from ``generator`` on
     its device (leaves in the reference's order; the numbers differ from the
     reference's ``jax.random``, the standard deviations do not)."""
-    device = generator.device
-
-    def one(spec: ParamSpec):
-        if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
-        if spec.init == "embed":
-            std = spec.scale if spec.scale is not None else 0.02
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return x.mul_(std).to(spec.dtype)
-
     # draw in the reference's leaf order, so that a seed gives the same tree
     # whatever order the dicts were built in
-    drawn = {id(s): one(s) for s in tree_leaves(specs)}
+    drawn = {id(s): init_leaf(s, generator) for s in tree_leaves(specs)}
     return spec_map(lambda s: drawn[id(s)], specs)
 
 

@@ -169,16 +169,18 @@ class EncDecLM:
 
     # -- serving -------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:
-        """Per-layer cache entries, name -> (shape, dtype) (stacked over the
-        decoder layers by the registry): the self-attention's k/v grow with
-        the sequence, the cross-attention's xk/xv hold the A encoder
-        frames."""
+        """Per-layer cache entries, name -> (shape, logical axes, dtype)
+        (stacked over the decoder layers by the registry): the
+        self-attention's k/v grow with the sequence, the cross-attention's
+        xk/xv hold the A encoder frames."""
         cfg = self.cfg
         hd, kv, A = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_audio_ctx
-        return {"k": ((batch, seq_len, kv, hd), torch.bfloat16),
-                "v": ((batch, seq_len, kv, hd), torch.bfloat16),
-                "xk": ((batch, A, kv, hd), torch.bfloat16),
-                "xv": ((batch, A, kv, hd), torch.bfloat16)}
+        self_ax = ("batch", "kv_seq", "kv_heads", None)
+        cross_ax = ("batch", None, "kv_heads", None)
+        return {"k": ((batch, seq_len, kv, hd), self_ax, torch.bfloat16),
+                "v": ((batch, seq_len, kv, hd), self_ax, torch.bfloat16),
+                "xk": ((batch, A, kv, hd), cross_ax, torch.bfloat16),
+                "xv": ((batch, A, kv, hd), cross_ax, torch.bfloat16)}
 
     def prefill(self, params, batch, ctx=None, variant: Variant = BASELINE):
         """Encode, then the teacher-forced decoder pass over the prompt.

@@ -18,9 +18,17 @@ attention goes through the hand-written flash-attention kernel and every
 Mamba layer's SSD through the hand-written SSD kernel; without it, through
 the ports of the reference's default paths (``chunked_attention``,
 ``ssd_chunked``).  Decode stays plain PyTorch, as the reference computes it
-outside any Pallas kernel.  ``ctx`` (sharding) is accepted and ignored.
+outside any Pallas kernel.
+
+``ctx`` (sharding) acts in ``decode_step(..., seq_shard_decode=True)``:
+each site's attention is ``serve.flash_decode.seq_sharded_gqa_decode``
+over this rank's block of the KV cache (``flash_decode.cache_spec``);
+everything else, the SSM caches too, stays whole on every rank (ROADMAP
+Queue C).  The prefill and training take no sharding from it.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -34,6 +42,7 @@ from repro_torch.models.common import (apply_mlp, apply_norm,
 from repro_torch.models.ssm import (mamba_prefill, ssm_block,
                                     ssm_cache_shapes, ssm_decode, ssm_specs)
 from repro_torch.models.variant import BASELINE, Variant, remat_wrap
+from repro_torch.serve import flash_decode
 
 
 class HybridLM:
@@ -114,10 +123,11 @@ class HybridLM:
     # -- serving -----------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:
         """Two cache families: per-mamba-layer SSM caches and per-site KV
-        caches; name -> (shape, dtype), unstacked."""
+        caches; name -> (shape, logical axes, dtype), unstacked."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
-        kv = ((batch, seq_len, cfg.n_kv_heads, hd), torch.bfloat16)
+        kv = ((batch, seq_len, cfg.n_kv_heads, hd),
+              ("batch", "kv_seq", "kv_heads", None), torch.bfloat16)
         return {"ssm": ssm_cache_shapes(cfg, batch), "k": kv, "v": kv}
 
     def prefill(self, params, tokens, ctx=None, variant: Variant = BASELINE):
@@ -156,19 +166,24 @@ class HybridLM:
         return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
-                    variant: Variant = BASELINE):
+                    variant: Variant = BASELINE,
+                    seq_shard_decode: bool = False):
         """tokens (B, 1) at position ``pos`` -> (logits (B, 1, V_padded) f32,
         cache).  The cache's tensors are updated in place (the reference
         returns a new cache; in place saves a copy of it per token), and the
-        same dict is returned."""
+        same dict is returned.  ``seq_shard_decode``: the k/v caches are
+        this rank's ``flash_decode.cache_spec`` blocks on ``ctx``'s mesh and
+        each site attends through the sequence-sharded decode."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens)
         shared = params["shared"]
         for site in range(self.n_sites):
             h = apply_norm(cfg, tree_index(params["site_norms"], site), x)
             h1 = apply_norm(cfg, shared["ln1"], h)
-            a, _, _ = attn.gqa_decode(cfg, shared["attn"], h1, cache["k"][site],
-                                      cache["v"][site], pos)
+            decode = (partial(flash_decode.seq_sharded_gqa_decode, ctx)
+                      if seq_shard_decode else attn.gqa_decode)
+            a, _, _ = decode(cfg, shared["attn"], h1, cache["k"][site],
+                             cache["v"][site], pos)
             h = h + a
             h2 = apply_norm(cfg, shared["ln2"], h)
             x = x + h + apply_mlp(cfg, shared["mlp"], h2)

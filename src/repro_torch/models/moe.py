@@ -1,18 +1,29 @@
-"""Mixture-of-Experts layer on one device (counterpart of
-``repro.models.moe``).
+"""Mixture-of-Experts layer: expert parallelism over the ``model`` axis
+(counterpart of ``repro.models.moe``).
 
-The reference shards experts over its ``model`` axis and combines with a
-psum inside ``shard_map``; on one device that is ``E_local = E``, ``e0 =
-0``, no gather and no psum, and the body is what is left, kept to the
-letter: routing in float32 (softmax, top-k, the top-k weights
-renormalised), a fixed capacity ``C = max(1, ceil(T*K/E*cf))`` per expert
-with ``T = B*S`` (at decode ``T = B``, so tokens drop, as in the
-reference), slots taken first-come over the flattened ``(T, K)`` choices
-and dropped choices sent to a spare row, the experts' SwiGLU as batched
-bfloat16 products, the combine in float32, the shared experts and the
-dense-residual branch, and the Switch-style aux loss.  The expert products
-are plain batched matrix products (the reference leaves them to XLA).
-``ctx`` is accepted and ignored, as elsewhere in the port.
+As in the reference: experts shard over the ``model`` axis (EP), tokens
+over the data axes.  Routing is computed redundantly on every EP peer
+(float32 softmax, top-k, the top-k weights renormalised; ties to the lower
+expert index), each peer processes only its ``E_local = E / ep`` experts
+from ``e0 = coord("model") * E_local`` under a fixed capacity ``C = max(1,
+ceil(T*K/E*cf))`` per expert, with ``T = (B / dp) * S`` the tokens of one
+data shard (so a token can drop on a mesh that a one-device run of the
+whole batch keeps, as in the reference; at decode ``T = B / dp``), slots
+taken first-come over the flattened ``(T, K)`` choices and dropped choices
+sent to a spare row.  One all-reduce over ``model`` in ``psum_dtype``
+combines the routed output, the shared experts' and the dense residual's
+(tensor-parallel partials on their ffn shard); the aux loss (Switch-style)
+is averaged over the whole mesh.  The expert products are plain batched
+matrix products (the reference leaves them to XLA).
+
+Held layout on a mesh (``registry.held_axes``): the experts' weights are
+blocks, E over ``model`` and D over the fsdp axes (ZeRO-3: all-gathered
+over those axes in bfloat16 inside the layer), the shared and residual
+weights (fsdp, model) / (model, fsdp) blocks, the router whole.  The
+layer's input and output are replicated over the mesh, as every activation
+of the port is: each rank takes its data shard of ``x``, and the output is
+all-gathered back over the data axes.  ``ctx`` None, or a mesh whose axes
+all have one position, is one device: ``E_local = E``, no collective.
 """
 from __future__ import annotations
 
@@ -75,42 +86,87 @@ def route(cfg, p: dict, xf):
     return probs, topv / torch.sum(topv, dim=-1, keepdim=True), topi
 
 
+#: the parameters held as blocks on a mesh (the rest, the router too, whole)
+HELD = ("w_gate", "w_up", "w_down", "shared_gate", "shared_up",
+        "shared_down", "res_gate", "res_up", "res_down")
+
+
 def moe_layer(ctx, cfg, p: dict, x, *, capacity_factor=None,
               psum_dtype: str = "float32"):
-    """x: (B, S, D).  Returns (y (B, S, D) in x's dtype, aux loss f32)."""
+    """x: (B, S, D), whole on every rank.  Returns (y (B, S, D) in x's
+    dtype, aux loss f32), whole on every rank."""
     m = cfg.moe
     E, K, D = m.n_experts, m.top_k, cfg.d_model
+    names = ctx.mesh.axis_names if ctx is not None else ()
+    tp = "model" if "model" in names else None
+    dp = ctx.dp_axes if ctx is not None else ()
+    fsdp = ctx.fsdp_axes if ctx is not None else ()
+    ep = ctx.axis_size(tp) if tp else 1
+    dp_size = ctx.axis_size(*dp) if dp else 1
+    fs_size = ctx.axis_size(*fsdp) if fsdp else 1
+    if E % ep:
+        raise ValueError(f"{E} experts over a model axis of {ep}")
+    E_local = E // ep
     B, S, _ = x.shape
-    T = B * S
+    if B % dp_size:
+        raise ValueError(f"batch {B} over data axes of {dp_size}")
+    Bl = B // dp_size
+    T = Bl * S
     C = capacity(cfg, T, capacity_factor)
     dev = x.device
-    xf = cast_compute(x.reshape(T, D))
+    Fe = m.d_ff_expert
+    want = {"w_gate": (E_local, D // fs_size, Fe),
+            "w_up": (E_local, D // fs_size, Fe),
+            "w_down": (E_local, Fe, D // fs_size)}
+    for prefix, Fs in (("shared", Fe * m.n_shared_experts),
+                       ("res", cfg.d_ff if m.dense_residual else 0)):
+        if Fs:
+            want[f"{prefix}_gate"] = want[f"{prefix}_up"] = \
+                (D // fs_size, Fs // ep)
+            want[f"{prefix}_down"] = (Fs // ep, D // fs_size)
+    for name, shape in want.items():
+        if tuple(p[name].shape) != shape:
+            raise ValueError(f"{name} is {tuple(p[name].shape)}; on this mesh "
+                             f"the layer holds a block of {shape}")
+
+    def gather(w, dim):
+        """ZeRO-3: the fsdp blocks of ``w`` gathered, in bfloat16."""
+        wc = cast_compute(w)
+        for a in reversed(fsdp) if fs_size > 1 else ():
+            wc = ctx.all_gather(wc, a, dim)
+        return wc
+
+    d0 = ctx.coord(dp) if dp_size > 1 else 0
+    xf = cast_compute(x[d0 * Bl:(d0 + 1) * Bl].reshape(T, D))
     probs, topv, topi = route(cfg, p, xf)
 
-    # capacity dispatch: each choice's 1-based place in its expert's queue,
-    # in the order of the flattened (T, K) choices
-    flat_e = topi.reshape(-1)                                     # (T*K,)
-    onehot = flat_e[:, None] == torch.arange(E, device=dev)[None, :]
+    # capacity dispatch to the local experts: each choice's 1-based place
+    # in its expert's queue, in the order of the flattened (T, K) choices
+    e0 = ctx.coord((tp,)) * E_local if ep > 1 else 0
+    le = topi.reshape(-1) - e0                                    # (T*K,)
+    local = (le >= 0) & (le < E_local)
+    onehot = (le[:, None] == torch.arange(E_local, device=dev)[None, :]) \
+        & local[:, None]
     pos = torch.cumsum(onehot.to(torch.int32), dim=0) * onehot
     keep = onehot & (pos <= C)
-    slot_mat = torch.where(keep, flat_e[:, None] * C + pos - 1,
+    slot_mat = torch.where(keep, le[:, None] * C + pos - 1,
                            torch.zeros((), dtype=torch.long, device=dev))
     kept = torch.any(keep, dim=1)
     flat_slot = torch.where(kept, torch.sum(slot_mat, dim=1),
-                            torch.full((), E * C, device=dev))
+                            torch.full((), E_local * C, device=dev))
     slot_tk = flat_slot.reshape(T, K)
     kept_tk = kept.reshape(T, K)
 
-    buf = torch.zeros((E * C + 1, D), dtype=xf.dtype, device=dev)
-    for kk in range(K):   # K scatters of (T, D); the spare row E*C takes drops
+    buf = torch.zeros((E_local * C + 1, D), dtype=xf.dtype, device=dev)
+    for kk in range(K):   # K scatters of (T, D); the spare row takes drops
         buf[slot_tk[:, kk]] = xf
-    xe = buf[:E * C].reshape(E, C, D)
+    xe = buf[:E_local * C].reshape(E_local, C, D)
 
-    # the experts' SwiGLU, batched over the experts (bf16 products)
-    g = torch.bmm(xe, cast_compute(p["w_gate"]))
-    u = torch.bmm(xe, cast_compute(p["w_up"]))
+    # the local experts' SwiGLU, batched over the experts (bf16 products)
+    g = torch.bmm(xe, gather(p["w_gate"], 1))
+    u = torch.bmm(xe, gather(p["w_up"], 1))
     h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(xe.dtype)
-    ye = torch.bmm(h, cast_compute(p["w_down"])).reshape(E * C, D)
+    ye = torch.bmm(h, gather(p["w_down"], 2)).reshape(E_local * C, D)
     ye = torch.cat([ye, torch.zeros((1, D), dtype=ye.dtype, device=dev)])
 
     # combine: K gathers of (T, D), float32
@@ -119,16 +175,24 @@ def moe_layer(ctx, cfg, p: dict, x, *, capacity_factor=None,
         w_k = (topv[:, kk] * kept_tk[:, kk]).to(torch.float32)
         out = out + ye[slot_tk[:, kk]].to(torch.float32) * w_k[:, None]
 
-    if m.n_shared_experts:
-        out = out + _ffn_partial(xf, cast_compute(p["shared_gate"]),
-                                 cast_compute(p["shared_up"]),
-                                 cast_compute(p["shared_down"])).to(torch.float32)
-    if m.dense_residual:
-        out = out + _ffn_partial(xf, cast_compute(p["res_gate"]),
-                                 cast_compute(p["res_up"]),
-                                 cast_compute(p["res_down"])).to(torch.float32)
+    # shared experts / dense residual: TP partials on the ffn shard
+    for prefix, on in (("shared", m.n_shared_experts),
+                       ("res", m.dense_residual)):
+        if on:
+            out = out + _ffn_partial(
+                xf, gather(p[f"{prefix}_gate"], 0),
+                gather(p[f"{prefix}_up"], 0),
+                gather(p[f"{prefix}_down"], 1)).to(torch.float32)
 
-    # load-balance aux (Switch-style)
+    if ep > 1:
+        out = ctx.all_reduce(out.to(getattr(torch, psum_dtype)), (tp,))
+
+    # load-balance aux (Switch-style), averaged over the whole mesh
     frac = torch.mean(F.one_hot(topi, E).to(torch.float32), dim=(0, 1)) * E
     aux = torch.sum(frac * torch.mean(probs, dim=0))
-    return out.reshape(B, S, D).to(x.dtype), aux
+    if ctx is not None and ctx.axis_size(*names) > 1:
+        aux = ctx.all_mean(aux.reshape(1))[0]
+    y = out.reshape(Bl, S, D).to(x.dtype)
+    for a in reversed(dp) if dp_size > 1 else ():
+        y = ctx.all_gather(y, a, 0)
+    return y, aux

@@ -168,8 +168,9 @@ def ssd_kernel_route(xh, dt, A, Bm, Cm, chunk: int):
     G, N = Bm.shape[2], Bm.shape[3]
     xdt = (xh.to(torch.float32) * dt[..., None]).to(xh.dtype)
     dA = dt * A[None, None, :]
-    xk = xdt.permute(0, 2, 1, 3).reshape(B * H, S, P)
-    dAk = dA.permute(0, 2, 1).reshape(B * H, S)
+    # contiguous: at B == 1 the reshape is a view with the permuted strides
+    xk = xdt.permute(0, 2, 1, 3).reshape(B * H, S, P).contiguous()
+    dAk = dA.permute(0, 2, 1).reshape(B * H, S).contiguous()
 
     def per_head(m):                                 # (B,S,G,N) -> (B,H,S,N)
         if G == 1:
@@ -232,16 +233,21 @@ def mamba_prefill(cfg, p, x, variant):
 # ---------------------------------------------------------------------------
 
 def ssm_cache_shapes(cfg, batch: int):
-    """name -> (shape, dtype) of one Mamba layer's decode cache."""
+    """name -> (shape, logical axes, dtype) of one Mamba layer's decode
+    cache."""
     s = cfg.ssm
     d_in, H = ssm_dims(cfg)
     GN = s.n_groups * s.d_state
     W = s.conv_width
     return {
-        "state": ((batch, H, s.head_dim, s.d_state), torch.float32),
-        "conv_x": ((batch, W - 1, d_in), torch.bfloat16),
-        "conv_B": ((batch, W - 1, GN), torch.bfloat16),
-        "conv_C": ((batch, W - 1, GN), torch.bfloat16),
+        "state": ((batch, H, s.head_dim, s.d_state),
+                  ("batch", "heads", None, None), torch.float32),
+        "conv_x": ((batch, W - 1, d_in), ("batch", None, "inner"),
+                   torch.bfloat16),
+        "conv_B": ((batch, W - 1, GN), ("batch", None, "state"),
+                   torch.bfloat16),
+        "conv_C": ((batch, W - 1, GN), ("batch", None, "state"),
+                   torch.bfloat16),
     }
 
 

@@ -56,7 +56,7 @@ class SSMLM:
 
     # -- serving -------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:
-        """One Mamba layer's decode cache, name -> (shape, dtype) (stacked
+        """One Mamba layer's decode cache, name -> (shape, axes, dtype) (stacked
         over layers by the registry); no entry grows with the sequence."""
         return ssm_cache_shapes(self.cfg, batch)
 

@@ -17,8 +17,13 @@ attention goes through the hand-written flash-attention kernel, one launch
 a layer (mla: q/k of 192 dims against v of 128, the kernel's (192, 128)
 instance); without it, through ``chunked_attention``, the port of the
 reference's default path.  Decode stays plain PyTorch, as the reference
-computes it outside any Pallas kernel.  ``ctx`` (sharding) is accepted and
-ignored.
+computes it outside any Pallas kernel.
+
+``ctx`` (sharding): serving hands it to ``moe_layer``, which runs expert
+parallel on a mesh (the params held by ``registry.held_axes``); attention,
+the dense MLPs, the norms and the logits stay replicated over the mesh
+(ROADMAP Queue C).  Training on a mesh is ROADMAP Queue A 8b: the training
+path passes no ctx to the moe layer.
 """
 from __future__ import annotations
 
@@ -65,11 +70,11 @@ class DecoderLM:
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
 
-    def _ffn(self, p, h, variant: Variant):
+    def _ffn(self, p, h, variant: Variant, ctx=None):
         """The layer's MLP, or its MoE (whose aux loss serving drops)."""
         if self.is_moe:
             return moe_mod.moe_layer(
-                None, self.cfg, p["moe"], h,
+                ctx, self.cfg, p["moe"], h,
                 capacity_factor=variant.moe_capacity_factor,
                 psum_dtype=variant.psum_dtype)[0]
         return apply_mlp(self.cfg, p["mlp"], h)
@@ -131,16 +136,18 @@ class DecoderLM:
 
     # -- serving -------------------------------------------------------------
     def cache_shapes(self, batch: int, seq_len: int) -> dict:
-        """Per-layer cache entries, name -> (shape, dtype) (stacked over
-        layers by the registry): k/v, or mla's compressed c and k_rope."""
+        """Per-layer cache entries, name -> (shape, logical axes, dtype)
+        (stacked over layers by the registry): k/v, or mla's compressed c
+        and k_rope."""
         cfg = self.cfg
         if self.is_mla:
             m = cfg.mla
-            return {"c": ((batch, seq_len, m.kv_lora_rank), torch.bfloat16),
+            return {"c": ((batch, seq_len, m.kv_lora_rank),
+                          ("batch", "kv_seq", None), torch.bfloat16),
                     "k_rope": ((batch, seq_len, m.rope_head_dim),
-                               torch.bfloat16)}
+                               ("batch", "kv_seq", None), torch.bfloat16)}
         kv = ((batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim),
-              torch.bfloat16)
+              ("batch", "kv_seq", "kv_heads", None), torch.bfloat16)
         return {"k": kv, "v": kv}
 
     def prefill(self, params, tokens, ctx=None, variant: Variant = BASELINE):
@@ -175,7 +182,7 @@ class DecoderLM:
                 o = attn.chunked_attention(q, k, v, causal=True,
                                            kv_block=min(variant.kv_block, S))
             x = x + attn.out_proj(o, p["attn"]["wo"]).to(x.dtype)
-            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant)
+            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx)
             caches.append(entry)
         x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
         return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
@@ -200,6 +207,6 @@ class DecoderLM:
                                           cache["k"][layer],
                                           cache["v"][layer], pos)
             x = x + a
-            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant)
+            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx)
         x = apply_norm(cfg, params["ln_f"], x)
         return lm_logits(cfg, params["embed"], x), cache

@@ -16,10 +16,12 @@ the port reads of it:
   ``use_pallas`` says, as the reference's does (its kernels are forward
   only).
 
-Waiting for the multi-device model side (ROADMAP Queue A 8):
-``psum_dtype`` (the expert-parallel combine), ``seq_parallel`` and
-``cache_layout`` (sharding rules: ``apply_rules``, not ported) and
-``kv_cache_dtype`` (read by the reference's dry run and probe).
+- the mesh: ``psum_dtype`` (the expert-parallel combine of
+  ``moe_layer``), ``seq_parallel`` and ``cache_layout`` (the sharding
+  rules, through ``apply_rules``).
+
+Waiting for the dry run (ROADMAP Queue A 8c): ``kv_cache_dtype`` (read by
+the reference's dry run and probe).
 ``unroll`` unrolls the reference's ``lax.scan`` loops for XLA's cost
 analysis; eager PyTorch has no scan to unroll, so it is accepted and
 ignored.
@@ -107,6 +109,17 @@ VARIANTS: dict[str, Variant] = {
                                moe_capacity_factor=1.0, remat="dots",
                                accum_steps=4, adam_dtype="bfloat16"),
 }
+
+
+def apply_rules(ctx, variant: Variant):
+    """Adjust a ShardCtx's logical rules for variant-level sharding choices."""
+    if not variant.seq_parallel:
+        ctx.rules["act_seq"] = [None]
+    if variant.cache_layout == "heads":
+        # KV heads take the model axis; cache seq stays local per shard =>
+        # no cross-shard softmax combine, no psum in the decode inner loop
+        ctx.rules["kv_seq"] = [("data",), None]
+    return ctx
 
 
 def _save_projections(ctx, op, *args, **kwargs):

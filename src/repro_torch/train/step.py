@@ -7,8 +7,14 @@ compression before the optimiser.  The step takes the plain route whatever
 ``Variant.use_pallas`` says, as the reference's does: its flash-attention
 and SSD kernels are forward only ("training runs the XLA path",
 ``repro/kernels/flash_attention/flash_attention.py:9-10``), so training
-launches neither hand-written kernel.  ``ctx`` (sharding) is accepted and
-ignored: one device.
+launches neither hand-written kernel.  It runs on one device: a ``ctx``
+whose mesh has more than one position raises (training on a mesh is
+ROADMAP Queue A 8b).
+
+``make_prefill_step`` and ``make_decode_step`` hand ``ctx`` to the model:
+on a mesh a moe layer runs expert parallel, and ``seq_shard_decode`` (the
+hybrid) decodes each site's attention over this rank's block of the
+sequence-sharded KV cache (``serve.flash_decode``).
 """
 from __future__ import annotations
 
@@ -29,6 +35,10 @@ def make_train_step(cfg, ctx=None, opt_cfg: adamw.AdamWConfig | None = None,
     ``grad_compression`` keeps its error residual in
     ``opt_state["ef_error"]``.  metrics: the loss's ({"xent"[, "aux"]}),
     "loss", "grad_norm", "lr" (0-dim tensors)."""
+    if ctx is not None and ctx.axis_size(*ctx.mesh.axis_names) > 1:
+        raise NotImplementedError(
+            f"training on a mesh of {dict(ctx.mesh.shape)}: the train step "
+            f"runs on one device (ROADMAP Queue A 8b)")
     model = build(cfg)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     accum_steps = accum_steps if accum_steps is not None else variant.accum_steps
@@ -98,15 +108,20 @@ def make_prefill_step(cfg, ctx=None, variant: Variant = BASELINE):
     return prefill_step
 
 
-def make_decode_step(cfg, ctx=None, variant: Variant = BASELINE):
+def make_decode_step(cfg, ctx=None, variant: Variant = BASELINE,
+                     seq_shard_decode: bool = False):
     """decode_step(params, cache, batch, pos) -> (logits, cache), without
-    autograd.  The reference's ``seq_shard_decode`` (a sequence-sharded
-    decode) is ROADMAP Queue A 8."""
+    autograd.  ``seq_shard_decode`` (the hybrid only, as in the
+    reference): the cache's k/v are this rank's blocks of a sequence-sharded
+    cache."""
     model = build(cfg)
+    kwargs = {}
+    if cfg.family == "hybrid":
+        kwargs["seq_shard_decode"] = seq_shard_decode
 
     @torch.no_grad()
     def decode_step(params, cache, batch, pos):
         return model.decode_step(params, cache, batch["tokens"], pos, ctx,
-                                 variant)
+                                 variant, **kwargs)
 
     return decode_step

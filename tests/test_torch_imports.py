@@ -74,7 +74,9 @@ def test_the_port_has_the_slice_modules():
                  "models/ssm_lm.py", "models/encdec.py", "models/moe.py",
                  "models/mla.py", "optim/adamw.py", "optim/compression.py",
                  "data/pipeline.py", "checkpoint/checkpoint.py",
-                 "train/step.py", "train/trainer.py", "launch/train.py"):
+                 "train/step.py", "train/trainer.py", "launch/train.py",
+                 "distributed/__init__.py", "distributed/sharding.py",
+                 "serve/__init__.py", "serve/flash_decode.py"):
         assert want in have, want
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     for package, sources in (
@@ -128,6 +130,8 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.ft.stragglers, repro_torch.models.transformer\n"
         "import repro_torch.models.registry, repro_torch.train.trainer\n"
         "import repro_torch.launch.train, repro_torch.optim.compression\n"
+        "import repro_torch.distributed.sharding\n"
+        "import repro_torch.serve.flash_decode\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
         "from repro_torch.characterize import characterize\n"
         "m, s = characterize(('copy', 'load_sum'), primary='copy',\n"
@@ -156,6 +160,13 @@ def test_bench_imports_with_jax_blocked():
         "v = dataclasses.replace(BASELINE, use_pallas=True)\n"
         "logits, cache = m.prefill(p, toks, None, v)\n"
         "assert logits.shape == (1, 512) and bool(logits.isfinite().all())\n"
+        "from repro_torch.distributed.sharding import make_smoke_ctx\n"
+        "from repro_torch.train.step import make_decode_step\n"
+        "from repro_torch.launch.serve import pad_cache\n"
+        "cache = pad_cache(cfg, cache, 1, 32, 1)\n"
+        "lg, _ = make_decode_step(cfg, make_smoke_ctx(), BASELINE, True)(\n"
+        "    p, cache, {'tokens': toks[:, :1]}, 32)\n"
+        "assert bool(lg.isfinite().all())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -50,12 +50,33 @@ by default), any failure raises and the script exits non-zero:
            ``NCCL_DEBUG=INFO``;
   stragglers
            ``ft.stragglers.probe_devices`` over the pool at 4 MiB and 1 GiB:
-           one ``acc.cu`` load_sum launch a device a rep on CUDA.
+           one ``acc.cu`` load_sum launch a device a rep on CUDA;
+  flash_decode
+           serving on a mesh, the sequence-sharded decode: zamba2-2.7b at
+           full width, batch 1, on meshes (1, N, 1) and (1, 2, N/2) of
+           processes: at 65,536 tokens (the whole cache from host numpy
+           seeds, cut to each rank's block) one step at ``pos`` in the
+           first shard, on both sides of a shard boundary and last, held
+           against the plain decode (``hold_decode_at``); then long_500k,
+           524,288 tokens, each rank's block drawn on its device (12.08 GB
+           of KV a GPU at N = 4): ms a token, peak memory, finite logits,
+           rows written by their owners only; the refusals (a world of
+           another size, a CUDA tensor at a gloo group);
+  moe_ep   the expert-parallel MoE on (1, 1, N) and (1, 2, N/2):
+           deepseek-v2-236b at full width on 2 layers against the one-GPU
+           path (each data shard alone), every moe layer and the logits;
+           on (1, 1, N) also arctic-480b at full width on 2 layers (which
+           one GPU cannot hold: peak memory, prefill and decode ms, flash
+           launches, top-K against the router alone) and reduced against
+           one GPU.  Each mesh is one ``launch_local`` (one process a
+           device; NCCL on CUDA, gloo on the CPU).
 
-The kernels of the port that run are ``chase.cu``, the chase probe of a
-CUDA shard, and ``acc.cu``'s load_sum, the straggler probe (checked: no
-other launch).  On the CPU the sizes shrink to 1 MiB
-(256 KiB for the chase) and no number is a device's.  Prints each card's
+The kernels of the port that run in this process are ``chase.cu``, the
+chase probe of a CUDA shard, and ``acc.cu``'s load_sum, the straggler
+probe (checked: no other launch); the serving steps' ranks launch
+``flash_attn.cu`` in their prefills and count it.  On the CPU the sizes
+shrink to 1 MiB (256 KiB for the chase), the serving configs to
+``reduced``, and no number is a device's.  Prints each card's
 name and power limit and, last, one JSON line of the figures.  Imports
 nothing of JAX.
 """
@@ -523,8 +544,643 @@ def check_stragglers(dev, log) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving on a mesh: the sequence-sharded decode and the expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+#: zamba2-2.7b's decode: (S of the values check, S of long_500k), by device
+FLASH_DECODE_S = {"cuda": (65536, 524288), "cpu": (256, 1024)}
+#: greedy tokens of the long_500k run
+LONG_TOKENS = 8
+#: the reference's bound on a sequence-sharded attention output
+#: (``tests/test_flash_decode.py``); a layer's MoE output (relative RMS);
+#: the logits (relative RMS), as ``chip_smoke.py`` phase 3d holds them
+ATTN_TOL, LAYER_TOL, LOGITS_RMS_TOL = 2e-2, 2e-2, 0.15
+#: the moe serving shape: batch x prompt, greedy tokens
+MOE_SHAPE = {"cuda": (4, 512, 8), "cpu": (4, 32, 3)}
+MESH_AXES = ("pod", "data", "model")
+
+
+def rms_rel(a, b) -> float:
+    """Relative RMS of ``a`` against ``b``."""
+    a, b = a.float(), b.float()
+    return float(((a - b) ** 2).mean().sqrt() / (b ** 2).mean().sqrt())
+
+
+def row_sums(t):
+    """(sites, B, S, ...) -> per (site, position) float32 sums, a site at a
+    time (a float copy of one site, not of the cache): a row that a decode
+    step rewrote almost surely changes its sum; one that it did not keeps
+    it bit for bit."""
+    import torch
+    return torch.stack([s.float().flatten(2).sum(dim=(0, 2)) for s in t])
+
+
+def hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos) -> dict:
+    """One decode step at ``pos``, both ways, from the same state: the
+    plain step on a copy of the whole cache, and the sequence-sharded step
+    (``make_decode_step(seq_shard_decode=True)``) on this rank's blocks of
+    it, with each site's sharded attention held against the plain
+    ``gqa_decode`` on the same input (which writes the whole cache's row
+    ``pos``).  Returns the largest attention difference, the logits'
+    relative RMS, whether every block equals its part of the whole cache
+    bit for bit afterwards (so only the owner of ``pos`` wrote, and wrote
+    the plain decode's row), and the rows each block changed."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models.variant import BASELINE
+    from repro_torch.serve import flash_decode as fd
+    from repro_torch.train.step import make_decode_step
+    spec = (None,) + fd.cache_spec(ctx, cfg)
+    batch = {"tokens": tok}
+    plain = {"ssm": {k: v.clone() for k, v in ssm.items()},
+             "k": whole["k"].clone(), "v": whole["v"].clone()}
+    lg_plain, _ = make_decode_step(cfg, None, BASELINE)(params, plain, batch,
+                                                         pos)
+    del plain
+    blocks = {"ssm": {k: v.clone() for k, v in ssm.items()},
+              "k": ctx.shard(whole["k"], spec).clone(),
+              "v": ctx.shard(whole["v"], spec).clone()}
+    before = row_sums(blocks["k"]) + row_sums(blocks["v"])
+    errs, sites = [], iter(range(whole["k"].shape[0]))
+    orig = fd.seq_sharded_gqa_decode
+
+    def held(ctx_, cfg_, p, x, kb, vb, pos_):
+        s = next(sites)
+        o_plain, _, _ = attn.gqa_decode(cfg_, p, x, whole["k"][s],
+                                        whole["v"][s], pos_)
+        out = orig(ctx_, cfg_, p, x, kb, vb, pos_)
+        errs.append(float((out[0].float() - o_plain.float()).abs().max()))
+        return out
+    fd.seq_sharded_gqa_decode = held
+    try:
+        lg, _ = make_decode_step(cfg, ctx, BASELINE, seq_shard_decode=True)(
+            params, blocks, batch, pos)
+    finally:
+        fd.seq_sharded_gqa_decode = orig
+    changed = ((row_sums(blocks["k"]) + row_sums(blocks["v"])) != before)
+    return {"pos": pos, "attn_max_abs": max(errs), "sites": len(errs),
+            "logits_rms": rms_rel(lg, lg_plain),
+            "finite": bool(torch.isfinite(lg).all()),
+            "cache_equal": all(torch.equal(blocks[k], ctx.shard(whole[k],
+                                                                spec))
+                               for k in ("k", "v")),
+            "changed_rows": sorted({int(r) for r in
+                                    torch.nonzero(changed)[:, 1]})}
+
+
+def zamba_setup(dev, S: int, seed: int = 0) -> tuple:
+    """zamba2-2.7b (reduced on the CPU): the weights (seed 0, the same on
+    every rank) and random SSM caches for batch 1 at S."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import build, cache_abstract
+    cfg = get_arch("zamba2-2.7b")
+    if dev.type == "cpu":
+        cfg = reduced(cfg)
+    params = init_params(build(cfg).param_specs(),
+                         torch.Generator(device=dev).manual_seed(seed))
+    abs_t, _ = cache_abstract(cfg, 1, S)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    ssm = {k: torch.randn(t.shape, generator=gen, device=dev).mul_(
+        0.1 if k == "state" else 0.3).to(t.dtype)
+        for k, t in abs_t["ssm"].items()}
+    return cfg, params, ssm, abs_t
+
+
+def flash_decode_worker(shape, device: str) -> int:
+    """One rank of the ``flash_decode`` step on mesh ``shape``: the values
+    check at the first S (the whole cache drawn on the host from one numpy
+    seed, identically on every rank, and cut to this rank's block), then
+    long_500k (every rank draws its own block on the device from (seed,
+    rank); no whole cache exists anywhere).  Rank 0 prints one JSON
+    line."""
+    import types
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.bench import distributed as dist
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.variant import BASELINE
+    from repro_torch.serve import flash_decode as fd
+    from repro_torch.train.step import make_decode_step
+    dist.ensure_initialized(device)
+    mesh = make_mesh(shape, MESH_AXES, device=device)
+    ctx, dev, rank = ShardCtx(mesh), mesh.device, dist.process_index()
+    world = tdist.get_world_size()
+    report: dict = {"shape": list(shape), "coords": mesh.coords}
+    # the refusals: a world of another size, a CUDA tensor at gloo
+    try:
+        make_mesh((1, world // 2, 1), MESH_AXES, device=device)
+        report["world_mismatch"] = "no error"
+    except ValueError as e:
+        report["world_mismatch"] = str(e)
+    if dev.type == "cuda":
+        gloo = tdist.new_group(list(range(world)), backend="gloo")
+        fake = ShardCtx(types.SimpleNamespace(
+            shape={"data": world}, axis_names=("data",),
+            groups={"data": gloo}, coords={"data": rank}))
+        try:
+            fake.all_reduce(torch.zeros(1, device=dev), ("data",))
+            report["cuda_on_gloo"] = "no error"
+        except RuntimeError as e:
+            report["cuda_on_gloo"] = str(e)
+    S, S_long = FLASH_DECODE_S[dev.type]
+    cfg, params, ssm, abs_t = zamba_setup(dev, S)
+    n_seq = ctx.axis_size("data")
+    report["cache_spec"] = list(fd.cache_spec(ctx, cfg))
+    # 1) values: the whole cache on the host from numpy seeds (7, site,
+    # k / v), each array drawn by one rank in turn and broadcast to all
+    t0 = time.perf_counter()
+    whole = {k: torch.empty(abs_t[k].shape, dtype=abs_t[k].dtype, device=dev)
+             for k in ("k", "v")}
+    for site in range(whole["k"].shape[0]):
+        for j, k in enumerate(("k", "v")):
+            owner = (2 * site + j) % world
+            if rank == owner:
+                a = np.random.default_rng([7, site, j]).standard_normal(
+                    whole[k].shape[1:], dtype=np.float32)
+                whole[k][site] = torch.from_numpy(a).mul_(0.3).to(
+                    dev).to(whole[k].dtype)
+            tdist.broadcast(whole[k][site], src=owner)
+    report["draw_s"] = time.perf_counter() - t0
+    report["whole_cache_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in whole.values())
+    block = S // n_seq
+    tok = torch.full((1, 1), 11, dtype=torch.int64, device=dev)
+    report["values"] = [
+        hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos)
+        for pos in sorted({5, block - 1, block, S - 1})]
+    del whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # 2) long_500k: this rank's block only, drawn on the device
+    spec = fd.cache_spec(ctx, cfg)
+    tp_n = ctx.axis_size("model") if len(spec) > 2 else 1
+    n_sites = abs_t["k"].shape[0]
+    bshape = (n_sites, 1, S_long // n_seq, cfg.n_kv_heads // tp_n,
+              cfg.resolved_head_dim)
+    gen = torch.Generator(device=dev).manual_seed(1000 + rank)
+    cache = {"ssm": {k: v.clone() for k, v in ssm.items()},
+             "k": torch.randn(bshape, generator=gen, device=dev,
+                              dtype=torch.bfloat16).mul_(0.3),
+             "v": torch.randn(bshape, generator=gen, device=dev,
+                              dtype=torch.bfloat16).mul_(0.3)}
+    report["long"] = {"S": S_long, "block": list(bshape),
+                      "kv_bytes_a_rank": 2 * cache["k"].numel() * 2}
+    before = row_sums(cache["k"]) + row_sums(cache["v"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    step = make_decode_step(cfg, ctx, BASELINE, seq_shard_decode=True)
+    pos0 = S_long // 2 - LONG_TOKENS // 2      # crosses a shard boundary
+    vocab = cfg.vocab_size
+    times, finite, toks = [], True, []
+    for i in range(LONG_TOKENS):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, {"tokens": tok}, pos0 + i)
+        tok = torch.argmax(lg[:, :, :vocab], dim=-1)
+        toks.append(int(tok))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        finite &= bool(torch.isfinite(lg).all())
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    changed = ((row_sums(cache["k"]) + row_sums(cache["v"])) != before)
+    start = mesh.coords["data"] * (S_long // n_seq)
+    report["long"].update({
+        "ms_a_token": [t * 1e3 for t in times], "finite": finite,
+        "tokens": toks,
+        "changed_rows": sorted({start + int(r) for r in
+                                torch.nonzero(changed)[:, 1]}),
+        "owned_positions": [p for p in range(pos0, pos0 + LONG_TOKENS)
+                            if start <= p < start + S_long // n_seq],
+        "peak_bytes": peak})
+    reports = dist._all_gather(report)
+    if dist.is_primary():
+        print("FLASH_DECODE " + json.dumps(reports), flush=True)
+    return 0
+
+
+def moe_hold(ctx, cfg, B: int, P: int, G: int, dev) -> dict:
+    """Serve ``cfg`` on the mesh (prefill of B x P through the kernels, G -
+    1 decode steps teacher-forced with the one-GPU path's greedy tokens)
+    and on one GPU, each data shard's part of the batch on its own
+    (capacity is per data shard): every moe layer's output (relative RMS)
+    and the logits.  The one-GPU path runs first on this rank's whole
+    weights, which are then cut to the held layout."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import build, make_batch, shard_params
+    from repro_torch.models.variant import BASELINE
+    model = build(cfg)
+    variant = replace(BASELINE, use_pallas=True)
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=dev).manual_seed(0))
+    tokens = make_batch(cfg, (B, P), torch.Generator(device=dev).manual_seed(
+        1))["tokens"]
+    dp = ctx.axis_size(*ctx.dp_axes)
+    V = cfg.vocab_size
+    orig = moe.moe_layer
+    log: list = []
+
+    def recording(*a, **kw):
+        out = orig(*a, **kw)
+        log.append(out[0])
+        return out
+
+    def serve(p, c, toks_in, teacher=None):
+        """Prefill and G - 1 decode steps: (logits list, tokens)."""
+        lg, cache = model.prefill(p, toks_in, c, variant)
+        cache = pad_cache(cfg, cache, toks_in.shape[0], P, G)
+        out_l = [lg[:, :V]]
+        nxt = torch.argmax(lg[:, :V], -1)[:, None]
+        out_t = [nxt]
+        for i in range(G - 1):
+            if teacher is not None:
+                nxt = teacher[:, i:i + 1]
+            lg, cache = model.decode_step(p, cache, nxt, P + i, c, variant)
+            out_l.append(lg[:, 0, :V])
+            nxt = torch.argmax(lg[:, :, :V], -1)
+            out_t.append(nxt)
+        return out_l, torch.cat(out_t, 1)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    moe.moe_layer = recording
+    try:
+        with torch.inference_mode():
+            one, logs, t0 = [], [], time.perf_counter()
+            for part in tokens.chunk(dp):
+                log.clear()
+                one.append(serve(params, None, part))
+                logs.append(list(log))
+            sync()
+            one_s = time.perf_counter() - t0
+            held = shard_params(cfg, params, ctx)
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            ref_logits = [torch.cat([o[0][i] for o in one])
+                          for i in range(G)]
+            ref_layers = [torch.cat([lg[i] for lg in logs])
+                          for i in range(len(logs[0]))]
+            teacher = torch.cat([o[1] for o in one])
+            log.clear()
+            fa.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            got_logits, _ = serve(held, ctx, tokens, teacher[:, :-1])
+            sync()
+            mesh_s = time.perf_counter() - t0
+    finally:
+        moe.moe_layer = orig
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, P, G],
+            "moe_calls": len(log),
+            "layer_rms": max(rms_rel(a, b) for a, b in zip(log, ref_layers)),
+            "logits_rms": max(rms_rel(a, b)
+                              for a, b in zip(got_logits, ref_logits)),
+            "finite": all(bool(torch.isfinite(x).all()) for x in got_logits),
+            "flash_launches": fa.launch_counts["flash_attn"],
+            "mesh_s": mesh_s, "one_gpu_s": one_s}
+
+
+def moe_alone(ctx, cfg, B: int, P: int, G: int, dev) -> dict:
+    """Serve ``cfg`` on the mesh where one GPU cannot hold it (the held
+    blocks drawn rank by rank, ``init_params_held``): peak memory, a cold
+    and a warm prefill, decode ms a step, flash launches, finite logits,
+    and every moe layer's top-K choices against the router run alone on
+    this GPU on the same input."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import (build, init_params_held,
+                                             make_batch)
+    from repro_torch.models.variant import BASELINE
+    model = build(cfg)
+    variant = replace(BASELINE, use_pallas=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = init_params_held(cfg, ctx, 0, dev)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(held))
+    tokens = make_batch(cfg, (B, P), torch.Generator(device=dev).manual_seed(
+        1))["tokens"]
+    V = cfg.vocab_size
+    orig = moe.route
+    routes: list = []
+
+    def recording(cfg_, p, xf):
+        out = orig(cfg_, p, xf)
+        routes.append((p["router"], xf, out[2]))
+        return out
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    fa.reset_launch_counts()
+    moe.route = recording
+    try:
+        with torch.inference_mode():
+            prefill_ms = []
+            for _ in range(2):
+                routes.clear()
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = model.prefill(held, tokens, ctx, variant)
+                sync()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            cache = pad_cache(cfg, cache, B, P, G)
+            finite = bool(torch.isfinite(lg).all())
+            nxt = torch.argmax(lg[:, :V], -1)[:, None]
+            step_ms = []
+            for i in range(G - 1):
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = model.decode_step(held, cache, nxt, P + i, ctx,
+                                              variant)
+                nxt = torch.argmax(lg[:, :, :V], -1)
+                sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                finite &= bool(torch.isfinite(lg).all())
+            same = all(torch.equal(orig(cfg, {"router": r}, xf)[2], topi)
+                       for r, xf, topi in routes)
+    finally:
+        moe.route = orig
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, P, G],
+            "param_bytes_a_rank": param_bytes,
+            "w_gate_block": list(held["blocks"]["moe"]["w_gate"].shape),
+            "prefill_ms": prefill_ms, "decode_ms": step_ms,
+            "flash_launches": fa.launch_counts["flash_attn"],
+            "finite": finite, "topk_equal": same, "routed_calls": len(routes),
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None)}
+
+
+def moe_worker(shape, device: str) -> int:
+    """One rank of the ``moe_ep`` step on mesh ``shape``: deepseek-v2-236b
+    at full width on 2 layers against the one-GPU path; on a mesh whose
+    model axis takes every rank, also arctic-480b at full width on 2
+    layers (no reference: one GPU cannot hold it) and arctic reduced
+    against one GPU.  On the CPU every config is reduced.  Rank 0 prints
+    one JSON line."""
+    from dataclasses import replace
+
+    from repro_torch.bench import distributed as dist
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch.mesh import make_mesh
+    dist.ensure_initialized(device)
+    mesh = make_mesh(shape, MESH_AXES, device=device)
+    ctx, dev = ShardCtx(mesh), mesh.device
+    B, P, G = MOE_SHAPE[dev.type]
+    full = dev.type == "cuda"
+
+    def cut(arch):
+        cfg = get_arch(arch)
+        return replace(cfg, n_layers=2) if full else reduced(cfg)
+    report = {"shape": list(shape),
+              "deepseek": moe_hold(ctx, cut("deepseek-v2-236b"), B, P, G,
+                                   dev)}
+    if mesh.shape["model"] == dist.process_count():
+        report["arctic"] = moe_alone(ctx, cut("arctic-480b"), B, P, G, dev)
+        report["arctic_reduced"] = moe_hold(
+            ctx, reduced(get_arch("arctic-480b")), B, P, G, dev)
+    reports = dist._all_gather(report)
+    if dist.is_primary():
+        print("MOE_EP " + json.dumps(reports), flush=True)
+    return 0
+
+
+def _launch_workers(fn: str, shape, n: int, dev, src, tag: str,
+                    timeout: float) -> tuple[list, str]:
+    """``mesh_check.<fn>(shape, device)`` on n processes (one device each;
+    NCCL on CUDA, gloo on the CPU); returns rank 0's JSON line (every
+    rank's report) and the launch's output."""
+    import os
+
+    from repro_torch.bench.distributed import launch_local
+    env = dict(os.environ, PYTHONPATH=str(src))
+    code = (f"import sys; sys.path[:0] = [{str(src)!r}, "
+            f"{str(ROOT / 'tools')!r}]; import mesh_check; "
+            f"sys.exit(mesh_check.{fn}({tuple(shape)!r}, {dev.type!r}))")
+    lines: list[str] = []
+
+    class Sink:
+        def write(self, s):
+            lines.append(s)
+
+        def flush(self):
+            pass
+    rc = launch_local([sys.executable, "-c", code], processes=n, env=env,
+                      timeout=timeout, stream_to=Sink(), device=dev.type)
+    text = "".join(lines)
+    doc = next((json.loads(line.split(tag + " ", 1)[1])
+                for line in text.splitlines() if tag + " " in line), None)
+    if rc != 0 or doc is None:
+        raise AssertionError(f"{fn} {shape} exited {rc}:\n{text[-8000:]}")
+    return doc, text
+
+
+def rule_bytes(shape, cfg, S: int | None = None) -> tuple[int, int]:
+    """(bytes of the parameters, or with S of the batch-1 cache, one rank
+    would hold under the reference's rules on mesh ``shape``, the bytes of
+    the whole): ``ShardCtx.layout`` on an ``AbstractMesh``, nothing
+    allocated."""
+    from repro_torch.distributed.sharding import AbstractMesh, ShardCtx
+    from repro_torch.models.registry import build, cache_abstract
+    ctx = ShardCtx(AbstractMesh(tuple(shape), MESH_AXES))
+    if S is None:
+        import torch
+
+        from repro_torch.models.common import spec_map
+        specs = build(cfg).param_specs()
+        tree = spec_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), specs)
+        axes = spec_map(lambda t: t.axes, specs)
+    else:
+        tree, axes = cache_abstract(cfg, 1, S)
+    rep = ctx.layout(tree, axes)
+    return (sum(r["bytes_a_rank"] for r in rep.values()),
+            sum(r["bytes"] for r in rep.values()))
+
+
+def check_flash_decode(dev, n, src, log) -> dict:
+    """zamba2-2.7b's sequence-sharded decode on meshes (1, n, 1) and (1, 2,
+    n/2): the values check against the plain decode (attention a site
+    within ATTN_TOL, logits within LOGITS_RMS_TOL, the cache bit for bit,
+    only the owner of ``pos`` writing) at ``pos`` in the first shard, on
+    both sides of a shard boundary and last; then long_500k's block a rank,
+    ms a token, peak memory, finite logits, only owned rows changed."""
+    out = {}
+    S, S_long = FLASH_DECODE_S[dev.type]
+    for shape in ((1, n, 1), (1, 2, n // 2)):
+        t0 = time.perf_counter()
+        ranks, _ = _launch_workers("flash_decode_worker", shape, n, dev, src,
+                                   "FLASH_DECODE", 600)
+        key = "x".join(map(str, shape))
+        for r in ranks:
+            if f"needs {n // 2} processes" not in r["world_mismatch"]:
+                raise AssertionError(f"{key}: a mismatched world: "
+                                     f"{r['world_mismatch']}")
+            if dev.type == "cuda" and "gloo collective" not in \
+                    r["cuda_on_gloo"]:
+                raise AssertionError(f"{key}: CUDA at gloo: "
+                                     f"{r['cuda_on_gloo']}")
+            n_seq = shape[1]
+            for v in r["values"]:
+                owner = v["pos"] // (S // n_seq)
+                want_rows = ([v["pos"] - owner * (S // n_seq)]
+                             if r["coords"]["data"] == owner else [])
+                if not (v["attn_max_abs"] < ATTN_TOL
+                        and v["logits_rms"] <= LOGITS_RMS_TOL
+                        and v["cache_equal"] and v["finite"]
+                        and v["changed_rows"] == want_rows):
+                    raise AssertionError(f"{key} rank {r['coords']}: {v} "
+                                         f"(rows wanted {want_rows})")
+            lg = r["long"]
+            if not (lg["finite"] and lg["changed_rows"]
+                    == lg["owned_positions"]):
+                raise AssertionError(f"{key} long_500k: {lg}")
+        if len({tuple(r["long"]["tokens"]) for r in ranks}) != 1:
+            raise AssertionError(f"{key}: ranks decoded other tokens")
+        worst = {k: max(v[k] for r in ranks for v in r["values"])
+                 for k in ("attn_max_abs", "logits_rms")}
+        ms = [sorted(r["long"]["ms_a_token"][1:])[len(
+            r["long"]["ms_a_token"][1:]) // 2] for r in ranks]
+        peak = [r["long"]["peak_bytes"] for r in ranks]
+        out[key] = {"ranks": ranks, "worst": worst,
+                    "long_median_ms_a_token": max(ms), "peak_bytes": peak,
+                    "wall_s": time.perf_counter() - t0}
+        log(f"  mesh {key}: cache spec {ranks[0]['cache_spec']}; values at "
+            f"S {S} ({ranks[0]['whole_cache_bytes'] / 1e9:.2f} GB whole, "
+            f"drawn in {ranks[0]['draw_s']:.1f} s), pos "
+            f"{[v['pos'] for v in ranks[0]['values']]}: attention within "
+            f"{worst['attn_max_abs']:.3e} (limit {ATTN_TOL}), logits "
+            f"{worst['logits_rms']:.3e} (limit {LOGITS_RMS_TOL}), caches bit "
+            f"for bit, only the owner wrote")
+        from repro_torch.configs import get_arch, reduced
+        cfg = get_arch("zamba2-2.7b")
+        cfg = reduced(cfg) if dev.type == "cpu" else cfg
+        (c_rank, c_whole), (p_rank, p_whole) = \
+            rule_bytes(shape, cfg, S_long), rule_bytes(shape, cfg)
+        out[key]["rules"] = {"cache_a_rank": c_rank, "cache": c_whole,
+                             "params_a_rank": p_rank, "params": p_whole}
+        log(f"  mesh {key}: under the reference's rules a rank would hold "
+            f"{c_rank / 1e9:.2f} of the cache's {c_whole / 1e9:.2f} GB and "
+            f"{p_rank / 1e9:.2f} of the parameters' {p_whole / 1e9:.2f} GB; "
+            f"the port holds the KV as blocks, the parameters and SSM "
+            f"caches whole (ROADMAP Queue C)")
+        log(f"  mesh {key}: long_500k S {S_long}, "
+            f"{ranks[0]['long']['kv_bytes_a_rank'] / 1e9:.2f} GB of KV a rank "
+            f"(block {ranks[0]['long']['block']}): median "
+            f"{max(ms):.2f} ms a token (slowest rank; each rank "
+            + ", ".join(f"{m:.2f}" for m in ms) + "), peak "
+            + (", ".join(f"{p / 2**30:.2f}" for p in peak) + " GiB"
+               if dev.type == "cuda" else "not measured (CPU)")
+            + f"; finite; rows written "
+            f"{sorted({p for r in ranks for p in r['long']['changed_rows']})}"
+            f" by their owners only; {out[key]['wall_s']:.1f} s")
+    return out
+
+
+def check_moe_ep(dev, n, src, log) -> dict:
+    """The expert-parallel MoE on meshes (1, 1, n) and (1, 2, n/2):
+    deepseek-v2-236b at full width on 2 layers against one GPU (each moe
+    layer within LAYER_TOL, the logits within LOGITS_RMS_TOL); on (1, 1,
+    n) arctic-480b at full width on 2 layers (no reference; its peak
+    memory, times, launches and routing) and reduced against one GPU."""
+    out = {}
+    per_layer = 1 if dev.type == "cuda" else 0      # the CPU: plain flash
+    for shape in ((1, 1, n), (1, 2, n // 2)):
+        t0 = time.perf_counter()
+        ranks, _ = _launch_workers("moe_worker", shape, n, dev, src,
+                                   "MOE_EP", 600)
+        key = "x".join(map(str, shape))
+        for r in ranks:
+            for name in ("deepseek", "arctic_reduced"):
+                h = r.get(name)
+                if h is None:
+                    continue
+                if not (h["layer_rms"] <= LAYER_TOL and h["finite"]
+                        and h["logits_rms"] <= LOGITS_RMS_TOL
+                        and h["flash_launches"] == per_layer * h["layers"]):
+                    raise AssertionError(f"{key} {name}: {h}")
+            a = r.get("arctic")
+            if a is not None and not (a["finite"] and a["topk_equal"]
+                                      and a["flash_launches"]
+                                      == 2 * per_layer * a["layers"]):
+                raise AssertionError(f"{key} arctic: {a}")
+        out[key] = {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+        for name in ("deepseek", "arctic_reduced"):
+            if name not in ranks[0]:
+                continue
+            hs = [r[name] for r in ranks]
+            log(f"  mesh {key} {hs[0]['arch']} ({hs[0]['layers']} layers, "
+                f"batch {hs[0]['batch']}): moe layers within "
+                f"{max(h['layer_rms'] for h in hs):.3e} of one GPU (limit "
+                f"{LAYER_TOL}), logits {max(h['logits_rms'] for h in hs):.3e}"
+                f" (limit {LOGITS_RMS_TOL}); {hs[0]['moe_calls']} moe calls, "
+                f"{hs[0]['flash_launches']} flash launches a rank; mesh "
+                f"{max(h['mesh_s'] for h in hs):.2f} s, one GPU "
+                f"{max(h['one_gpu_s'] for h in hs):.2f} s (first calls)")
+        if "arctic" in ranks[0]:
+            a = [r["arctic"] for r in ranks]
+            step_ms = max(sorted(x["decode_ms"])[len(x["decode_ms"]) // 2]
+                          for x in a)
+            from repro_torch.configs import get_arch, reduced
+            from dataclasses import replace
+            cfg = get_arch("arctic-480b")
+            cfg = (reduced(cfg) if dev.type == "cpu"
+                   else replace(cfg, n_layers=2))
+            p_rank, p_whole = rule_bytes(shape, cfg)
+            out[key]["rules"] = {"params_a_rank": p_rank, "params": p_whole}
+            log(f"  mesh {key} {cfg.name}: under the reference's rules a "
+                f"rank would hold {p_rank / 1e9:.2f} of the parameters' "
+                f"{p_whole / 1e9:.2f} GB; the port holds "
+                f"{a[0]['param_bytes_a_rank'] / 1e9:.2f} (the experts as "
+                f"blocks, the rest whole)")
+            log(f"  mesh {key} {a[0]['arch']} at full width "
+                f"({a[0]['layers']} layers, batch {a[0]['batch']}): expert "
+                f"block {a[0]['w_gate_block']} a rank, "
+                f"{a[0]['param_bytes_a_rank'] / 1e9:.2f} GB of parameters a "
+                f"rank, peak "
+                + (", ".join(f"{x['peak_bytes'] / 2**30:.2f}" for x in a)
+                   + " GiB" if dev.type == "cuda" else "not measured (CPU)")
+                + f"; prefill cold / warm "
+                f"{max(x['prefill_ms'][0] for x in a):.1f} / "
+                f"{max(x['prefill_ms'][1] for x in a):.1f} ms, decode "
+                f"{step_ms:.2f} ms a step (median, slowest rank); flash launches "
+                f"{a[0]['flash_launches']}; logits finite; top-K = the "
+                f"router alone ({a[0]['routed_calls']} calls)")
+        log(f"  mesh {key}: {out[key]['wall_s']:.1f} s")
+    return out
+
+
 STEPS = ("enqueue", "sharded", "scaling", "launch", "fig4", "collectives",
-         "stragglers")
+         "stragglers", "flash_decode", "moe_ep")
 
 
 def main(argv=None) -> int:
@@ -605,18 +1261,39 @@ def main(argv=None) -> int:
     if "stragglers" in steps:
         log("== stragglers: probe_devices over the pool")
         summary["stragglers"] = check_stragglers(dev, log)
+    if "flash_decode" in steps or "moe_ep" in steps:
+        if n % 2:
+            raise SystemExit(f"mesh_check: the serving steps need an even "
+                             f"pool; {n} devices")
+        if dev.type == "cuda":
+            fa.LIBRARY.build_all()      # once, before the ranks load it
+    if "flash_decode" in steps:
+        log(f"== flash_decode: zamba2-2.7b's sequence-sharded decode on "
+            f"(1, {n}, 1) and (1, 2, {n // 2})")
+        summary["flash_decode"] = check_flash_decode(dev, n, src, log)
+    if "moe_ep" in steps:
+        log(f"== moe_ep: expert-parallel MoE on (1, 1, {n}) and "
+            f"(1, 2, {n // 2})")
+        summary["moe_ep"] = check_moe_ep(dev, n, src, log)
     launched = {k: v for mod in (mb, fa, sk)
                 for k, v in mod.launch_counts.items() if v}
     allowed = {"chase"} | ({"load_sum"} if "stragglers" in steps else set())
     if set(launched) - allowed or (dev.type == "cpu" and launched):
         raise AssertionError(f"kernels launched: {launched}")
     log(f"== all checks passed in {time.perf_counter() - t0:.1f} s; "
-        f"launches {launched} (the chase probe of a CUDA shard, the "
-        f"straggler probe's load_sum)")
+        f"launches in this process {launched} (the chase probe of a CUDA "
+        f"shard, the straggler probe's load_sum; the serving steps' ranks "
+        f"count their own flash launches)")
     summary = {"mesh_check": summary}
     (out_dir / f"mesh_check{suffix}.json").write_text(
         json.dumps(summary, indent=1))
-    log(json.dumps(summary))
+    # the serving steps' every-rank reports stay in the file
+    log(json.dumps(summary, default=str)
+        if not ({"flash_decode", "moe_ep"} & set(steps)) else
+        json.dumps({k: (v if k not in ("flash_decode", "moe_ep") else
+                        {m: {f: x for f, x in r.items() if f != "ranks"}
+                         for m, r in v.items()})
+                    for k, v in summary["mesh_check"].items()}))
     return 0
 
 
