@@ -127,11 +127,16 @@ Phases (any failure raises and the script exits non-zero):
      route within 1e-2, kernel route within 3d's 0.15); the card against
      the CPU at full width on 2 layers (loss and every gradient leaf within
      2e-2); one step of each of the ten archs reduced; a checkpoint round at
-     reduced width restored bit for bit and resumed.  Training launches
+     reduced width restored bit for bit and resumed; one step at 2 layers
+     through a ``ShardCtx`` over a one-rank NCCL world (the held
+     parameters, the pipeline's block, the mesh step) bit for bit the
+     ``ctx=None`` step's (the 4-GPU half: ``tools/mesh_check.py --steps
+     train``).  Training launches
      neither model kernel (the reference's are forward only): 0 flash, 0
      SSD, 0 membench launches, ``launches_train`` in the kernels line.
      3k: serving on a mesh, its one-card half, through ``make_smoke_ctx()``
-     — zamba2-2.7b at full width, batch 1: a 1 x 512 prefill through
+     and the held layout (``shard_params``: on one position the whole
+     leaves) — zamba2-2.7b at full width, batch 1: a 1 x 512 prefill through
      ``make_prefill_step`` (9 flash, 54 SSD launches, ``launches_mesh_serve``
      in the kernels line) fills the first rows of a 131,072-token KV cache
      a site (12.08 GB: a GPU's share of long_500k over 4), a seed the rest;
@@ -2878,6 +2883,9 @@ def phase_mesh_serve_path(quick: bool) -> dict[str, int]:
     model = build(cfg)
     params = init_params(model.param_specs(),
                          torch.Generator(device=DEV).manual_seed(0))
+    # the layout the mesh holds (every leaf by its own axes): on one
+    # position the whole leaves themselves
+    params = shard_params(cfg, params, ctx)
     tokens = make_batch(cfg, (1, P), torch.Generator(
         device=DEV).manual_seed(1))["tokens"]
     variant = replace(BASELINE, use_pallas=True)
@@ -2987,9 +2995,8 @@ def phase_mesh_serve_path(quick: bool) -> dict[str, int]:
     mcfg = reduced(get_arch(MLA_SERVE)) if quick else get_arch(MLA_SERVE)
     p = init_params(moe_mod.moe_specs(mcfg),
                     torch.Generator(device=DEV).manual_seed(5))
-    held = ctx.tree_shard(p, {k: (s.axes if k in moe_mod.HELD else
-                                  (None,) * len(s.shape))
-                              for k, s in moe_mod.moe_specs(mcfg).items()})
+    held = ctx.tree_shard(p, {k: s.axes for k, s in
+                              moe_mod.moe_specs(mcfg).items()})
     same = []
     with torch.inference_mode():
         for b, s in MOE_3K_SHAPES:
@@ -3227,12 +3234,70 @@ def train_every_arch_and_resume() -> None:
                              f"{same}, resumed at {hist[0]['step']}")
 
 
+def train_one_position_mesh(quick: bool) -> None:
+    """One step of TRAIN_ARCH at full width on TRAIN_CPU_DEPTH layers
+    through a ``ShardCtx`` over a one-rank NCCL world (``make_mesh((1, 1,
+    1))``: the held parameters, the pipeline's block, the mesh step), and
+    the same step with ``ctx=None``: the loss, every metric, parameter and
+    moment bit for bit."""
+    import torch.distributed as tdist
+
+    from repro_torch.bench import distributed as dist
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import shard_params
+    from repro_torch.train.step import make_train_step
+    cfg = replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_CPU_DEPTH)
+    if quick:
+        cfg = reduced(cfg)
+    own = not tdist.is_initialized()
+    if own:
+        dist.initialize(f"127.0.0.1:{dist.pick_free_port()}", 1, 0, DEV)
+    try:
+        ctx = ShardCtx(make_mesh((1, 1, 1), ("pod", "data", "model"),
+                                 device=DEV))
+        model = build(cfg)
+        runs = {}
+        for label, c in (("none", None), ("mesh", ctx)):
+            params = init_params(model.param_specs(),
+                                 torch.Generator(device=DEV).manual_seed(0))
+            if c is not None:
+                params = shard_params(cfg, params, c)
+            opt = adamw.init_state(params)
+            batch = make_pipeline(cfg, (TRAIN_B, TRAIN_S), c, seed=0,
+                                  device=DEV).batch(0)
+            step = make_train_step(cfg, c, adamw.AdamWConfig(**TRAIN_OPT))
+            ms, (params, opt, m) = wall_ms(lambda: step(params, opt, batch))
+            runs[label] = ({"params": params, "mu": opt["mu"],
+                            "nu": opt["nu"]}, m, ms)
+            del params, opt, batch
+    finally:
+        if own:
+            dist._shutdown()
+    (t0, m0, ms0), (t1, m1, ms1) = runs["none"], runs["mesh"]
+    same_m = m0.keys() == m1.keys() and all(torch.equal(m0[k], m1[k])
+                                            for k in m0)
+    same_t = all(torch.equal(a.detach(), b.detach()) for a, b in
+                 zip(tree_leaves(t0), tree_leaves(t1)))
+    say(f"  one step at {cfg.n_layers} layers, batch {TRAIN_B} x {TRAIN_S}, "
+        f"through a one-position mesh (one NCCL rank) against ctx=None: "
+        f"loss {float(m1['loss']):.6f} vs {float(m0['loss']):.6f}, metrics "
+        f"bit for bit {same_m}, parameters and moments bit for bit "
+        f"{same_t}; {ms1:.0f} / {ms0:.0f} ms wall (first calls)")
+    if not (same_m and same_t):
+        raise AssertionError("3j: the one-position mesh step differs from "
+                             "the ctx=None step")
+    del runs, t0, t1
+    torch.cuda.empty_cache()
+
+
 def phase_train_path(quick: bool) -> dict[str, int]:
     """3j: training — TRAIN_ARCH at full width through the Trainer, its
     logits against the serving prefill's, the card against the CPU at full
-    width on 2 layers, every arch reduced for a step and a checkpoint
-    round.  Training launches neither model kernel (the reference's are
-    forward only); returns training's launches (0 each)."""
+    width on 2 layers, every arch reduced for a step, a checkpoint round
+    and one step through a one-position mesh against ctx=None.  Training
+    launches neither model kernel (the reference's are forward only);
+    returns training's launches (0 each)."""
     say(f"== phase 3j: training (Trainer on {TRAIN_ARCH}"
         f"{' reduced' if quick else ' at full width'}, batch {TRAIN_B} x "
         f"{TRAIN_S}, {TRAIN_STEPS} steps, AdamW {TRAIN_OPT})")
@@ -3249,10 +3314,11 @@ def phase_train_path(quick: bool) -> dict[str, int]:
         mod.reset_launch_counts()
     train_card_against_cpu(quick)
     train_every_arch_and_resume()
+    train_one_position_mesh(quick)
     counts = {k: v + _train_counts()[k] for k, v in counts.items()}
     say(f"  launches while training (the full-width run, the card-vs-CPU "
-        f"gradients, the ten archs, the checkpoint round): {counts}; the "
-        f"serving comparison's: {compare}")
+        f"gradients, the ten archs, the checkpoint round, the one-position "
+        f"mesh): {counts}; the serving comparison's: {compare}")
     if any(counts.values()):
         raise AssertionError(f"training launched a kernel: {counts}")
     say(f"  phase 3j: {time.perf_counter() - t_phase:.1f} s")

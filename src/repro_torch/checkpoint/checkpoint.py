@@ -14,8 +14,14 @@ dict.  numpy has no bfloat16: a bfloat16 leaf is written as its uint16
 bits with ``"bfloat16"`` as its manifest dtype, and a bfloat16 leaf is read
 back through its bits whatever numpy type its file holds (the reference's
 files hold an ``ml_dtypes`` bfloat16 array, whose ``.npy`` type is
-two-byte void).  Restore puts every leaf on one device; the reference's
-elastic restore onto another mesh is ROADMAP Queue A 8.
+two-byte void).
+
+On a mesh (``ctx`` and the tree's ``specs``: the ``ParamSpec`` of each
+leaf held as a block, None for a leaf held whole) ``save`` gathers each
+leaf whole, one leaf at a time, and rank 0 writes the format above, so the
+files do not depend on the mesh; ``restore`` reads each whole leaf and
+keeps this rank's block of it, so a checkpoint restores onto any mesh, one
+device included (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -75,21 +81,45 @@ def config_hash(obj) -> str:
 _ASYNC_THREADS: list[threading.Thread] = []
 
 
+def _whole(ctx, specs, tree):
+    """(name, the whole leaf) for every leaf of ``tree``, gathered one at a
+    time on a mesh."""
+    leaves = tree_leaves_with_paths(tree)
+    if ctx is None or ctx.n_ranks == 1:
+        yield from leaves
+        return
+    held = dict(tree_leaves_with_paths(specs))
+    for name, leaf in leaves:
+        s = held.get(name)
+        yield name, (leaf if s is None else
+                     ctx.gather(leaf, ctx.held_spec(leaf, s.shape, s.axes)))
+
+
 def save(ckpt_dir: str | Path, step: int, tree, extra: Optional[dict] = None,
-         blocking: bool = True) -> Path:
+         blocking: bool = True, ctx=None, specs=None) -> Path:
     """Write a checkpoint; returns the step directory.  With
     ``blocking=False`` the file writes happen on a background thread (every
     leaf is first copied to the host, synchronously), so that training
-    proceeds while the disk I/O runs; ``wait_async`` joins them."""
+    proceeds while the disk I/O runs; ``wait_async`` joins them.  On a mesh
+    every rank takes part in the gathers and rank 0 alone writes; a
+    blocking save returns on every rank once the checkpoint is published."""
     ckpt_dir = Path(ckpt_dir)
     step_dir = ckpt_dir / f"step_{step:08d}"
     tmp_dir = ckpt_dir / f".tmp_step_{step:08d}"
+    writer = ctx is None or ctx.n_ranks == 1 or \
+        torch.distributed.get_rank() == 0
+    host = []
+    with torch.no_grad():
+        for name, leaf in _whole(ctx, specs, tree):
+            if writer:
+                host.append((name, *_to_host(leaf)))
+    if not writer:
+        if blocking:
+            torch.distributed.barrier()         # rank 0 has published
+        return step_dir
     if tmp_dir.exists():
         shutil.rmtree(tmp_dir)
     tmp_dir.mkdir(parents=True)
-
-    host = [(name, *_to_host(leaf))
-            for name, leaf in tree_leaves_with_paths(tree)]
     manifest = {
         "step": step,
         "time": time.time(),
@@ -112,6 +142,8 @@ def save(ckpt_dir: str | Path, step: int, tree, extra: Optional[dict] = None,
 
     if blocking:
         _write()
+        if ctx is not None and ctx.n_ranks > 1:
+            torch.distributed.barrier()
     else:
         t = threading.Thread(target=_write, daemon=True)
         t.start()
@@ -143,11 +175,13 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore(ckpt_dir: str | Path, tree_like, device=None,
-            step: Optional[int] = None):
+            step: Optional[int] = None, ctx=None, specs=None):
     """Restore into the structure of ``tree_like`` (nested dicts of
     tensors): (tree, manifest).  Each leaf keeps the dtype it was written
     with and goes to ``device`` (None: the device of ``tree_like``'s leaf).
-    Raises ValueError when the checkpoint's leaves are not the tree's."""
+    On a mesh (``ctx``, ``specs`` as for ``save``) each leaf is this rank's
+    block of the whole one, held as ``tree_like``'s leaf is.  Raises
+    ValueError when the checkpoint's leaves are not the tree's."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -162,12 +196,16 @@ def restore(ckpt_dir: str | Path, tree_like, device=None,
         raise ValueError(f"checkpoint/tree structure mismatch: {step_dir} "
                          f"holds {[e['name'] for e in entries]}, the tree "
                          f"{[n for n, _ in leaves]}")
+    held = dict(tree_leaves_with_paths(specs)) if specs is not None else {}
     out = {}
     for (name, like), e in zip(leaves, entries):
         dev = device if device is not None else getattr(like, "device", "cpu")
-        out[name] = _from_host(
-            np.load(step_dir / (name.replace("/", "__") + ".npy")),
-            e["dtype"], dev)
+        t = _from_host(np.load(step_dir / (name.replace("/", "__") + ".npy")),
+                       e["dtype"], "cpu")
+        s = held.get(name)
+        if ctx is not None and s is not None:
+            t = ctx.shard(t, ctx.held_spec(like, s.shape, s.axes))
+        out[name] = t.to(dev)
 
     def rebuild(t, prefix=""):
         if isinstance(t, dict):

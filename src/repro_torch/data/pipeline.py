@@ -9,7 +9,11 @@ curve has learnable structure; ``labels`` are the tokens shifted by one.
 The draw runs on a CPU ``torch.Generator`` seeded from (seed, step) and the
 batch then moves to the device, so that a step gives the same batch on the
 card and on the CPU.  The port cannot reproduce ``jax.random``'s bits: its
-batches follow the reference's distribution, not its values.
+batches follow the reference's distribution, not its values.  On a mesh
+every rank draws the whole global batch from the same generator, exactly
+as one device does, and keeps its block under the ``batch`` rule (the
+data axes where they divide the batch, else whole), as the reference's
+``make_pipeline`` places it: the values are one device's.
 """
 from __future__ import annotations
 
@@ -42,8 +46,9 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 class SyntheticTokens:
     def __init__(self, cfg: DataConfig, frames_dim: int = 0,
-                 n_audio_ctx: int = 0, device=None):
+                 n_audio_ctx: int = 0, device=None, ctx=None):
         self.cfg = cfg
+        self.ctx = ctx
         self.frames_dim = frames_dim
         self.n_audio_ctx = n_audio_ctx
         self.device = resolve_device(device)
@@ -54,7 +59,7 @@ class SyntheticTokens:
 
     def batch(self, step: int) -> dict:
         """{"tokens", "labels": (B, S) int64, ["frames": (B, A, D) bf16]}
-        on the device."""
+        on the device: this rank's block of them on a mesh."""
         cfg = self.cfg
         gen = step_generator(cfg.seed, step)
         B, S, V = cfg.global_batch, cfg.seq_len, cfg.vocab_size
@@ -68,13 +73,17 @@ class SyntheticTokens:
             out["frames"] = torch.randn(
                 (B, self.n_audio_ctx, self.frames_dim),
                 generator=gen).to(torch.bfloat16) * 0.02
+        if self.ctx is not None:
+            out = {k: self.ctx.shard(v, self.ctx.block_spec(
+                v.shape, ("batch",) + (None,) * (v.ndim - 1)))
+                for k, v in out.items()}
         return {k: v.contiguous().to(self.device) for k, v in out.items()}
 
 
 def make_pipeline(cfg_arch, shape, ctx=None, seed: int = 0, device=None):
     """The pipeline for an architecture at ``shape`` = (batch, seq) or a
-    ``ShapeConfig``; encdec also draws its frame embeddings.  ``ctx`` (the
-    reference's batch sharding) is accepted and ignored: one device."""
+    ``ShapeConfig``; encdec also draws its frame embeddings.  ``ctx`` (a
+    ``ShardCtx``): each batch is this rank's block of the global one."""
     if isinstance(shape, tuple):
         B, S = shape
     else:
@@ -83,4 +92,4 @@ def make_pipeline(cfg_arch, shape, ctx=None, seed: int = 0, device=None):
                       global_batch=B, seed=seed)
     frames_dim = cfg_arch.d_model if cfg_arch.family == "encdec" else 0
     return SyntheticTokens(dcfg, frames_dim, cfg_arch.n_audio_ctx,
-                           device=device)
+                           device=device, ctx=ctx)

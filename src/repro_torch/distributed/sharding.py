@@ -21,12 +21,23 @@ a full tensor from its mesh coordinates, ``gather`` all-gathers it back,
 collective on a CUDA tensor goes through NCCL (anything else raises), and
 a mesh axis of more than one position without a process group raises: the
 sharded path never runs on fewer ranks than the mesh names.
+
+Autograd goes through the collectives: the backward of an all-gather is a
+reduce-scatter (sum) over the same group, and the backward of a sum
+all-reduce is a sum all-reduce, so that a parameter gathered at use
+(``gather_tree``, ZeRO-3) receives the sum of every rank's gradient for
+its block.  A tree of parameters is held leaf by leaf either as the blocks
+``spec`` gives or whole (``held_spec`` tells which from the leaf's
+shape), and ``gather_tree`` makes either whole.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
+
+import torch
+import torch.distributed as dist
 
 # logical axis -> ordered candidate mesh-axis tuples ("fsdp" expands to the
 # data axes present in the mesh).  First candidate whose size divides the
@@ -120,6 +131,8 @@ class ShardCtx:
     rules: dict[str, list[Optional[tuple[str, ...]]]] = field(
         default_factory=lambda: dict(DEFAULT_RULES))
     fallbacks: list[str] = field(default_factory=list)  # dropped axes
+    _block_specs: dict = field(default_factory=dict, repr=False,
+                               compare=False)
 
     # -- mesh helpers -------------------------------------------------------
     def axis_size(self, *names: str) -> int:
@@ -178,10 +191,14 @@ class ShardCtx:
         return tuple(parts)
 
     def constrain(self, x, *axes: Optional[str]):
-        """The reference's ``with_sharding_constraint`` by logical axes.
-        The port keeps every activation replicated over the mesh (only the
-        experts and the sequence-sharded decode cache are held as blocks),
-        so this is the identity."""
+        """The reference's ``with_sharding_constraint`` by logical axes:
+        the identity.  The port places activations where they are made: a
+        batch arrives as this rank's block under the ``batch`` rule
+        (``data.pipeline.make_pipeline``, or the caller), and every layer
+        computes on it with its parameters gathered whole
+        (``gather_tree``), so compute over ``model`` is replicated (the
+        reference's tensor-parallel and sequence-parallel constraints are
+        ROADMAP Queue A)."""
         if len(axes) != x.ndim:
             raise ValueError(f"{len(axes)} axes for a {x.ndim}-d tensor")
         return x
@@ -205,6 +222,56 @@ class ShardCtx:
                                 "bytes_a_rank": whole // ways}
         walk(tree, axes_tree, "")
         return out
+
+    def block_spec(self, shape: Sequence[int], axes: Sequence[Optional[str]]
+                   ) -> Spec:
+        """``spec(shape, axes)``, resolved once a (shape, axes) pair (so a
+        fallback is recorded once, not at every use)."""
+        key = (tuple(shape), tuple(axes))
+        if key not in self._block_specs:
+            self._block_specs[key] = self.spec(shape, axes)
+        return self._block_specs[key]
+
+    def held_spec(self, t, shape: Sequence[int],
+                  axes: Sequence[Optional[str]]) -> Spec:
+        """The spec this rank holds ``t`` by, for a leaf of whole ``shape``
+        and logical ``axes``: () where ``t`` is whole, else ``spec(shape,
+        axes)``, whose block ``t`` must be (anything else raises)."""
+        if tuple(t.shape) == tuple(shape):
+            return ()
+        spec = self.block_spec(shape, axes)
+        block = tuple(n // self.axis_size(*entry_axes(e)) for n, e in
+                      zip(shape, spec + (None,) * (len(shape) - len(spec))))
+        if tuple(t.shape) != block:
+            raise ValueError(f"a leaf of {tuple(shape)} by {tuple(axes)} is "
+                             f"held whole or as a {block} block on this "
+                             f"mesh, not as {tuple(t.shape)}")
+        return spec
+
+    def split_axes(self, spec: Spec) -> tuple[str, ...]:
+        """The mesh axes of more than one position that ``spec`` splits a
+        leaf over."""
+        return tuple(a for e in spec for a in entry_axes(e)
+                     if self.mesh.shape[a] > 1)
+
+    def other_axes(self, spec: Spec) -> tuple[str, ...]:
+        """The mesh axes of more than one position that ``spec`` does not
+        split a leaf over: those its gradient is summed over."""
+        split = self.split_axes(spec)
+        return tuple(a for a in self.mesh.axis_names
+                     if self.mesh.shape[a] > 1 and a not in split)
+
+    @property
+    def n_ranks(self) -> int:
+        """Positions in the mesh."""
+        return self.axis_size(*self.mesh.axis_names)
+
+    def check_ranks(self) -> None:
+        """Raise unless every axis of more than one position has its
+        process group (the mesh runs on as many ranks as it names)."""
+        for a in self.mesh.axis_names:
+            if self.mesh.shape[a] > 1:
+                self._group(a)
 
     # -- blocks and collectives ----------------------------------------------
     def _group(self, axis: str):
@@ -259,39 +326,117 @@ class ShardCtx:
 
     def all_gather(self, t, axis: str, dim: int):
         """Concatenate every position's ``t`` along ``dim``, in the order of
-        the ``axis`` coordinate."""
+        the ``axis`` coordinate.  Under autograd its backward reduce-scatters
+        (sums) the gradient over the same group."""
         if self.mesh.shape[axis] == 1:
             return t
-        import torch
-        import torch.distributed as dist
         group = self._group(axis)
         _check_transport(t, group)
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.mesh.shape[axis])]
-        dist.all_gather(parts, t, group=group)
-        return torch.cat(parts, dim=dim)
+        return _AllGather.apply(t, group, self.mesh.shape[axis], dim)
 
     def all_reduce(self, t, axes: Sequence[str], op: str = "sum"):
         """``t`` reduced (``sum`` or ``max``) over ``axes``, one collective an
-        axis of more than one position; in place, and returned."""
-        import torch.distributed as dist
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        axis of more than one position.  In place, and returned; a sum on a
+        tensor that autograd records is out of place, and its backward is
+        the sum all-reduce of the gradient."""
+        groups = []
         for a in axes:
             if self.mesh.shape[a] > 1:
-                group = self._group(a)
-                _check_transport(t, group)
-                dist.all_reduce(t, op=red, group=group)
+                groups.append(self._group(a))
+                _check_transport(t, groups[-1])
+        if op == "sum" and torch.is_grad_enabled() and t.requires_grad:
+            return _AllReduceSum.apply(t, tuple(groups)) if groups else t
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        for group in groups:
+            dist.all_reduce(t, op=red, group=group)
         return t
+
+    def all_reduce_each(self, values: list, axes: list, op: str = "sum"
+                        ) -> list:
+        """Each 0-d ``values[i]`` reduced over ``axes[i]``: one collective a
+        distinct set of axes, the values that share it stacked."""
+        out = list(values)
+        for key in dict.fromkeys(tuple(a) for a in axes):
+            idx = [i for i, a in enumerate(axes) if tuple(a) == key]
+            if not any(self.mesh.shape[a] > 1 for a in key):
+                continue
+            red = self.all_reduce(torch.stack([values[i] for i in idx]),
+                                  key, op)
+            for j, i in enumerate(idx):
+                out[i] = red[j]
+        return out
 
     def all_mean(self, t):
         """The reference's ``pmean`` over every mesh axis."""
-        n = self.axis_size(*self.mesh.axis_names)
-        return self.all_reduce(t, self.mesh.axis_names) / n
+        return self.all_reduce(t, self.mesh.axis_names) / self.n_ranks
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along ``dim``; backward: reduce-scatter (sum)."""
+
+    @staticmethod
+    def forward(fc, t, group, n: int, dim: int):
+        fc.group, fc.n, fc.dim = group, n, dim
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(fc, g):
+        _check_transport(g, fc.group)
+        whole = g.movedim(fc.dim, 0).contiguous()       # the n blocks in turn
+        out = torch.empty((whole.shape[0] // fc.n,) + whole.shape[1:],
+                          dtype=g.dtype, device=g.device)
+        from repro_torch.core.collective_bench import _library
+        _library("reduce_scatter_single", "reduce_scatter_tensor")(
+            out, whole, group=fc.group)
+        return out.movedim(0, fc.dim), None, None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum all-reduce over each group in turn; backward: the same."""
+
+    @staticmethod
+    def forward(fc, t, groups):
+        fc.groups = groups
+        out = t.clone()
+        for group in groups:
+            dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(fc, g):
+        out = g.clone()
+        for group in fc.groups:
+            _check_transport(out, group)
+            dist.all_reduce(out, group=group)
+        return out, None
+
+
+def gather_tree(ctx, tree, specs):
+    """Every leaf of ``tree`` (a rank's parameters, each held whole or as
+    its ``ShardCtx.spec`` block) whole: all-gathered over the axes it is
+    split on (ZeRO-3, at use; under autograd the gradient of each block is
+    the sum of every rank's).  ``specs``: the matching tree of
+    ``ParamSpec`` (the whole shape and logical axes of each leaf); a leaf
+    whose spec is None, or absent, stays as it is.  ``ctx`` None, or a mesh
+    of one position, returns ``tree`` itself."""
+    if ctx is None or ctx.n_ranks == 1:
+        return tree
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            s = s or {}
+            return {k: walk(v, s.get(k)) for k, v in t.items()}
+        if s is None:
+            return t
+        return ctx.gather(t, ctx.held_spec(t, s.shape, s.axes))
+    return walk(tree, specs)
 
 
 def _check_transport(t, group) -> None:
     """A CUDA tensor goes through NCCL and nothing else."""
-    import torch.distributed as dist
     backend = dist.get_backend(group)
     if t.device.type == "cuda" and backend != "nccl":
         raise RuntimeError(f"a CUDA tensor reached a {backend} collective: "

@@ -10,10 +10,13 @@ probabilities instead of keeping them (the reference's ``@jax.checkpoint``
 body: the flash-attention backward).  The prefill's kernel route
 (``Variant.use_pallas``) goes to ``repro_torch.kernels.flash_attention``
 instead.  Layouts are the reference's: q ``(B, S, H, Dh)``, k/v ``(B, S,
-KV, Dh)``.  ``ctx`` (the reference's sharding context) is accepted and
-ignored: attention stays replicated over a mesh (tensor parallel over
-``model`` is ROADMAP Queue A 8b; the sequence-sharded decode is
-``serve.flash_decode``), and so is ``unroll`` (its scans' unrolling).
+KV, Dh)``.  ``ctx`` (the reference's sharding context) is not read here:
+on a mesh the model hands these functions its layer's parameters already
+gathered whole and the activations as this rank's block of the batch, so
+attention is replicated over ``model`` (the reference's tensor-parallel
+heads are ROADMAP Queue A; the sequence-sharded decode is
+``serve.flash_decode``).  ``unroll`` (its scans' unrolling) is accepted
+and ignored.
 """
 from __future__ import annotations
 

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import gather_tree
+
 
 @dataclass(frozen=True)
 class ParamSpec:
@@ -228,6 +230,20 @@ def embed_specs(cfg) -> dict:
 
 def embed_tokens(p: dict, tokens):
     return cast_compute(p["embedding"][tokens])
+
+
+def embed_lookup(ctx, cfg, p: dict, tokens):
+    """``embed_tokens`` with the table gathered whole at use on a mesh
+    (``p`` holds this rank's block of it, or the whole)."""
+    return embed_tokens(gather_tree(ctx, {"embedding": p["embedding"]},
+                                    embed_specs(cfg)), tokens)
+
+
+def head_params(ctx, cfg, p: dict) -> dict:
+    """The leaf ``lm_logits`` reads (the embedding where tied, else
+    ``lm_head``), gathered whole at use on a mesh."""
+    name = "embedding" if cfg.tied_embeddings else "lm_head"
+    return gather_tree(ctx, {name: p[name]}, embed_specs(cfg))
 
 
 def lm_logits(cfg, p: dict, h):

@@ -20,7 +20,11 @@ kernel tiles by 64 whatever the blocks, and masks the ragged tail).
 Training (``loss``) takes the plain route whatever ``use_pallas`` says,
 every encoder and decoder layer under ``remat_wrap``.  Decode
 stays plain PyTorch, its cross-attention against the cached ``xk``/``xv``
-as the reference computes it.  ``ctx`` (sharding) is accepted and ignored.
+as the reference computes it.  ``ctx`` (sharding): the parameters are
+held as ``registry.held_axes`` blocks, and each encoder and decoder layer,
+the final norms, the embedding and the head are gathered whole at use
+(``sharding.gather_tree``, in training inside each layer's remat region);
+the tokens and frames are this rank's block of the batch.
 """
 from __future__ import annotations
 
@@ -30,11 +34,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
+from repro_torch.distributed.sharding import gather_tree
 from repro_torch.models.common import (apply_mlp, apply_norm, cast_compute,
-                                       chunked_softmax_xent, embed_specs,
-                                       embed_tokens, lm_logits, mlp_specs,
-                                       norm_specs, stack_specs, tree_index,
-                                       tree_stack, tree_unbind)
+                                       chunked_softmax_xent, embed_lookup,
+                                       embed_specs, head_params, lm_logits,
+                                       mlp_specs, norm_specs, stack_specs,
+                                       tree_index, tree_stack, tree_unbind)
 from repro_torch.models.variant import BASELINE, Variant, remat_wrap
 
 #: the flash wrapper's default block (``flash_attention`` q/kv blocks)
@@ -73,17 +78,14 @@ def attend(q, k, v, *, causal: bool, variant: Variant):
 class EncDecLM:
     def __init__(self, cfg):
         self.cfg = cfg
-
-    # -- parameters ----------------------------------------------------------
-    def param_specs(self) -> dict:
-        cfg = self.cfg
-        enc_block = {
+        # one encoder / decoder layer's specs, and a final norm's
+        self.enc_specs = {
             "ln1": norm_specs(cfg, cfg.d_model),
             "attn": attn.gqa_specs(cfg, cfg.d_model),
             "ln2": norm_specs(cfg, cfg.d_model),
             "mlp": mlp_specs(cfg, cfg.d_model, cfg.d_ff),
         }
-        dec_block = {
+        self.dec_specs = {
             "ln1": norm_specs(cfg, cfg.d_model),
             "self_attn": attn.gqa_specs(cfg, cfg.d_model),
             "ln_x": norm_specs(cfg, cfg.d_model),
@@ -91,13 +93,21 @@ class EncDecLM:
             "ln2": norm_specs(cfg, cfg.d_model),
             "mlp": mlp_specs(cfg, cfg.d_model, cfg.d_ff),
         }
+        self.final_norm_specs = norm_specs(cfg, cfg.d_model)
+
+    # -- parameters ----------------------------------------------------------
+    def param_specs(self) -> dict:
+        cfg = self.cfg
         return {
             "embed": embed_specs(cfg),
-            "enc_blocks": stack_specs(enc_block, cfg.n_encoder_layers),
+            "enc_blocks": stack_specs(self.enc_specs, cfg.n_encoder_layers),
             "enc_ln_f": norm_specs(cfg, cfg.d_model),
-            "dec_blocks": stack_specs(dec_block, cfg.n_layers),
+            "dec_blocks": stack_specs(self.dec_specs, cfg.n_layers),
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
+
+    def _norm(self, ctx, p):
+        return gather_tree(ctx, p, self.final_norm_specs)
 
     # -- encoder -------------------------------------------------------------
     def encode(self, params, frames, ctx=None, variant: Variant = BASELINE):
@@ -110,6 +120,7 @@ class EncDecLM:
         positions = torch.arange(A, device=frames.device)
 
         def body(p, x):
+            p = gather_tree(ctx, p, self.enc_specs)
             h = apply_norm(cfg, p["ln1"], x)
             q, k, v = attn.gqa_project_qkv(cfg, p["attn"], h, positions, None)
             o = attend(q, k, v, causal=False, variant=variant)
@@ -119,11 +130,12 @@ class EncDecLM:
         body = remat_wrap(body, variant)
         for p in tree_unbind(params["enc_blocks"]):
             x = body(p, x)
-        return apply_norm(cfg, params["enc_ln_f"], x)
+        return apply_norm(cfg, self._norm(ctx, params["enc_ln_f"]), x)
 
     # -- decoder (teacher-forced train) -----------------------------------------
-    def _dec_block(self, p, x, enc_out, variant, positions):
+    def _dec_block(self, p, x, enc_out, variant, positions, ctx=None):
         cfg = self.cfg
+        p = gather_tree(ctx, p, self.dec_specs)
         h = apply_norm(cfg, p["ln1"], x)
         x = x + attn.gqa_attention(cfg, p["self_attn"], h, causal=True,
                                    positions=positions,
@@ -148,14 +160,15 @@ class EncDecLM:
         cfg = self.cfg
         B, S = tokens.shape
         dev = tokens.device
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         x = x + sinusoid(S, cfg.d_model, device=dev)[None].to(x.dtype)
         positions = torch.arange(S, device=dev)
         body = remat_wrap(lambda p, x: self._dec_block(p, x, enc_out, variant,
-                                                       positions), variant)
+                                                       positions, ctx),
+                          variant)
         for p in tree_unbind(params["dec_blocks"]):
             x = body(p, x)
-        return apply_norm(cfg, params["ln_f"], x)
+        return apply_norm(cfg, self._norm(ctx, params["ln_f"]), x)
 
     def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
         # training's encoder attention is the plain route: the flash kernel
@@ -163,8 +176,9 @@ class EncDecLM:
         variant = replace(variant, use_pallas=False)
         enc_out = self.encode(params, batch["frames"], ctx, variant)
         h = self.hidden_states(params, batch["tokens"], enc_out, ctx, variant)
-        xent = chunked_softmax_xent(self.cfg, params["embed"], h,
-                                    batch["labels"], chunk=variant.xent_chunk)
+        xent = chunked_softmax_xent(
+            self.cfg, head_params(ctx, self.cfg, params["embed"]), h,
+            batch["labels"], chunk=variant.xent_chunk)
         return xent, {"xent": xent}
 
     # -- serving -------------------------------------------------------------
@@ -193,12 +207,13 @@ class EncDecLM:
                                            variant))
         B, S = tokens.shape
         dev = tokens.device
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         x = x + sinusoid(S, cfg.d_model, device=dev)[None].to(x.dtype)
         positions = torch.arange(S, device=dev)
         caches = []
         for layer in range(cfg.n_layers):
-            p = tree_index(params["dec_blocks"], layer)
+            p = gather_tree(ctx, tree_index(params["dec_blocks"], layer),
+                            self.dec_specs)
             h = apply_norm(cfg, p["ln1"], x)
             q, k, v = attn.gqa_project_qkv(cfg, p["self_attn"], h, positions,
                                            None)
@@ -215,8 +230,9 @@ class EncDecLM:
             caches.append({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16),
                            "xk": xk.to(torch.bfloat16),
                            "xv": xv.to(torch.bfloat16)})
-        x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
-        return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
+        x = apply_norm(cfg, self._norm(ctx, params["ln_f"]), x[:, -1:, :])
+        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
+                          x)[:, 0], tree_stack(caches))
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
                     variant: Variant = BASELINE):
@@ -227,12 +243,13 @@ class EncDecLM:
         cfg = self.cfg
         B = tokens.shape[0]
         dev = tokens.device
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         x = x + sinusoid(1, cfg.d_model, offset=pos, device=dev)[None] \
             .to(x.dtype)
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
         for layer in range(cfg.n_layers):
-            p = tree_index(params["dec_blocks"], layer)
+            p = gather_tree(ctx, tree_index(params["dec_blocks"], layer),
+                            self.dec_specs)
             h = apply_norm(cfg, p["ln1"], x)
             a, _, _ = attn.gqa_decode(cfg, p["self_attn"], h, cache["k"][layer],
                                       cache["v"][layer], pos)
@@ -245,5 +262,6 @@ class EncDecLM:
                                        kv_block=min(1024, xk.shape[1]))
             x = x + attn.out_proj(o, p["cross_attn"]["wo"]).to(x.dtype)
             x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-        x = apply_norm(cfg, params["ln_f"], x)
-        return lm_logits(cfg, params["embed"], x), cache
+        x = apply_norm(cfg, self._norm(ctx, params["ln_f"]), x)
+        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
+                         x), cache

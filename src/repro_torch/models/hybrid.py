@@ -20,11 +20,16 @@ the ports of the reference's default paths (``chunked_attention``,
 ``ssd_chunked``).  Decode stays plain PyTorch, as the reference computes it
 outside any Pallas kernel.
 
-``ctx`` (sharding) acts in ``decode_step(..., seq_shard_decode=True)``:
-each site's attention is ``serve.flash_decode.seq_sharded_gqa_decode``
-over this rank's block of the KV cache (``flash_decode.cache_spec``);
-everything else, the SSM caches too, stays whole on every rank (ROADMAP
-Queue C).  The prefill and training take no sharding from it.
+``ctx`` (sharding), in training and serving: the parameters are held as
+``registry.held_axes`` blocks, and each Mamba layer, each site's norm and
+the shared block at each site are gathered whole at use
+(``sharding.gather_tree``; in training inside the remat regions, so the
+shared block's gradient sums over its sites), the embedding, the final
+norm and the head theirs at the lookup and the logits.  The tokens are
+this rank's block of the batch over the data axes.  In
+``decode_step(..., seq_shard_decode=True)`` each site's attention is
+``serve.flash_decode.seq_sharded_gqa_decode`` over this rank's block of
+the KV cache (``flash_decode.cache_spec``); the SSM caches stay whole.
 """
 from __future__ import annotations
 
@@ -34,11 +39,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
+from repro_torch.distributed.sharding import gather_tree
 from repro_torch.models.common import (apply_mlp, apply_norm,
-                                       chunked_softmax_xent, embed_specs,
-                                       embed_tokens, lm_logits, mlp_specs,
-                                       norm_specs, stack_specs, tree_index,
-                                       tree_stack, tree_unbind)
+                                       chunked_softmax_xent, embed_lookup,
+                                       embed_specs, head_params, lm_logits,
+                                       mlp_specs, norm_specs, stack_specs,
+                                       tree_index, tree_stack, tree_unbind)
 from repro_torch.models.ssm import (mamba_prefill, ssm_block,
                                     ssm_cache_shapes, ssm_decode, ssm_specs)
 from repro_torch.models.variant import BASELINE, Variant, remat_wrap
@@ -52,32 +58,37 @@ class HybridLM:
             raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
                              f"multiple of attn_every {cfg.attn_every}")
         self.n_sites = cfg.n_layers // cfg.attn_every
-
-    def param_specs(self) -> dict:
-        cfg = self.cfg
-        mamba_block = {"ln": norm_specs(cfg, cfg.d_model), "ssm": ssm_specs(cfg)}
-        shared_block = {
+        # one Mamba layer's, a site norm's and the shared block's specs
+        self.mamba_specs = {"ln": norm_specs(cfg, cfg.d_model),
+                            "ssm": ssm_specs(cfg)}
+        self.site_norm_specs = norm_specs(cfg, cfg.d_model)
+        self.shared_specs = {
             "ln1": norm_specs(cfg, cfg.d_model),
             "attn": attn.gqa_specs(cfg, cfg.d_model),
             "ln2": norm_specs(cfg, cfg.d_model),
             "mlp": mlp_specs(cfg, cfg.d_model, cfg.d_ff),
         }
+
+    def param_specs(self) -> dict:
+        cfg = self.cfg
         return {
             "embed": embed_specs(cfg),
             # (sites, group, ...) double-stacked mamba params
             "mamba": stack_specs(
-                stack_specs(mamba_block, cfg.attn_every, "layers"),
+                stack_specs(self.mamba_specs, cfg.attn_every, "layers"),
                 self.n_sites, "sites"),
-            "site_norms": stack_specs(norm_specs(cfg, cfg.d_model),
-                                      self.n_sites, "sites"),
-            "shared": shared_block,
+            "site_norms": stack_specs(self.site_norm_specs, self.n_sites,
+                                      "sites"),
+            "shared": self.shared_specs,
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
 
     # -- training ----------------------------------------------------------------
-    def _shared_block(self, params, site_norm, x, variant, positions):
+    def _shared_block(self, params, site_norm, x, variant, positions,
+                      ctx=None):
         cfg = self.cfg
-        p = params["shared"]
+        p = gather_tree(ctx, params["shared"], self.shared_specs)
+        site_norm = gather_tree(ctx, site_norm, self.site_norm_specs)
         h = apply_norm(cfg, site_norm, x)      # per-site input norm
         h1 = apply_norm(cfg, p["ln1"], h)
         a = attn.gqa_attention(cfg, p["attn"], h1, causal=True,
@@ -92,10 +103,11 @@ class HybridLM:
         """tokens (B, S) -> final hidden states (B, S, D) bf16."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
 
         def mamba_body(p, x):
+            p = gather_tree(ctx, p, self.mamba_specs)
             return x + ssm_block(cfg, p["ssm"], apply_norm(cfg, p["ln"], x))
 
         # nested remat: the inner loop checkpoints its own body, or the
@@ -103,7 +115,8 @@ class HybridLM:
         mamba_fn = remat_wrap(mamba_body, variant)
 
         def site_body(group_p, site_norm, x):
-            x = self._shared_block(params, site_norm, x, variant, positions)
+            x = self._shared_block(params, site_norm, x, variant, positions,
+                                   ctx)
             for p in tree_unbind(group_p):
                 x = mamba_fn(p, x)
             return x
@@ -112,12 +125,16 @@ class HybridLM:
         for group_p, site_norm in zip(tree_unbind(params["mamba"]),
                                       tree_unbind(params["site_norms"])):
             x = site_fn(group_p, site_norm, x)
-        return apply_norm(cfg, params["ln_f"], x)
+        return apply_norm(cfg, self._ln_f(ctx, params), x)
+
+    def _ln_f(self, ctx, params):
+        return gather_tree(ctx, params["ln_f"], self.site_norm_specs)
 
     def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
         h = self.hidden_states(params, batch["tokens"], ctx, variant)
-        xent = chunked_softmax_xent(self.cfg, params["embed"], h,
-                                    batch["labels"], chunk=variant.xent_chunk)
+        xent = chunked_softmax_xent(
+            self.cfg, head_params(ctx, self.cfg, params["embed"]), h,
+            batch["labels"], chunk=variant.xent_chunk)
         return xent, {"xent": xent}
 
     # -- serving -----------------------------------------------------------------
@@ -136,14 +153,16 @@ class HybridLM:
         hd) bf16})."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
         inv_freq = attn.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
                                    cfg.rope_theta, device=tokens.device)
-        shared = params["shared"]
         caches = []
         for site in range(self.n_sites):
-            h = apply_norm(cfg, tree_index(params["site_norms"], site), x)
+            shared = gather_tree(ctx, params["shared"], self.shared_specs)
+            h = apply_norm(cfg, gather_tree(
+                ctx, tree_index(params["site_norms"], site),
+                self.site_norm_specs), x)
             h1 = apply_norm(cfg, shared["ln1"], h)
             q, k, v = attn.gqa_project_qkv(cfg, shared["attn"], h1, positions,
                                            inv_freq)
@@ -158,12 +177,15 @@ class HybridLM:
             layer_caches = []
             for layer in range(cfg.attn_every):
                 x, entry = mamba_prefill(
-                    cfg, tree_index(params["mamba"], site, layer), x, variant)
+                    cfg, gather_tree(ctx, tree_index(params["mamba"], site,
+                                                     layer),
+                                     self.mamba_specs), x, variant)
                 layer_caches.append(entry)
             caches.append({"ssm": tree_stack(layer_caches),
                            "k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)})
-        x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
-        return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
+        x = apply_norm(cfg, self._ln_f(ctx, params), x[:, -1:, :])
+        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
+                          x)[:, 0], tree_stack(caches))
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
                     variant: Variant = BASELINE,
@@ -175,10 +197,12 @@ class HybridLM:
         this rank's ``flash_decode.cache_spec`` blocks on ``ctx``'s mesh and
         each site attends through the sequence-sharded decode."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens)
-        shared = params["shared"]
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         for site in range(self.n_sites):
-            h = apply_norm(cfg, tree_index(params["site_norms"], site), x)
+            shared = gather_tree(ctx, params["shared"], self.shared_specs)
+            h = apply_norm(cfg, gather_tree(
+                ctx, tree_index(params["site_norms"], site),
+                self.site_norm_specs), x)
             h1 = apply_norm(cfg, shared["ln1"], h)
             decode = (partial(flash_decode.seq_sharded_gqa_decode, ctx)
                       if seq_shard_decode else attn.gqa_decode)
@@ -188,12 +212,14 @@ class HybridLM:
             h2 = apply_norm(cfg, shared["ln2"], h)
             x = x + h + apply_mlp(cfg, shared["mlp"], h2)
             for layer in range(cfg.attn_every):
-                p = tree_index(params["mamba"], site, layer)
+                p = gather_tree(ctx, tree_index(params["mamba"], site, layer),
+                                self.mamba_specs)
                 h = apply_norm(cfg, p["ln"], x)
                 y, new = ssm_decode(cfg, p["ssm"], h,
                                     tree_index(cache["ssm"], site, layer))
                 for name, t in new.items():
                     cache["ssm"][name][site, layer] = t
                 x = x + y
-        x = apply_norm(cfg, params["ln_f"], x)
-        return lm_logits(cfg, params["embed"], x), cache
+        x = apply_norm(cfg, self._ln_f(ctx, params), x)
+        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
+                         x), cache

@@ -6,9 +6,10 @@ over the data axes.  Routing is computed redundantly on every EP peer
 (float32 softmax, top-k, the top-k weights renormalised; ties to the lower
 expert index), each peer processes only its ``E_local = E / ep`` experts
 from ``e0 = coord("model") * E_local`` under a fixed capacity ``C = max(1,
-ceil(T*K/E*cf))`` per expert, with ``T = (B / dp) * S`` the tokens of one
-data shard (so a token can drop on a mesh that a one-device run of the
-whole batch keeps, as in the reference; at decode ``T = B / dp``), slots
+ceil(T*K/E*cf))`` per expert, with ``T = B * S`` the tokens of the block
+``x`` this rank holds, one data shard's (so a token can drop on a mesh
+that a one-device run of the whole batch keeps, as in the reference; at
+decode ``T = B``), slots
 taken first-come over the flattened ``(T, K)`` choices and dropped choices
 sent to a spare row.  One all-reduce over ``model`` in ``psum_dtype``
 combines the routed output, the shared experts' and the dense residual's
@@ -18,12 +19,16 @@ matrix products (the reference leaves them to XLA).
 
 Held layout on a mesh (``registry.held_axes``): the experts' weights are
 blocks, E over ``model`` and D over the fsdp axes (ZeRO-3: all-gathered
-over those axes in bfloat16 inside the layer), the shared and residual
-weights (fsdp, model) / (model, fsdp) blocks, the router whole.  The
-layer's input and output are replicated over the mesh, as every activation
-of the port is: each rank takes its data shard of ``x``, and the output is
-all-gathered back over the data axes.  ``ctx`` None, or a mesh whose axes
-all have one position, is one device: ``E_local = E``, no collective.
+over those axes inside the layer, in bfloat16 when serving and in float32
+under autograd, so that the gather's backward reduce-scatters float32
+gradients), the shared and residual weights (fsdp, model) / (model, fsdp)
+blocks; the router arrives whole (the model gathers it with the rest of
+the layer, ``gathered_at_layer``).  The layer's input and output are this
+rank's block of the batch over the data axes (the batch as the pipeline
+or the caller splits it), replicated over ``model``.  ``ctx`` None, or a
+mesh whose axes all have one position, is one device: ``E_local = E``, no
+collective.  Under autograd every collective carries its gradient
+(``ShardCtx.all_gather``, ``all_reduce``).
 """
 from __future__ import annotations
 
@@ -86,32 +91,34 @@ def route(cfg, p: dict, xf):
     return probs, topv / torch.sum(topv, dim=-1, keepdim=True), topi
 
 
-#: the parameters held as blocks on a mesh (the rest, the router too, whole)
+#: the parameters ``moe_layer`` takes as blocks on a mesh (the router whole)
 HELD = ("w_gate", "w_up", "w_down", "shared_gate", "shared_up",
         "shared_down", "res_gate", "res_up", "res_down")
 
 
+def gathered_at_layer(specs: dict) -> dict:
+    """The layer's ``moe_specs`` with the ``HELD`` leaves taken out: what
+    the model gathers whole before the layer (``sharding.gather_tree``)."""
+    return {k: (None if k in HELD else v) for k, v in specs.items()}
+
+
 def moe_layer(ctx, cfg, p: dict, x, *, capacity_factor=None,
               psum_dtype: str = "float32"):
-    """x: (B, S, D), whole on every rank.  Returns (y (B, S, D) in x's
-    dtype, aux loss f32), whole on every rank."""
+    """x: (B, S, D), this rank's block of the batch over the data axes.
+    Returns (y (B, S, D) in x's dtype, aux loss f32 averaged over the
+    mesh)."""
     m = cfg.moe
     E, K, D = m.n_experts, m.top_k, cfg.d_model
     names = ctx.mesh.axis_names if ctx is not None else ()
     tp = "model" if "model" in names else None
-    dp = ctx.dp_axes if ctx is not None else ()
     fsdp = ctx.fsdp_axes if ctx is not None else ()
     ep = ctx.axis_size(tp) if tp else 1
-    dp_size = ctx.axis_size(*dp) if dp else 1
     fs_size = ctx.axis_size(*fsdp) if fsdp else 1
     if E % ep:
         raise ValueError(f"{E} experts over a model axis of {ep}")
     E_local = E // ep
     B, S, _ = x.shape
-    if B % dp_size:
-        raise ValueError(f"batch {B} over data axes of {dp_size}")
-    Bl = B // dp_size
-    T = Bl * S
+    T = B * S
     C = capacity(cfg, T, capacity_factor)
     dev = x.device
     Fe = m.d_ff_expert
@@ -130,14 +137,16 @@ def moe_layer(ctx, cfg, p: dict, x, *, capacity_factor=None,
                              f"the layer holds a block of {shape}")
 
     def gather(w, dim):
-        """ZeRO-3: the fsdp blocks of ``w`` gathered, in bfloat16."""
-        wc = cast_compute(w)
+        """ZeRO-3: the fsdp blocks of ``w`` gathered and cast to bfloat16
+        (gathered in bfloat16 when serving, in float32 under autograd:
+        the same values either way)."""
+        train = torch.is_grad_enabled() and w.requires_grad
+        wc = w if train else cast_compute(w)
         for a in reversed(fsdp) if fs_size > 1 else ():
             wc = ctx.all_gather(wc, a, dim)
-        return wc
+        return cast_compute(wc)
 
-    d0 = ctx.coord(dp) if dp_size > 1 else 0
-    xf = cast_compute(x[d0 * Bl:(d0 + 1) * Bl].reshape(T, D))
+    xf = cast_compute(x.reshape(T, D))
     probs, topv, topi = route(cfg, p, xf)
 
     # capacity dispatch to the local experts: each choice's 1-based place
@@ -192,7 +201,4 @@ def moe_layer(ctx, cfg, p: dict, x, *, capacity_factor=None,
     aux = torch.sum(frac * torch.mean(probs, dim=0))
     if ctx is not None and ctx.axis_size(*names) > 1:
         aux = ctx.all_mean(aux.reshape(1))[0]
-    y = out.reshape(Bl, S, D).to(x.dtype)
-    for a in reversed(dp) if dp_size > 1 else ():
-        y = ctx.all_gather(y, a, 0)
-    return y, aux
+    return out.reshape(B, S, D).to(x.dtype), aux

@@ -11,9 +11,9 @@ give the step's inputs and the stacked caches as meta tensors (shapes and
 dtypes, nothing allocated) beside their logical axes, as the reference's
 ``ShapeDtypeStruct`` trees; ``make_batch`` and ``init_cache`` make
 concrete tensors on an explicit device.  On a mesh, ``held_axes`` names
-the layout each parameter is held in (the experts as blocks, the rest
-whole), ``shard_params`` cuts a whole tree to it and ``init_params_held``
-draws a rank's blocks without the whole tree.
+the layout each parameter is held in (every leaf by its own logical axes,
+as ``ShardCtx.spec`` resolves them), ``shard_params`` cuts a whole tree to
+it and ``init_params_held`` draws a rank's blocks without the whole tree.
 """
 from __future__ import annotations
 
@@ -25,7 +25,6 @@ from repro_torch.models.common import (init_leaf, spec_map, tree_leaves,
                                        tree_unflatten)
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
-from repro_torch.models.moe import HELD
 from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import DecoderLM
 
@@ -132,18 +131,15 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device) -> dict:
 # ---------------------------------------------------------------------------
 
 def held_axes(cfg: ArchConfig) -> dict:
-    """The logical axes each parameter is held by on a mesh: a moe layer's
-    experts, shared experts and dense residual (``moe.HELD``) by their own
-    axes (``ShardCtx.spec`` then gives the layout ``moe_layer`` takes: E
-    over model, D over the fsdp axes, ffn over model), every other leaf,
-    the router too, by none (whole on every rank)."""
-    def walk(t, path):
-        if isinstance(t, dict):
-            return {k: walk(v, path + (k,)) for k, v in t.items()}
-        if "moe" in path and path[-1] in HELD:
-            return t.axes
-        return (None,) * len(t.shape)
-    return walk(build(cfg).param_specs(), ())
+    """The logical axes each parameter is held by on a mesh: every leaf's
+    own (``ParamSpec.axes``).  ``ShardCtx.spec`` then gives its block: the
+    vocabulary, heads, ffn, inner and expert dims over ``model``, ``embed``
+    over the fsdp axes, a dim the rules cannot divide whole (recorded in
+    ``ShardCtx.fallbacks``).  The models gather each layer's leaves whole
+    at use (``sharding.gather_tree``), except a moe layer's experts, shared
+    experts and dense residual (``moe.HELD``), which ``moe_layer`` gathers
+    over the fsdp axes only."""
+    return spec_map(lambda s: s.axes, build(cfg).param_specs())
 
 
 def shard_params(cfg: ArchConfig, params: dict, ctx) -> dict:

@@ -9,15 +9,20 @@ under ``Variant.use_pallas`` its SSD goes through the hand-written SSD
 kernel, one launch a layer; without it, through ``ssd_chunked``.  Decode
 stays plain PyTorch (``ssm_decode``), as the reference computes it outside
 any Pallas kernel.  Training runs each layer's ``ssm_block`` (always
-``ssd_chunked``) under ``remat_wrap``.  ``ctx`` (sharding) is accepted and
-ignored.
+``ssd_chunked``) under ``remat_wrap``.  ``ctx`` (sharding): the
+parameters are held as ``registry.held_axes`` blocks and each layer, the
+embedding, the final norm and the head are gathered whole at use
+(``sharding.gather_tree``, in training inside the layer's remat region);
+the tokens are this rank's block of the batch.
 """
 from __future__ import annotations
 
+from repro_torch.distributed.sharding import gather_tree
 from repro_torch.models.common import (apply_norm, chunked_softmax_xent,
-                                       embed_specs, embed_tokens, lm_logits,
-                                       norm_specs, stack_specs, tree_index,
-                                       tree_stack, tree_unbind)
+                                       embed_lookup, embed_specs,
+                                       head_params, lm_logits, norm_specs,
+                                       stack_specs, tree_index, tree_stack,
+                                       tree_unbind)
 from repro_torch.models.ssm import (mamba_prefill, ssm_block,
                                     ssm_cache_shapes, ssm_decode, ssm_specs)
 from repro_torch.models.variant import BASELINE, Variant, remat_wrap
@@ -26,32 +31,44 @@ from repro_torch.models.variant import BASELINE, Variant, remat_wrap
 class SSMLM:
     def __init__(self, cfg):
         self.cfg = cfg
+        self.layer_specs = {"ln": norm_specs(cfg, cfg.d_model),
+                            "ssm": ssm_specs(cfg)}
 
     def param_specs(self) -> dict:
         cfg = self.cfg
-        block = {"ln": norm_specs(cfg, cfg.d_model), "ssm": ssm_specs(cfg)}
         return {
             "embed": embed_specs(cfg),
-            "blocks": stack_specs(block, cfg.n_layers),
+            "blocks": stack_specs(self.layer_specs, cfg.n_layers),
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
+
+    def _layer(self, ctx, p):
+        return gather_tree(ctx, p, self.layer_specs)
+
+    def _ln_f(self, ctx, params):
+        return gather_tree(ctx, params["ln_f"],
+                           norm_specs(self.cfg, self.cfg.d_model))
 
     # -- training ------------------------------------------------------------
     def hidden_states(self, params, tokens, ctx=None,
                       variant: Variant = BASELINE):
         """tokens (B, S) -> final hidden states (B, S, D) bf16."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens)
-        body = remat_wrap(lambda p, x: x + ssm_block(
-            cfg, p["ssm"], apply_norm(cfg, p["ln"], x)), variant)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
+
+        def layer(p, x):
+            p = self._layer(ctx, p)
+            return x + ssm_block(cfg, p["ssm"], apply_norm(cfg, p["ln"], x))
+        body = remat_wrap(layer, variant)
         for p in tree_unbind(params["blocks"]):
             x = body(p, x)
-        return apply_norm(cfg, params["ln_f"], x)
+        return apply_norm(cfg, self._ln_f(ctx, params), x)
 
     def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
         h = self.hidden_states(params, batch["tokens"], ctx, variant)
-        xent = chunked_softmax_xent(self.cfg, params["embed"], h,
-                                    batch["labels"], chunk=variant.xent_chunk)
+        xent = chunked_softmax_xent(
+            self.cfg, head_params(ctx, self.cfg, params["embed"]), h,
+            batch["labels"], chunk=variant.xent_chunk)
         return xent, {"xent": xent}
 
     # -- serving -------------------------------------------------------------
@@ -64,14 +81,16 @@ class SSMLM:
         """tokens (B, S) -> (logits of the last position (B, V_padded) f32,
         cache {"state", "conv_x", "conv_B", "conv_C"}: (L, B, ...))."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         caches = []
         for layer in range(cfg.n_layers):
-            x, entry = mamba_prefill(cfg, tree_index(params["blocks"], layer),
-                                     x, variant)
+            x, entry = mamba_prefill(
+                cfg, self._layer(ctx, tree_index(params["blocks"], layer)),
+                x, variant)
             caches.append(entry)
-        x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
-        return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
+        x = apply_norm(cfg, self._ln_f(ctx, params), x[:, -1:, :])
+        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
+                          x)[:, 0], tree_stack(caches))
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
                     variant: Variant = BASELINE):
@@ -80,13 +99,14 @@ class SSMLM:
         cache), and the same dict is returned; ``pos`` is not read (the
         recurrence has no position)."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         for layer in range(cfg.n_layers):
-            p = tree_index(params["blocks"], layer)
+            p = self._layer(ctx, tree_index(params["blocks"], layer))
             y, new = ssm_decode(cfg, p["ssm"], apply_norm(cfg, p["ln"], x),
                                 tree_index(cache, layer))
             for name, t in new.items():
                 cache[name][layer] = t
             x = x + y
-        x = apply_norm(cfg, params["ln_f"], x)
-        return lm_logits(cfg, params["embed"], x), cache
+        x = apply_norm(cfg, self._ln_f(ctx, params), x)
+        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
+                         x), cache

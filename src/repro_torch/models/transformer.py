@@ -19,11 +19,14 @@ instance); without it, through ``chunked_attention``, the port of the
 reference's default path.  Decode stays plain PyTorch, as the reference
 computes it outside any Pallas kernel.
 
-``ctx`` (sharding): serving hands it to ``moe_layer``, which runs expert
-parallel on a mesh (the params held by ``registry.held_axes``); attention,
-the dense MLPs, the norms and the logits stay replicated over the mesh
-(ROADMAP Queue C).  Training on a mesh is ROADMAP Queue A 8b: the training
-path passes no ctx to the moe layer.
+``ctx`` (sharding), in training and serving alike: the parameters are
+held as ``registry.held_axes`` blocks, and each layer gathers its leaves
+whole at use (``sharding.gather_tree``; in training inside the layer's
+remat region, so the whole copies die with the layer and are gathered
+again for the recompute), the embedding and the head theirs at the
+lookup and the logits; ``moe_layer`` gathers its experts itself and runs
+expert parallel.  The tokens are this rank's block of the batch over the
+data axes; compute over ``model`` is replicated (ROADMAP Queue C).
 """
 from __future__ import annotations
 
@@ -33,11 +36,12 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.distributed.sharding import gather_tree
 from repro_torch.models.common import (apply_mlp, apply_norm,
-                                       chunked_softmax_xent, embed_specs,
-                                       embed_tokens, lm_logits, mlp_specs,
-                                       norm_specs, stack_specs, tree_index,
-                                       tree_stack, tree_unbind)
+                                       chunked_softmax_xent, embed_lookup,
+                                       embed_specs, head_params, lm_logits,
+                                       mlp_specs, norm_specs, stack_specs,
+                                       tree_index, tree_stack, tree_unbind)
 from repro_torch.models.variant import BASELINE, Variant, remat_wrap
 
 
@@ -46,6 +50,11 @@ class DecoderLM:
         self.cfg = cfg
         self.is_moe = cfg.moe is not None
         self.is_mla = cfg.mla is not None
+        # one layer's leaves as the model gathers them (the experts: no)
+        self.layer_specs = self.block_specs()
+        if self.is_moe:
+            self.layer_specs["moe"] = moe_mod.gathered_at_layer(
+                self.layer_specs["moe"])
 
     # -- parameters ----------------------------------------------------------
     def block_specs(self) -> dict:
@@ -80,9 +89,10 @@ class DecoderLM:
         return apply_mlp(self.cfg, p["mlp"], h)
 
     # -- training ------------------------------------------------------------
-    def _block(self, p, x, variant: Variant, positions):
+    def _block(self, p, x, variant: Variant, positions, ctx=None):
         """One layer for training: (x after the layer, its aux loss)."""
         cfg = self.cfg
+        p = gather_tree(ctx, p, self.layer_specs)
         h = apply_norm(cfg, p["ln1"], x)
         if self.is_mla:
             a = mla_mod.mla_attention(cfg, p["attn"], h, positions=positions,
@@ -97,7 +107,7 @@ class DecoderLM:
         h = apply_norm(cfg, p["ln2"], x)
         if self.is_moe:
             y, aux = moe_mod.moe_layer(
-                None, cfg, p["moe"], h,
+                ctx, cfg, p["moe"], h,
                 capacity_factor=variant.moe_capacity_factor,
                 psum_dtype=variant.psum_dtype)
         else:
@@ -111,23 +121,29 @@ class DecoderLM:
         loss averaged over the layers)."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
         block = remat_wrap(
-            lambda p, x: self._block(p, x, variant, positions), variant)
+            lambda p, x: self._block(p, x, variant, positions, ctx), variant)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for p in tree_unbind(params["blocks"]):
             x, a = block(p, x)
             aux = aux + a
-        x = apply_norm(cfg, params["ln_f"], x)
+        x = apply_norm(cfg, self._ln_f(ctx, params), x)
         return x, aux / cfg.n_layers
+
+    def _ln_f(self, ctx, params):
+        return gather_tree(ctx, params["ln_f"],
+                           norm_specs(self.cfg, self.cfg.d_model))
 
     def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
         """(mean token cross-entropy, plus the weighted aux loss for moe;
         {"xent", "aux"})."""
         cfg = self.cfg
         h, aux = self.hidden_states(params, batch["tokens"], ctx, variant)
-        xent = chunked_softmax_xent(cfg, params["embed"], h, batch["labels"],
+        xent = chunked_softmax_xent(cfg, head_params(ctx, cfg,
+                                                     params["embed"]),
+                                    h, batch["labels"],
                                     chunk=variant.xent_chunk)
         loss = xent
         if self.is_moe:
@@ -156,7 +172,7 @@ class DecoderLM:
         kv_lora), "k_rope": (L, B, S, rope)}, bf16)."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
         inv_freq = (mla_mod.mla_rope_freqs(cfg, tokens.device) if self.is_mla
                     else attn.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
@@ -164,7 +180,8 @@ class DecoderLM:
                                          device=tokens.device))
         caches = []
         for layer in range(cfg.n_layers):
-            p = tree_index(params["blocks"], layer)
+            p = gather_tree(ctx, tree_index(params["blocks"], layer),
+                            self.layer_specs)
             h = apply_norm(cfg, p["ln1"], x)
             if self.is_mla:
                 q, k, v, c, kr = mla_mod.mla_expand(cfg, p["attn"], h,
@@ -184,8 +201,9 @@ class DecoderLM:
             x = x + attn.out_proj(o, p["attn"]["wo"]).to(x.dtype)
             x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx)
             caches.append(entry)
-        x = apply_norm(cfg, params["ln_f"], x[:, -1:, :])
-        return lm_logits(cfg, params["embed"], x)[:, 0], tree_stack(caches)
+        x = apply_norm(cfg, self._ln_f(ctx, params), x[:, -1:, :])
+        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
+                          x)[:, 0], tree_stack(caches))
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
                     variant: Variant = BASELINE):
@@ -194,9 +212,10 @@ class DecoderLM:
         returns a new cache; in place saves a copy of it per token), and the
         same dict is returned."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens)
+        x = embed_lookup(ctx, cfg, params["embed"], tokens)
         for layer in range(cfg.n_layers):
-            p = tree_index(params["blocks"], layer)
+            p = gather_tree(ctx, tree_index(params["blocks"], layer),
+                            self.layer_specs)
             h = apply_norm(cfg, p["ln1"], x)
             if self.is_mla:
                 a, _, _ = mla_mod.mla_decode(cfg, p["attn"], h,
@@ -208,5 +227,6 @@ class DecoderLM:
                                           cache["v"][layer], pos)
             x = x + a
             x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx)
-        x = apply_norm(cfg, params["ln_f"], x)
-        return lm_logits(cfg, params["embed"], x), cache
+        x = apply_norm(cfg, self._ln_f(ctx, params), x)
+        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
+                         x), cache

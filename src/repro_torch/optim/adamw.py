@@ -9,7 +9,11 @@ the parameters and the moments in place, under ``torch.no_grad()``, one
 leaf at a time (a large leaf in slices of whole rows of its leading
 dimension, each at most SLICE_ELEMENTS: the update is elementwise, so the
 slices give the same bits as the whole leaf, with temporaries the size of
-one slice).
+one slice).  On a mesh each rank updates the blocks it holds (the moments
+held as the parameters are); the one quantity over whole leaves, the
+global norm, sums each leaf's squares over the axes it is split on
+(``split``), so that every element counts once and every rank clips by the
+same norm.
 """
 from __future__ import annotations
 
@@ -62,11 +66,16 @@ def init_state(params, adam_dtype="float32"):
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
-def global_norm(tree):
+def global_norm(tree, ctx=None, split=None):
     """The float32 L2 norm over every leaf, the leaves' sums of squares
-    added in the reference's leaf order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    added in the reference's leaf order.  On a mesh (``ctx``) each leaf is
+    a block: its sum of squares is summed over ``split[i]``, the mesh axes
+    leaf i is split on (in ``tree_leaves`` order)."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(tree)]
+    if ctx is not None:
+        sq = ctx.all_reduce_each(sq, split)
+    return torch.sqrt(sum(sq))
 
 
 def _update(cfg, p, g, m, v, clip, lr, b1c, b2c):
@@ -84,11 +93,13 @@ def _update(cfg, p, g, m, v, clip, lr, b1c, b2c):
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params, state, grads):
+def apply(cfg: AdamWConfig, params, state, grads, ctx=None, split=None):
     """One AdamW step.  Updates ``params`` and the moments in place and
-    returns (params, the new state, {"grad_norm", "lr"})."""
+    returns (params, the new state, {"grad_norm", "lr"}).  On a mesh the
+    leaves are this rank's blocks, ``split`` the axes each is split on
+    (``global_norm``)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, ctx, split)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)

@@ -8,8 +8,10 @@ its block of the cache, computes partial attention over it and a local
 max, numerator and denominator; the numerically stable combine is an
 all-reduce MAX of the maxima, then one all-reduce SUM of the rescaled
 (numerator, denominator) pairs over the ``data`` group.  The heads' outputs
-are all-gathered over ``model`` before the output projection, whose weights,
-like every other parameter, are whole on every rank.
+are all-gathered over ``model`` before the output projection.  The
+weights arrive whole: the hybrid gathers the shared block's blocks at each
+site (``sharding.gather_tree``), and at batch 1 the activations are whole
+on every rank (the batch does not divide over the data axes).
 
 The one new (k, v) entry is written, in place, only into the block that
 owns position ``pos``; on every other rank the cache does not change

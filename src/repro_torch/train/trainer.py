@@ -2,10 +2,16 @@
 straggler monitoring (counterpart of ``repro.train.trainer``).
 
 The loop is plain Python around one step function, as the reference's is.
-One device: a mesh of more than one device raises (the multi-device model
-side, sharding and elastic restore, is ROADMAP Queue A 8).  The device
-defaults to ``cuda`` and raises without one; ``device="cpu"`` runs on the
-CPU.
+On a mesh (a ``launch.mesh.Mesh`` over an initialised world, one rank a
+position) each rank holds its blocks of the parameters, the moments and
+the compression residual (``registry.held_axes``), draws its block of
+each batch (``make_pipeline``) and runs the sharded step; the metrics are
+global, and rank 0 prints them and keeps the history.  Checkpoints hold
+whole leaves (rank 0 writes), so a run resumes onto any mesh, one device
+included.  A SIGTERM on any rank stops every rank after the same step,
+each taking part in the emergency save.  The device defaults to ``cuda``
+and raises without one; ``device="cpu"`` runs on the CPU (a mesh's device
+is its own).
 """
 from __future__ import annotations
 
@@ -19,9 +25,10 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import make_pipeline
+from repro_torch.distributed.sharding import ShardCtx
 from repro_torch.ft.stragglers import StepTimer
 from repro_torch.models.common import init_params
-from repro_torch.models.registry import build
+from repro_torch.models.registry import build, shard_params
 from repro_torch.models.variant import BASELINE, Variant
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import init_error
@@ -55,24 +62,34 @@ class Trainer:
     def __init__(self, arch_cfg, shape, mesh=None,
                  tcfg: TrainConfig | None = None,
                  variant: Variant = BASELINE, device=None):
-        if mesh_size(mesh) != 1:
+        n = mesh_size(mesh)
+        if n > 1 and getattr(mesh, "groups", None) is None:
             raise ValueError(
-                f"a mesh of {mesh_size(mesh)} devices: the port trains on one "
-                f"device; sharded training is ROADMAP Queue A 8")
+                f"a mesh of {n} positions needs {n} ranks: a "
+                f"launch.mesh.Mesh over an initialised world of {n} "
+                f"processes (launch.mesh.make_mesh), one a position")
         self.cfg = arch_cfg
         self.shape = shape
         self.mesh = mesh
         self.tcfg = tcfg = tcfg or TrainConfig()
         self.variant = variant
-        self.device = resolve_device(device)
+        self.ctx = ShardCtx(mesh) if n > 1 else None
+        self.device = mesh.device if n > 1 else resolve_device(device)
+        self.primary = n == 1 or torch.distributed.get_rank() == 0
         self.model = build(arch_cfg)
-        self.pipeline = make_pipeline(arch_cfg, shape, seed=tcfg.seed,
-                                      device=self.device)
+        specs = self.model.param_specs()
+        self.pipeline = make_pipeline(arch_cfg, shape, self.ctx,
+                                      seed=tcfg.seed, device=self.device)
         self.step_timer = StepTimer()
         self._interrupted = False
-        self.step_fn = make_train_step(arch_cfg, None, opt_cfg=tcfg.opt,
+        self.step_fn = make_train_step(arch_cfg, self.ctx, opt_cfg=tcfg.opt,
                                        variant=variant,
                                        grad_compression=tcfg.grad_compression)
+        # the checkpoint's leaves held as blocks (the step counter whole)
+        opt = {"mu": specs, "nu": specs, "step": None}
+        if tcfg.grad_compression:
+            opt["ef_error"] = specs
+        self.state_specs = {"params": specs, "opt": opt}
 
     # -- state --------------------------------------------------------------
     def init_state(self, generator: torch.Generator | None = None):
@@ -82,22 +99,38 @@ class Trainer:
         gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = init_params(self.model.param_specs(), gen)
+        if self.ctx is not None:        # the same values as one device's
+            params = shard_params(self.cfg, params, self.ctx)
         opt_state = adamw.init_state(params, self.variant.adam_dtype)
         if self.tcfg.grad_compression:
             opt_state["ef_error"] = init_error(params)
         return params, opt_state, 0
 
     def restore_or_init(self):
-        """The newest checkpoint under ``ckpt_dir`` onto this device, or a
-        fresh state: (params, opt_state, step)."""
+        """The newest checkpoint under ``ckpt_dir`` onto this device (this
+        rank's blocks of it on a mesh, whatever mesh wrote it), or a fresh
+        state: (params, opt_state, step)."""
         step = ckpt.latest_step(self.tcfg.ckpt_dir)
         params, opt_state, _ = self.init_state()
         if step is None:
             return params, opt_state, 0
         restored, manifest = ckpt.restore(
             self.tcfg.ckpt_dir, {"params": params, "opt": opt_state},
-            device=self.device)
+            device=self.device, ctx=self.ctx, specs=self.state_specs)
         return restored["params"], restored["opt"], manifest["step"]
+
+    def _save(self, step: int, params, opt_state, **kw):
+        ckpt.save(self.tcfg.ckpt_dir, step, {"params": params,
+                                             "opt": opt_state},
+                  ctx=self.ctx, specs=self.state_specs, **kw)
+
+    def _stop(self) -> bool:
+        """Whether any rank took a SIGTERM (every rank agrees)."""
+        if self.ctx is None:
+            return self._interrupted
+        flag = torch.tensor([float(self._interrupted)], device=self.device)
+        return bool(self.ctx.all_reduce(flag, self.ctx.mesh.axis_names,
+                                        "max")[0])
 
     # -- loop ---------------------------------------------------------------
     def _handle_sigterm(self, *_):
@@ -127,23 +160,22 @@ class Trainer:
                 self._sync()
                 dt = time.perf_counter() - t0
                 slow = self.step_timer.update(step, dt)
-                if step % tcfg.log_every == 0 or step == tcfg.steps - 1:
+                if self.primary and (step % tcfg.log_every == 0
+                                     or step == tcfg.steps - 1):
                     m = {k: float(v) for k, v in metrics.items()}
                     history.append({"step": step, "dt": dt, **m})
                     print(f"step {step:5d} loss={m['loss']:.4f} "
                           f"gnorm={m.get('grad_norm', 0):.3f} "
                           f"dt={dt*1e3:.0f}ms{' SLOW' if slow else ''}")
-                if self._interrupted:
-                    print("SIGTERM: emergency checkpoint")
-                    ckpt.save(tcfg.ckpt_dir, step + 1,
-                              {"params": params, "opt": opt_state},
-                              blocking=True)
+                if self._stop():
+                    if self.primary:
+                        print("SIGTERM: emergency checkpoint")
+                    self._save(step + 1, params, opt_state, blocking=True)
                     break
                 if (step + 1) % tcfg.ckpt_every == 0:
-                    ckpt.save(tcfg.ckpt_dir, step + 1,
-                              {"params": params, "opt": opt_state},
-                              extra={"arch": self.cfg.name},
-                              blocking=not tcfg.async_ckpt)
+                    self._save(step + 1, params, opt_state,
+                               extra={"arch": self.cfg.name},
+                               blocking=not tcfg.async_ckpt)
             ckpt.wait_async()
         finally:
             signal.signal(signal.SIGTERM, old)

@@ -6,10 +6,11 @@ reference's ``moe_layer`` on a forced 4-device mesh, on the CPU.
 Reduced deepseek-v2-236b (4 experts, top 2, one shared expert) and reduced
 arctic-480b (4 experts, top 2, the dense residual) on the meshes (1, 1, 4)
 (one expert a rank) and (1, 2, 2) (two experts a rank, D over ``data``,
-the batch's halves on the two data shards), over 4 gloo processes, one
-thread each; the reference runs the same cases in one subprocess on 4
-forced host devices.  A case with capacity factor 0.5 drops tokens, and
-one combines over ``model`` in bfloat16 (``psum_dtype``).
+the batch's halves on the two data shards, each rank handed its half),
+over 4 gloo processes, one thread each; the reference runs the same
+cases in one subprocess on 4 forced host devices.  A case with capacity
+factor 0.5 drops tokens, and one combines over ``model`` in bfloat16
+(``psum_dtype``).
 
 Inputs.  The layer input is a multiple of 1/8 in [-1, 1] and the router a
 multiple of 1/16 in [-1/4, 1/4]: every router logit is then an exact
@@ -157,8 +158,11 @@ with torch.no_grad():
                                          (None,) * v.ndim))
                 for k, v in p.items()}
         routes.clear()
-        y, aux = moe.moe_layer(ctx, cfg, held, x, capacity_factor=cf,
-                               psum_dtype=psum)
+        # the layer takes this rank's block of the batch over the data axes
+        bspec = ctx.spec(x.shape, ("batch", None, None))
+        y, aux = moe.moe_layer(ctx, cfg, held, ctx.shard(x, bspec),
+                               capacity_factor=cf, psum_dtype=psum)
+        y = ctx.gather(y, bspec)
         topi = routes[0]
         # the one-device path on each data shard alone, and on the whole
         dp = ctx.axis_size("pod", "data")
@@ -182,14 +186,18 @@ with torch.no_grad():
         held = registry.shard_params(cfg, params, ctx)
         drawn = registry.init_params_held(cfg, ctx, 0, "cpu")
         tokens = torch.from_numpy(inp["tokens"]).long()
-        lg, cache = model.prefill(held, tokens, ctx, BASELINE)
+        bspec = ctx.spec(tokens.shape, ("batch", None))
+        lg, cache = model.prefill(held, ctx.shard(tokens, bspec), ctx,
+                                  BASELINE)
         dp = ctx.axis_size("pod", "data")
         ref = [model.prefill(params, t, None, BASELINE) for t in
                tokens.chunk(dp)]
         ref_lg = torch.cat([r[0] for r in ref])
         nxt = torch.argmax(ref_lg[:, :cfg.vocab_size], -1)[:, None]
-        dlg, _ = model.decode_step(held, pad_cache(cfg, cache, B, S, 1),
-                                   nxt, S, ctx, BASELINE)
+        dlg, _ = model.decode_step(held, pad_cache(cfg, cache, B // dp, S,
+                                                   1),
+                                   ctx.shard(nxt, bspec), S, ctx, BASELINE)
+        lg, dlg = ctx.gather(lg, bspec), ctx.gather(dlg, bspec)
         ref_d = [model.decode_step(params, pad_cache(cfg, rc, B // dp, S, 1),
                                    t, S, None, BASELINE)[0]
                  for (_, rc), t in zip(ref, nxt.chunk(dp))]
@@ -361,4 +369,4 @@ def test_serving_on_the_mesh_matches_one_device(runs, mc):
     rep = next(m for m in runs["rep"][0]["models"] if m["key"] == key)
     assert rep["held_equal_drawn"]
     assert rep["w_gate"] == [2, 4 // shape[2], 128 // shape[1], 64]
-    assert rep["router"] == [2, 128, 4]
+    assert rep["router"] == [2, 128 // shape[1], 4]

@@ -208,8 +208,9 @@ def test_layout_reports_the_bytes_a_rank_holds():
 def test_held_axes_give_the_moe_layers_in_specs(arch):
     """``held_axes`` resolves, on every mesh, to the reference
     ``moe_layer``'s ``shard_map`` in_specs for each held leaf (E over
-    model, D over the fsdp axes, ffn over model) where they divide, the
-    router and every non-moe leaf to whole."""
+    model, D over the fsdp axes, ffn over model) where they divide, and
+    every other leaf, the router too, to the block its own logical axes
+    give (the reference's ``NamedSharding`` of it)."""
     cfg = get_arch(arch)
     specs = dict(tree_leaves_with_paths(registry.build(cfg).param_specs()))
     held = dict(tree_leaves_with_paths(registry.held_axes(cfg)))
@@ -232,7 +233,7 @@ def test_held_axes_give_the_moe_layers_in_specs(arch):
                     w.pop()
                 assert got == tuple(w), (mesh, path, got)
             else:
-                assert got == (), (mesh, path, got)
+                assert got == t.spec(spec.shape, spec.axes), (mesh, path, got)
 
 
 def test_constrain_is_the_identity():
@@ -274,7 +275,7 @@ def test_the_sharded_path_refuses_fewer_ranks_than_the_mesh():
           for k, v in pm.items()}
     with pytest.raises(RuntimeError, match="needs 4 ranks"):
         moe.moe_layer(t, mcfg, pm, torch.zeros(2, 4, mcfg.d_model))
-    with pytest.raises(NotImplementedError, match="8b"):
+    with pytest.raises(RuntimeError, match="needs 4 ranks"):
         from repro_torch.train.step import make_train_step
         make_train_step(mcfg, t)
 

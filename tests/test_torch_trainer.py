@@ -107,8 +107,10 @@ def test_bf16_moments_and_accumulation(tmp_path):
 
 
 def test_one_device_only(tmp_path):
-    for mesh in ((1, 2, 1), {"data": 2, "model": 2}):
-        with pytest.raises(ValueError, match="Queue A 8"):
+    """Without a world behind it, a mesh of more than one position raises,
+    naming the ranks it needs; a mesh of one position is one device."""
+    for mesh, n in (((1, 2, 1), 2), ({"data": 2, "model": 2}, 4)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks"):
             Trainer(CFG, SHAPE, mesh, TrainConfig(ckpt_dir=str(tmp_path)),
                     device="cpu")
     Trainer(CFG, SHAPE, (1, 1, 1), TrainConfig(ckpt_dir=str(tmp_path)),
@@ -151,13 +153,14 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 def test_cli_refuses_what_it_cannot_do(tmp_path):
     """Without ``--device cpu`` on a box with no GPU it raises naming the
-    flag; a mesh past one device and ``--force-devices`` are refused."""
+    flag, and a mesh of 2 exits 2, naming the GPUs it needs and the GPUs
+    visible; ``--force-devices`` is refused."""
     base = ("--arch", "granite-3-2b", "--reduced", "--steps", "1",
             "--ckpt-dir", str(tmp_path))
-    if not torch.cuda.is_available():
-        r = _cli(*base, env_extra={"CUDA_VISIBLE_DEVICES": ""})
-        assert r.returncode != 0 and "--device cpu" in r.stderr
-    r = _cli(*base, "--device", "cpu", "--mesh", "1,2,1")
-    assert r.returncode == 2 and "Queue A 8" in r.stderr
+    no_gpu = {"CUDA_VISIBLE_DEVICES": ""}
+    r = _cli(*base, env_extra=no_gpu)
+    assert r.returncode != 0 and "--device cpu" in r.stderr
+    r = _cli(*base, "--mesh", "1,2,1", env_extra=no_gpu)
+    assert r.returncode == 2 and "needs 2 GPUs; 0 visible" in r.stderr
     r = _cli(*base, "--device", "cpu", "--force-devices", "8")
     assert r.returncode == 2 and "--force-devices" in r.stderr

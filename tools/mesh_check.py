@@ -69,7 +69,17 @@ by default), any failure raises and the script exits non-zero:
            one GPU cannot hold: peak memory, prefill and decode ms, flash
            launches, top-K against the router alone) and reduced against
            one GPU.  Each mesh is one ``launch_local`` (one process a
-           device; NCCL on CUDA, gloo on the CPU).
+           device; NCCL on CUDA, gloo on the CPU);
+  train    training on a mesh: granite-3-2b at full width through the
+           Trainer, batch 4 x 512, 8 AdamW steps with remat full, on
+           (1, 1, 1) (the yardstick), (1, N, 1) and (1, 2, N/2): losses
+           finite and falling, step 0 within 2e-3 of one device's and
+           every later step within 2e-2, step wall ms, device-busy ms of
+           a further step and its NCCL share, tokens/s, peak memory, the
+           bytes of parameters and moments a rank against the rules',
+           no hand-written kernel launched; on (1, 2, N/2) also
+           deepseek-v2-236b at full width on 2 layers (blocks drawn rank
+           by rank), two steps through the expert-parallel MoE.
 
 The kernels of the port that run in this process are ``chase.cu``, the
 chase probe of a CUDA shard, and ``acc.cu``'s load_sum, the straggler
@@ -576,16 +586,19 @@ def row_sums(t):
     return torch.stack([s.float().flatten(2).sum(dim=(0, 2)) for s in t])
 
 
-def hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos) -> dict:
+def hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos,
+                   held_params=None) -> dict:
     """One decode step at ``pos``, both ways, from the same state: the
-    plain step on a copy of the whole cache, and the sequence-sharded step
-    (``make_decode_step(seq_shard_decode=True)``) on this rank's blocks of
-    it, with each site's sharded attention held against the plain
-    ``gqa_decode`` on the same input (which writes the whole cache's row
-    ``pos``).  Returns the largest attention difference, the logits'
-    relative RMS, whether every block equals its part of the whole cache
-    bit for bit afterwards (so only the owner of ``pos`` wrote, and wrote
-    the plain decode's row), and the rows each block changed."""
+    plain step on a copy of the whole cache with the whole ``params``, and
+    the sequence-sharded step (``make_decode_step(seq_shard_decode=True)``)
+    on this rank's blocks of it with the parameters as the rank holds them
+    (``held_params``, default ``params``), with each site's sharded
+    attention held against the plain ``gqa_decode`` on the same input
+    (which writes the whole cache's row ``pos``).  Returns the largest
+    attention difference, the logits' relative RMS, whether every block
+    equals its part of the whole cache bit for bit afterwards (so only
+    the owner of ``pos`` wrote, and wrote the plain decode's row), and the
+    rows each block changed."""
     import torch
 
     from repro_torch.models import attention as attn
@@ -616,7 +629,8 @@ def hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos) -> dict:
     fd.seq_sharded_gqa_decode = held
     try:
         lg, _ = make_decode_step(cfg, ctx, BASELINE, seq_shard_decode=True)(
-            params, blocks, batch, pos)
+            params if held_params is None else held_params, blocks, batch,
+            pos)
     finally:
         fd.seq_sharded_gqa_decode = orig
     changed = ((row_sums(blocks["k"]) + row_sums(blocks["v"])) != before)
@@ -667,6 +681,8 @@ def flash_decode_worker(shape, device: str) -> int:
     from repro_torch.bench import distributed as dist
     from repro_torch.distributed.sharding import ShardCtx
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import shard_params
     from repro_torch.models.variant import BASELINE
     from repro_torch.serve import flash_decode as fd
     from repro_torch.train.step import make_decode_step
@@ -693,6 +709,9 @@ def flash_decode_worker(shape, device: str) -> int:
             report["cuda_on_gloo"] = str(e)
     S, S_long = FLASH_DECODE_S[dev.type]
     cfg, params, ssm, abs_t = zamba_setup(dev, S)
+    held = shard_params(cfg, params, ctx)
+    report["param_bytes_a_rank"] = sum(t.numel() * t.element_size()
+                                       for t in tree_leaves(held))
     n_seq = ctx.axis_size("data")
     report["cache_spec"] = list(fd.cache_spec(ctx, cfg))
     # 1) values: the whole cache on the host from numpy seeds (7, site,
@@ -715,9 +734,9 @@ def flash_decode_worker(shape, device: str) -> int:
     block = S // n_seq
     tok = torch.full((1, 1), 11, dtype=torch.int64, device=dev)
     report["values"] = [
-        hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos)
+        hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos, held)
         for pos in sorted({5, block - 1, block, S - 1})]
-    del whole
+    del whole, params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     # 2) long_500k: this rank's block only, drawn on the device
@@ -745,7 +764,7 @@ def flash_decode_worker(shape, device: str) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        lg, cache = step(params, cache, {"tokens": tok}, pos0 + i)
+        lg, cache = step(held, cache, {"tokens": tok}, pos0 + i)
         tok = torch.argmax(lg[:, :, :vocab], dim=-1)
         toks.append(int(tok))
         if dev.type == "cuda":
@@ -771,9 +790,9 @@ def flash_decode_worker(shape, device: str) -> int:
 
 
 def moe_hold(ctx, cfg, B: int, P: int, G: int, dev) -> dict:
-    """Serve ``cfg`` on the mesh (prefill of B x P through the kernels, G -
-    1 decode steps teacher-forced with the one-GPU path's greedy tokens)
-    and on one GPU, each data shard's part of the batch on its own
+    """Serve ``cfg`` on the mesh (prefill of this rank's block of the B x P
+    batch through the kernels, G - 1 decode steps teacher-forced with the
+    one-GPU path's greedy tokens) and on one GPU, the same block alone
     (capacity is per data shard): every moe layer's output (relative RMS)
     and the logits.  The one-GPU path runs first on this rank's whole
     weights, which are then cut to the held layout."""
@@ -793,7 +812,7 @@ def moe_hold(ctx, cfg, B: int, P: int, G: int, dev) -> dict:
                          torch.Generator(device=dev).manual_seed(0))
     tokens = make_batch(cfg, (B, P), torch.Generator(device=dev).manual_seed(
         1))["tokens"]
-    dp = ctx.axis_size(*ctx.dp_axes)
+    tokens = ctx.shard(tokens, ctx.block_spec(tokens.shape, ("batch", None)))
     V = cfg.vocab_size
     orig = moe.moe_layer
     log: list = []
@@ -826,22 +845,16 @@ def moe_hold(ctx, cfg, B: int, P: int, G: int, dev) -> dict:
     moe.moe_layer = recording
     try:
         with torch.inference_mode():
-            one, logs, t0 = [], [], time.perf_counter()
-            for part in tokens.chunk(dp):
-                log.clear()
-                one.append(serve(params, None, part))
-                logs.append(list(log))
+            t0 = time.perf_counter()
+            log.clear()
+            ref_logits, teacher = serve(params, None, tokens)
+            ref_layers = list(log)
             sync()
             one_s = time.perf_counter() - t0
             held = shard_params(cfg, params, ctx)
             del params
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
-            ref_logits = [torch.cat([o[0][i] for o in one])
-                          for i in range(G)]
-            ref_layers = [torch.cat([lg[i] for lg in logs])
-                          for i in range(len(logs[0]))]
-            teacher = torch.cat([o[1] for o in one])
             log.clear()
             fa.reset_launch_counts()
             sync()
@@ -852,7 +865,7 @@ def moe_hold(ctx, cfg, B: int, P: int, G: int, dev) -> dict:
     finally:
         moe.moe_layer = orig
     return {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, P, G],
-            "moe_calls": len(log),
+            "block": list(tokens.shape), "moe_calls": len(log),
             "layer_rms": max(rms_rel(a, b) for a, b in zip(log, ref_layers)),
             "logits_rms": max(rms_rel(a, b)
                               for a, b in zip(got_logits, ref_logits)),
@@ -888,6 +901,7 @@ def moe_alone(ctx, cfg, B: int, P: int, G: int, dev) -> dict:
                       for t in tree_leaves(held))
     tokens = make_batch(cfg, (B, P), torch.Generator(device=dev).manual_seed(
         1))["tokens"]
+    tokens = ctx.shard(tokens, ctx.block_spec(tokens.shape, ("batch", None)))
     V = cfg.vocab_size
     orig = moe.route
     routes: list = []
@@ -912,7 +926,7 @@ def moe_alone(ctx, cfg, B: int, P: int, G: int, dev) -> dict:
                 lg, cache = model.prefill(held, tokens, ctx, variant)
                 sync()
                 prefill_ms.append((time.perf_counter() - t0) * 1e3)
-            cache = pad_cache(cfg, cache, B, P, G)
+            cache = pad_cache(cfg, cache, tokens.shape[0], P, G)
             finite = bool(torch.isfinite(lg).all())
             nxt = torch.argmax(lg[:, :V], -1)[:, None]
             step_ms = []
@@ -1088,11 +1102,16 @@ def check_flash_decode(dev, n, src, log) -> dict:
             rule_bytes(shape, cfg, S_long), rule_bytes(shape, cfg)
         out[key]["rules"] = {"cache_a_rank": c_rank, "cache": c_whole,
                              "params_a_rank": p_rank, "params": p_whole}
+        held = {r["param_bytes_a_rank"] for r in ranks}
+        if held != {p_rank}:
+            raise AssertionError(f"{key}: parameters held {held} bytes a "
+                                 f"rank; the rules give {p_rank}")
         log(f"  mesh {key}: under the reference's rules a rank would hold "
             f"{c_rank / 1e9:.2f} of the cache's {c_whole / 1e9:.2f} GB and "
             f"{p_rank / 1e9:.2f} of the parameters' {p_whole / 1e9:.2f} GB; "
-            f"the port holds the KV as blocks, the parameters and SSM "
-            f"caches whole (ROADMAP Queue C)")
+            f"the port holds exactly those parameter bytes (every leaf as "
+            f"its block, gathered at use) and the KV as blocks, the SSM "
+            f"caches whole")
         log(f"  mesh {key}: long_500k S {S_long}, "
             f"{ranks[0]['long']['kv_bytes_a_rank'] / 1e9:.2f} GB of KV a rank "
             f"(block {ranks[0]['long']['block']}): median "
@@ -1157,11 +1176,15 @@ def check_moe_ep(dev, n, src, log) -> dict:
                    else replace(cfg, n_layers=2))
             p_rank, p_whole = rule_bytes(shape, cfg)
             out[key]["rules"] = {"params_a_rank": p_rank, "params": p_whole}
+            if {x["param_bytes_a_rank"] for x in a} != {p_rank}:
+                raise AssertionError(
+                    f"{key} arctic: held {a[0]['param_bytes_a_rank']} "
+                    f"bytes a rank; the rules give {p_rank}")
             log(f"  mesh {key} {cfg.name}: under the reference's rules a "
                 f"rank would hold {p_rank / 1e9:.2f} of the parameters' "
                 f"{p_whole / 1e9:.2f} GB; the port holds "
-                f"{a[0]['param_bytes_a_rank'] / 1e9:.2f} (the experts as "
-                f"blocks, the rest whole)")
+                f"{a[0]['param_bytes_a_rank'] / 1e9:.2f} (every leaf as its "
+                f"block)")
             log(f"  mesh {key} {a[0]['arch']} at full width "
                 f"({a[0]['layers']} layers, batch {a[0]['batch']}): expert "
                 f"block {a[0]['w_gate_block']} a rank, "
@@ -1179,8 +1202,286 @@ def check_moe_ep(dev, n, src, log) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# training on a mesh
+# ---------------------------------------------------------------------------
+
+#: the train step's shape: global batch x sequence, AdamW steps (the batch
+#: of chip_smoke.py phase 3j), by device
+TRAIN_SHAPE = {"cuda": (4, 512, 8), "cpu": (4, 64, 4)}
+#: the deepseek-v2-236b run at full width: layers, AdamW steps
+TRAIN_MOE = (2, 2)
+#: AdamW, as phase 3j trains (a short warmup, so that the loss moves)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2)
+#: the loss against one GPU's: step 0, every later step (relative)
+TRAIN_LOSS0_TOL, TRAIN_LOSS_TOL = 2e-3, 2e-2
+
+
+def _busy_ms(fn, dev) -> tuple:
+    """(kernel ms of one call of ``fn`` from ``torch.profiler``, the part
+    of it in NCCL kernels) on CUDA; (None, None) on the CPU or where the
+    profiler records no device time."""
+    import torch
+    if dev.type != "cuda":
+        fn()
+        return None, None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in ev)
+    nccl = sum(e.time_range.elapsed_us() for e in ev
+               if "nccl" in e.name.lower())
+    return (us / 1e3, nccl / 1e3) if us > 0 else (None, None)
+
+
+def _held_bytes(*trees) -> int:
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree_leaves(tree))
+
+
+def _kernel_launches() -> int:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.membench import membench as mb
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    return sum(v for mod in (mb, fa, sk) for v in mod.launch_counts.values())
+
+
+def train_granite(mesh, dev) -> dict:
+    """granite-3-2b (reduced on the CPU) through the ``Trainer`` on
+    ``mesh`` (None: one device): TRAIN_SHAPE's steps with remat full, each
+    step's loss and wall ms, one further step by device-busy time (and its
+    NCCL share), the steps' peak memory (the whole tree each rank draws
+    once before them excluded), the bytes this rank holds beside the
+    rules' and hand-written kernel launches."""
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.distributed.sharding import AbstractMesh, ShardCtx
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.membench import membench as mb
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.common import spec_map
+    from repro_torch.models.registry import build, held_axes
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    B, S, steps = TRAIN_SHAPE[dev.type]
+    cfg = get_arch("granite-3-2b")
+    cfg = reduced(cfg) if dev.type == "cpu" else cfg
+    for mod in (mb, fa, sk):
+        mod.reset_launch_counts()
+    tcfg = TrainConfig(steps=steps, ckpt_every=steps + 1, log_every=1,
+                       ckpt_dir=str(ROOT / "artifacts" / "mesh_train"),
+                       opt=adamw.AdamWConfig(total_steps=steps, **TRAIN_OPT))
+    trainer = Trainer(cfg, (B, S), mesh, tcfg, device=dev)
+    inner = trainer.step_fn
+
+    def step_fn(*args):
+        if dev.type == "cuda" and not calls:
+            # the peak of the steps, not of drawing the whole tree once
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        calls.append(1)
+        return inner(*args)
+    calls: list = []
+    trainer.step_fn = step_fn
+    with contextlib.redirect_stdout(io.StringIO()):
+        params, opt_state, hist = trainer.train(resume=False)
+    batch = trainer.pipeline.batch(steps)
+    busy, nccl = _busy_ms(lambda: trainer.step_fn(params, opt_state, batch),
+                          dev)
+    shape = tuple(mesh.shape.values()) if mesh is not None else (1, 1, 1)
+    rules = ShardCtx(AbstractMesh(shape, MESH_AXES)).layout(
+        spec_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                       device="meta"),
+                 build(cfg).param_specs()), held_axes(cfg))
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+            "params": sum(r["bytes"] for r in rules.values()) // 4,
+            "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_ms": [h["dt"] * 1e3 for h in hist],
+            "busy_ms": busy, "nccl_ms": nccl,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None),
+            "held_bytes": _held_bytes(params, opt_state["mu"],
+                                      opt_state["nu"]),
+            "rule_bytes": 3 * sum(r["bytes_a_rank"] for r in rules.values()),
+            "kernel_launches": _kernel_launches()}
+
+
+def train_deepseek(ctx, dev) -> dict:
+    """deepseek-v2-236b at full width on TRAIN_MOE's layers (reduced on
+    the CPU), its blocks drawn rank by rank (``init_params_held``): the
+    expert-parallel ``moe_layer`` differentiated, TRAIN_MOE's steps on
+    this rank's block of one TRAIN_SHAPE batch (the same batch each step,
+    so that the loss after an update is comparable), held bytes against
+    the rules, peak memory, step ms, losses."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.distributed.sharding import AbstractMesh, ShardCtx
+    from repro_torch.models.common import spec_map
+    from repro_torch.models.registry import (build, held_axes,
+                                             init_params_held)
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    layers, steps = TRAIN_MOE
+    B, S, _ = TRAIN_SHAPE[dev.type]
+    cfg = get_arch("deepseek-v2-236b")
+    cfg = reduced(cfg) if dev.type == "cpu" else replace(cfg, n_layers=layers)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params_held(cfg, ctx, 0, dev)
+    opt_state = adamw.init_state(params)
+    step = make_train_step(cfg, ctx, adamw.AdamWConfig(
+        total_steps=steps, **TRAIN_OPT))
+    batch = make_pipeline(cfg, (B, S), ctx, seed=0, device=dev).batch(0)
+    losses, ms = [], []
+    for _ in range(steps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rules = ShardCtx(AbstractMesh(tuple(ctx.mesh.shape.values()),
+                                  MESH_AXES)).layout(
+        spec_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                       device="meta"),
+                 build(cfg).param_specs()), held_axes(cfg))
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+            "block": list(batch["tokens"].shape), "losses": losses,
+            "step_ms": ms,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None),
+            "param_bytes": _held_bytes(params),
+            "param_rule_bytes": sum(r["bytes_a_rank"]
+                                    for r in rules.values()),
+            "kernel_launches": _kernel_launches()}
+
+
+def train_worker(shape, device: str) -> int:
+    """One rank of the ``train`` step on mesh ``shape``: granite through
+    the Trainer (one device where the shape has one position), and on a
+    mesh with a model axis also deepseek.  Rank 0 prints one JSON line."""
+    from repro_torch.bench import distributed as dist
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch.mesh import make_mesh
+    dist.ensure_initialized(device)
+    mesh = make_mesh(shape, MESH_AXES, device=device)
+    report = {"shape": list(shape), "coords": mesh.coords,
+              "granite": train_granite(mesh, mesh.device)}
+    if mesh.shape["model"] > 1 and mesh.shape["data"] > 1:
+        report["deepseek"] = train_deepseek(ShardCtx(mesh), mesh.device)
+    reports = dist._all_gather(report)
+    if dist.is_primary():
+        print("TRAIN " + json.dumps(reports), flush=True)
+    return 0
+
+
+def check_train(dev, n, src, log) -> dict:
+    """Training on meshes (1, n, 1) and (1, 2, n/2) against one device of
+    the same machine: granite-3-2b at full width (reduced on the CPU)
+    through the Trainer, the same steps each; finite losses that fall,
+    step 0 within TRAIN_LOSS0_TOL of one device's and every later step
+    within TRAIN_LOSS_TOL, every rank holding the rules' bytes of
+    parameters and moments, no hand-written kernel launched; on (1, 2,
+    n/2) also deepseek-v2-236b at full width on 2 layers, a finite loss
+    that falls and the rules' parameter bytes."""
+    out = {}
+    B, S, steps = TRAIN_SHAPE[dev.type]
+    one = None
+    for shape in ((1, 1, 1), (1, n, 1), (1, 2, n // 2)):
+        t0 = time.perf_counter()
+        ranks, _ = _launch_workers("train_worker", shape, math.prod(shape),
+                                   dev, src, "TRAIN", 1500)
+        key = "x".join(map(str, shape))
+        g = ranks[0]["granite"]
+        losses = g["losses"]
+        if not (len(losses) == steps and all(map(math.isfinite, losses))
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{key}: losses {losses}")
+        for r in ranks:
+            x = r["granite"]
+            if x["held_bytes"] != x["rule_bytes"] or x["kernel_launches"]:
+                raise AssertionError(f"{key} rank {r['coords']}: held "
+                                     f"{x['held_bytes']} bytes, the rules "
+                                     f"{x['rule_bytes']}; kernel launches "
+                                     f"{x['kernel_launches']}")
+        if one is None:
+            one = losses
+        else:
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, one)]
+            if rel[0] > TRAIN_LOSS0_TOL or max(rel[1:]) > TRAIN_LOSS_TOL:
+                raise AssertionError(f"{key}: losses {losses} against one "
+                                     f"device's {one}")
+            g["loss_rel"] = rel
+        warm = sorted(g["step_ms"][1:])    # rank 0's: it keeps the history
+        med = warm[len(warm) // 2]
+        peak = [r["granite"]["peak_bytes"] for r in ranks]
+        busy = [r["granite"]["busy_ms"] for r in ranks]
+        nccl = [r["granite"]["nccl_ms"] for r in ranks]
+        out[key] = {"ranks": ranks, "median_step_ms": med,
+                    "tokens_per_s": B * S / (med / 1e3),
+                    "wall_s": time.perf_counter() - t0}
+        log(f"  mesh {key} {g['arch']} ({g['layers']} layers, "
+            f"{g['params']} parameters, batch {B} x {S}, {steps} steps, "
+            f"remat full): loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+            + ("" if "loss_rel" not in g else
+               f", against one device step 0 {g['loss_rel'][0]:.2e} (limit "
+               f"{TRAIN_LOSS0_TOL}), later <= {max(g['loss_rel'][1:]):.2e} "
+               f"(limit {TRAIN_LOSS_TOL})"))
+        log(f"  mesh {key}: median warm step {med:.1f} ms wall (rank 0, "
+            f"which waits for the others at every collective), "
+            f"{B * S / (med / 1e3):.0f} tokens/s; a further step "
+            + ("device busy " + ", ".join(f"{b:.1f}" for b in busy)
+               + " ms a rank, NCCL kernels " + ", ".join(
+                   f"{c:.1f}" for c in nccl) + " ms of it"
+               if dev.type == "cuda" and None not in busy else
+               "device busy not measured")
+            + "; peak " + (", ".join(f"{p / 2**30:.2f}" for p in peak)
+                           + " GiB a GPU" if dev.type == "cuda" else
+                           "not measured (CPU)")
+            + f"; parameters and moments held {g['held_bytes'] / 1e9:.3f} "
+            f"GB a rank = the rules' {g['rule_bytes'] / 1e9:.3f}; "
+            f"hand-written kernel launches {g['kernel_launches']}; "
+            f"{out[key]['wall_s']:.1f} s")
+        d = ranks[0].get("deepseek")
+        if d is not None:
+            ls = d["losses"]
+            for r in ranks:
+                x = r["deepseek"]
+                if x["param_bytes"] != x["param_rule_bytes"] \
+                        or x["kernel_launches"]:
+                    raise AssertionError(f"{key} deepseek: {x}")
+            if not (all(map(math.isfinite, ls)) and ls[-1] < ls[0]):
+                raise AssertionError(f"{key} deepseek: losses {ls}")
+            log(f"  mesh {key} {d['arch']} ({d['layers']} layers, batch "
+                f"{d['batch']}, block {d['block']} a rank): loss "
+                f"{ls[0]:.4f} -> {ls[-1]:.4f}; step ms "
+                + ", ".join(
+                    f"{max(r['deepseek']['step_ms'][i] for r in ranks):.1f}"
+                    for i in range(len(ls)))
+                + f"; parameters held {d['param_bytes'] / 1e9:.3f} GB a "
+                f"rank = the rules' {d['param_rule_bytes'] / 1e9:.3f}; peak "
+                + (", ".join(f"{r['deepseek']['peak_bytes'] / 2**30:.2f}"
+                             for r in ranks) + " GiB a GPU"
+                   if dev.type == "cuda" else "not measured (CPU)"))
+    return out
+
+
 STEPS = ("enqueue", "sharded", "scaling", "launch", "fig4", "collectives",
-         "stragglers", "flash_decode", "moe_ep")
+         "stragglers", "flash_decode", "moe_ep", "train")
+#: the steps whose every-rank reports stay out of the log's last line
+MESH_STEPS = ("flash_decode", "moe_ep", "train")
 
 
 def main(argv=None) -> int:
@@ -1261,12 +1562,12 @@ def main(argv=None) -> int:
     if "stragglers" in steps:
         log("== stragglers: probe_devices over the pool")
         summary["stragglers"] = check_stragglers(dev, log)
-    if "flash_decode" in steps or "moe_ep" in steps:
+    if set(MESH_STEPS) & set(steps):
         if n % 2:
-            raise SystemExit(f"mesh_check: the serving steps need an even "
-                             f"pool; {n} devices")
-        if dev.type == "cuda":
-            fa.LIBRARY.build_all()      # once, before the ranks load it
+            raise SystemExit(f"mesh_check: the serving and training steps "
+                             f"need an even pool; {n} devices")
+    if ("flash_decode" in steps or "moe_ep" in steps) and dev.type == "cuda":
+        fa.LIBRARY.build_all()          # once, before the ranks load it
     if "flash_decode" in steps:
         log(f"== flash_decode: zamba2-2.7b's sequence-sharded decode on "
             f"(1, {n}, 1) and (1, 2, {n // 2})")
@@ -1275,6 +1576,10 @@ def main(argv=None) -> int:
         log(f"== moe_ep: expert-parallel MoE on (1, 1, {n}) and "
             f"(1, 2, {n // 2})")
         summary["moe_ep"] = check_moe_ep(dev, n, src, log)
+    if "train" in steps:
+        log(f"== train: granite-3-2b on (1, 1, 1), (1, {n}, 1) and "
+            f"(1, 2, {n // 2}); deepseek-v2-236b on (1, 2, {n // 2})")
+        summary["train"] = check_train(dev, n, src, log)
     launched = {k: v for mod in (mb, fa, sk)
                 for k, v in mod.launch_counts.items() if v}
     allowed = {"chase"} | ({"load_sum"} if "stragglers" in steps else set())
@@ -1287,13 +1592,11 @@ def main(argv=None) -> int:
     summary = {"mesh_check": summary}
     (out_dir / f"mesh_check{suffix}.json").write_text(
         json.dumps(summary, indent=1))
-    # the serving steps' every-rank reports stay in the file
-    log(json.dumps(summary, default=str)
-        if not ({"flash_decode", "moe_ep"} & set(steps)) else
-        json.dumps({k: (v if k not in ("flash_decode", "moe_ep") else
+    # the mesh steps' every-rank reports stay in the file
+    log(json.dumps({k: (v if k not in MESH_STEPS else
                         {m: {f: x for f, x in r.items() if f != "ranks"}
                          for m, r in v.items()})
-                    for k, v in summary["mesh_check"].items()}))
+                    for k, v in summary["mesh_check"].items()}, default=str))
     return 0
 
 
