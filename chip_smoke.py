@@ -46,7 +46,13 @@ Phases (any failure raises and the script exits non-zero):
      ragged tail both ways; whisper's encoder (4, 1500, 16, 16, 64) and
      cross-attention (4, 256 against 1500, 16, 16, 64), non-causal, float32
      and bfloat16, with whole-sequence blocks; the SSD at mamba2's serving
-     shape (4 x 80 heads, 512, P 64, N 128, chunk 256) on route 0.
+     shape (4 x 80 heads, 512, P 64, N 128, chunk 256) on route 0.  Then
+     both kernels at a rank's shapes of a ``model`` axis of 2 and 4, as the
+     tensor-parallel prefills launch them (``rank_shapes``, bf16): flash at
+     granite's (4, 512, 16, 4, 64) / (4, 512, 8, 2, 64), zamba2's site
+     (16 / 8 heads of 80), deepseek's 64 / 32 heads of (192, 128),
+     whisper's encoder (4, 1500, 8 / 4 heads, 64) non-causal; the SSD at
+     zamba2's and mamba2's 40 / 20 SSD heads (mamba2's N 128 on route 0).
   3  the main paths, each with the launch counters set to 0 just before and
      read just after: ``run --backend cuda`` over the working-set ladder
      32 KiB .. 2 GiB for the six first mixes, then for the rw ladder, float32
@@ -1359,6 +1365,83 @@ def phase_family_kernels(quick: bool) -> dict[str, float]:
         f"SM, {plan['waves']:.2f} waves, last {plan['last_wave']} of "
         f"{plan['slots']})")
     torch.cuda.empty_cache()
+    return errs
+
+
+#: tensor parallelism over ``model``: the archs whose prefill kernels run
+#: at a rank's heads, and the model axis sizes held
+RANK_TP = (2, 4)
+RANK_FLASH = (DENSE_SERVE, "zamba2-2.7b", MLA_SERVE, ENCDEC_SERVE)
+RANK_SSD = ("zamba2-2.7b", SSM_SERVE)
+
+
+def rank_shapes(tp: int) -> tuple[dict, dict]:
+    """The kernels' shapes at rank 0 of a ``model`` axis of ``tp``
+    (``sharding.rank_heads``, ``rank_block``): flash (B, Sq, Sk, H, KV,
+    D, Dv) with its causal flag for the dense, hybrid, mla and encoder
+    prefills (KV the heads the rank's query heads read: its own, or one a
+    query head where ``kv_heads`` falls back to whole); the SSD (B, H, S,
+    P, N, chunk) at the rank's SSD heads."""
+    from repro_torch.distributed.sharding import (AbstractMesh, ShardCtx,
+                                                  rank_block, rank_heads)
+    ctx = ShardCtx(AbstractMesh((1, 1, tp), ("pod", "data", "model")))
+    flash, ssd = {}, {}
+    for arch in RANK_FLASH:
+        cfg = get_arch(arch)
+        kv = cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads
+        h = rank_heads(ctx, cfg.n_heads, kv, 0)
+        nkv = h.nq if h.kv_of_q is not None else h.nkv
+        if cfg.mla is not None:
+            m = cfg.mla
+            d, dv = m.nope_head_dim + m.rope_head_dim, m.v_head_dim
+        else:
+            d = dv = cfg.resolved_head_dim
+        S = cfg.n_audio_ctx if cfg.family == "encdec" else SERVE_P
+        flash[arch] = ((SERVE_B, S, S, h.nq, nkv, d, dv),
+                       cfg.family != "encdec")
+    for arch in RANK_SSD:
+        cfg = get_arch(arch)
+        s = cfg.ssm
+        H = s.expand * cfg.d_model // s.head_dim
+        ssd[arch] = (SERVE_B, rank_block(ctx, "heads", H, 0)[1], SERVE_P,
+                     s.head_dim, s.d_state, s.chunk_size)
+    return flash, ssd
+
+
+def phase_rank_kernels(quick: bool) -> dict[str, dict]:
+    """2c at a rank's shapes: ``flash_attn.cu`` and ``ssd_scan.cu`` as a
+    rank of a ``model`` axis of 2 and 4 launches them in the prefills
+    (granite-3-2b's 16 / 8 query heads, zamba2's site, deepseek's 32 heads
+    of (192, 128), whisper's encoder at 1500 frames; the SSD at zamba2's
+    and mamba2's 40 / 20 SSD heads, mamba2's N 128 on route 0), bf16,
+    against their plain versions.  Returns the max abs error at each."""
+    say("== phase 2c (a rank's shapes): flash and the SSD as a rank of a "
+        "model axis of " + " and ".join(map(str, RANK_TP)) + " launches "
+        "them")
+    errs: dict[str, dict] = {"flash_attn": {}, "ssd_scan": {}}
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    for tp in RANK_TP[-1:] if quick else RANK_TP:
+        flash, ssd = rank_shapes(tp)
+        for arch, (shape, causal) in flash.items():
+            q, k, v = flash_qkv(*shape, torch.bfloat16, seed=sum(shape))
+            errs["flash_attn"][f"{arch} tp{tp} {shape}"] = hold_flash(
+                q, k, v, causal, f"{arch} tp {tp} {shape}")
+            del q, k, v
+        for arch, shape in ssd.items():
+            xdt, dA, Bv, Cv = serve_ssd_inputs(seed=sum(shape), shape=shape)
+            plan = sk.launch_plan(dA.shape[0], shape[3], shape[4],
+                                  shape[-1], xdt.dtype, sms=sms)
+            if (plan["route"] == 0) != (shape[4] == 128):
+                raise AssertionError(f"ssd {arch} tp {tp} {shape}: route "
+                                     f"{plan['route']}")
+            errs["ssd_scan"][f"{arch} tp{tp} {shape} route "
+                             f"{plan['route']}"] = hold_ssd(
+                xdt, dA, Bv, Cv, shape[-1], f"{arch} tp {tp} {shape}")
+            del xdt, dA, Bv, Cv
+    torch.cuda.empty_cache()
+    for name, e in errs.items():
+        say(f"  {name} at a rank's shapes, bf16, max abs err: "
+            + "; ".join(f"{k} {v:.3e}" for k, v in e.items()))
     return errs
 
 
@@ -4217,6 +4300,7 @@ def main(argv=None) -> int:
     phase_rw_chase(args.quick)
     errs = phase_model_kernels(args.quick)
     family_errs = phase_family_kernels(args.quick)
+    rank_errs = phase_rank_kernels(args.quick)
     counts = phase_main_path(args.quick)
     counts["rw"] = phase_rw_path(args.quick)["rw"]
     counts["chase"] = phase_latency_path(args.quick)["chase"]
@@ -4248,6 +4332,8 @@ def main(argv=None) -> int:
             e["launches_train"] = trained[e["name"]]
         if e["name"] in mesh_served:
             e["launches_mesh_serve"] = mesh_served[e["name"]]
+        if e["name"] in rank_errs:
+            e["max_abs_err_rank_shapes"] = rank_errs[e["name"]]
     say(f"== all phases passed in {time.perf_counter() - t0:.1f} s")
     say(info["smi"])
     say(json.dumps(line))

@@ -1,5 +1,6 @@
-"""Logical-axis sharding: rules, divisibility-checked resolution, ShardCtx
-(counterpart of ``repro.distributed.sharding``).
+"""Logical-axis sharding: rules, divisibility-checked resolution, ShardCtx,
+and the tensor- and sequence-parallel plan of a forward pass (counterpart
+of ``repro.distributed.sharding``).
 
 Models annotate every tensor dim with a *logical* axis name; this module
 maps logical names to mesh axes.  A mapping is applied only when the dim
@@ -17,18 +18,70 @@ as ``jax.sharding.AbstractMesh`` serves the reference's rules) or
 line).  Where the reference leaves placement to ``NamedSharding`` /
 ``device_put``, the port holds blocks: ``shard`` takes this rank's block of
 a full tensor from its mesh coordinates, ``gather`` all-gathers it back,
-``all_reduce`` / ``all_gather`` run one collective an axis.  Every
-collective on a CUDA tensor goes through NCCL (anything else raises), and
-a mesh axis of more than one position without a process group raises: the
-sharded path never runs on fewer ranks than the mesh names.
+``all_reduce`` / ``all_gather`` / ``reduce_scatter`` run one collective an
+axis.  Every collective on a CUDA tensor goes through NCCL (anything else
+raises), and a mesh axis of more than one position without a process
+group raises: the sharded path never runs on fewer ranks than the mesh
+names.
 
-Autograd goes through the collectives: the backward of an all-gather is a
-reduce-scatter (sum) over the same group, and the backward of a sum
-all-reduce is a sum all-reduce, so that a parameter gathered at use
-(``gather_tree``, ZeRO-3) receives the sum of every rank's gradient for
-its block.  A tree of parameters is held leaf by leaf either as the blocks
-``spec`` gives or whole (``held_spec`` tells which from the leaf's
-shape), and ``gather_tree`` makes either whole.
+Tensor and sequence parallelism over ``model`` (``TP``, ``tp_plan``).  A
+layer's leaves are gathered over the fsdp axes only (``gather_tree(...,
+keep=("model",))``), so that a rank computes on its ``model`` block:
+the query / KV heads (``rank_heads``), the ffn, the SSD heads and inner
+dims, the vocabulary.  A column split (``wq``, ``w_gate``, ``w_x``, the
+head's vocabulary columns) needs the layer's whole input; a row split
+(``wo``, ``w_down``, ``w_out``) leaves a partial sum that ``TP.row`` sums
+over ``model`` (``TP.reduce`` for the embedding's rows, whose partial
+sums are exact).  ``TP.row`` keeps each rank's partial product in
+float32 (bf16 operands, products summed in float32, not rounded) and
+rounds the sum over ``model`` once, the one rounding one device's bf16
+product makes: rounding each rank's partial to bf16 first moves reduced
+zamba2's gradients 3.4e-2 from one device's, against 1.2e-2 this way.
+With sequence parallelism (the ``act_seq`` rule resolves for the
+sequence) the residual stream between layers is this rank's block of the
+sequence: ``TP.gather_seq`` (an all-gather) comes before each column
+split and the row split's sum is a reduce-scatter; without it the stream
+is whole on every rank, ``gather_seq`` is the identity and the sum an
+all-reduce.  A dim the rules cannot divide (phi3's 40 heads over 16) is
+computed whole on every rank, its output not reduced.
+
+Autograd goes through the collectives, and every one of them has the
+sum-conjugate backward: an all-gather's is a reduce-scatter (sum) over
+the same group, a reduce-scatter's an all-gather, a sum all-reduce's a
+sum all-reduce.  Then autograd on each rank gives the gradient of the sum
+over ranks of every rank's loss with respect to this rank's copy of each
+leaf, and ``train.step``'s rule stays exact unchanged (each rank
+backpropagates ``loss / N``; each leaf's gradient is summed over the
+axes it is not split on):
+
+- a leaf split over ``model`` (``wq``'s heads, ``w_down``'s ffn rows) is
+  read by its own rank only, so its gradient is that rank's, and there is
+  no ``model`` axis left to sum over;
+- a leaf replicated over ``model`` (norms, ``w_B`` / ``w_C``, the router,
+  ``w_dkv``) is read on every rank of the line, each rank's gradient is
+  the part of the loss that flows through its own compute (its heads, its
+  ffn block, its sequence block), and the rule's sum over ``model`` adds
+  the parts;
+- every rank's loss is the same number after the head's reductions, so
+  the sum of the N losses over N is the loss.
+
+Without sequence parallelism the residual stream is whole on every rank
+of the line, and a column split reads it through ``mean_equal``: the
+mean all-reduce of values that are equal, so its forward is the value
+itself, and its backward (its own conjugate) averages the ranks' parts
+of the stream's gradient.  The rule stays exact (what flows above the
+stream is the same function of the leaves on every rank), and each rank
+then carries the whole gradient over M as the sequence-parallel layout
+carries the whole, so that the two layouts round alike: read as it is,
+each rank's copy carries only its own part of the gradient, which rounds
+elsewhere (reduced granite's gradients with and without sequence
+parallelism then lie 1.0e-2 apart, ``wk``; 1.9e-7 through it).
+
+Megatron's identity-backward ``f`` / ``g`` operators would count the loss
+once a rank instead; the port does not use them.  A tree of parameters is
+held leaf by leaf either as the blocks ``spec`` gives or whole
+(``held_spec`` tells which from the leaf's shape), and ``gather_tree``
+makes either whole, or whole but for its ``model`` block.
 """
 from __future__ import annotations
 
@@ -192,13 +245,26 @@ class ShardCtx:
 
     def constrain(self, x, *axes: Optional[str]):
         """The reference's ``with_sharding_constraint`` by logical axes:
-        the identity.  The port places activations where they are made: a
-        batch arrives as this rank's block under the ``batch`` rule
-        (``data.pipeline.make_pipeline``, or the caller), and every layer
-        computes on it with its parameters gathered whole
-        (``gather_tree``), so compute over ``model`` is replicated (the
-        reference's tensor-parallel and sequence-parallel constraints are
-        ROADMAP Queue A)."""
+        the identity.  The port places activations where they are made,
+        and each reference constraint lives where the layout is made:
+
+        - ``("batch", ...)``: the batch arrives as this rank's block over
+          the data axes (``data.pipeline.make_pipeline``, or the caller);
+        - ``("batch", "act_seq", None)`` between blocks (``transformer``,
+          ``hybrid``, ``ssm_lm``, ``encdec``): ``tp_plan`` resolves
+          ``act_seq`` for the sequence, and the models keep the residual
+          stream as this rank's sequence block (``TP.reduce`` ends a layer
+          with a reduce-scatter, ``TP.gather_seq`` starts one);
+        - ``_constrain_qkv`` / ``_constrain_attn_out``'s heads over
+          ``act_heads`` / ``kv_heads``: ``rank_heads``, and the layer's
+          ``wq`` / ``wk`` / ``wv`` / ``wo`` blocks
+          (``gather_tree(..., keep=("model",))``); where ``act_heads``
+          does not resolve the reference splits the attention's sequence,
+          and the port computes that attention whole on every rank
+          (ROADMAP Queue C);
+        - ``ssm_block``'s ``xh`` over ``heads``: the rank's ``w_x`` /
+          ``w_dt`` / ``conv_x`` / ``A_log`` / ``D`` / ``dt_bias`` blocks
+          (``models.ssm``)."""
         if len(axes) != x.ndim:
             raise ValueError(f"{len(axes)} axes for a {x.ndim}-d tensor")
         return x
@@ -334,6 +400,28 @@ class ShardCtx:
         _check_transport(t, group)
         return _AllGather.apply(t, group, self.mesh.shape[axis], dim)
 
+    def reduce_scatter(self, t, axis: str, dim: int):
+        """The sum over the ``axis`` group of every position's ``t``, of
+        which this rank keeps its block along ``dim`` (block ``coord``, in
+        the order of ``all_gather``).  Under autograd its backward
+        all-gathers the gradient over the same group."""
+        if self.mesh.shape[axis] == 1:
+            return t
+        group = self._group(axis)
+        _check_transport(t, group)
+        return _ReduceScatter.apply(t, group, self.mesh.shape[axis], dim)
+
+    def mean_equal(self, t, axis: str):
+        """The mean over the ``axis`` group of a tensor every position
+        holds equal: ``t`` itself in the forward pass (the mean of equal
+        values), and under autograd the mean all-reduce of the gradient
+        (float32), the mean all-reduce's own backward."""
+        if self.mesh.shape[axis] == 1:
+            return t
+        group = self._group(axis)
+        _check_transport(t, group)
+        return _MeanEqual.apply(t, group, self.mesh.shape[axis])
+
     def all_reduce(self, t, axes: Sequence[str], op: str = "sum"):
         """``t`` reduced (``sum`` or ``max``) over ``axes``, one collective an
         axis of more than one position.  In place, and returned; a sum on a
@@ -385,13 +473,53 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(fc, g):
         _check_transport(g, fc.group)
-        whole = g.movedim(fc.dim, 0).contiguous()       # the n blocks in turn
-        out = torch.empty((whole.shape[0] // fc.n,) + whole.shape[1:],
-                          dtype=g.dtype, device=g.device)
-        from repro_torch.core.collective_bench import _library
-        _library("reduce_scatter_single", "reduce_scatter_tensor")(
-            out, whole, group=fc.group)
-        return out.movedim(0, fc.dim), None, None, None
+        return _reduce_scatter(g, fc.group, fc.n, fc.dim), None, None, None
+
+
+def _reduce_scatter(t, group, n: int, dim: int):
+    """Sum over ``group`` and keep this rank's block along ``dim``."""
+    whole = t.movedim(dim, 0).contiguous()             # the n blocks in turn
+    out = torch.empty((whole.shape[0] // n,) + whole.shape[1:],
+                      dtype=t.dtype, device=t.device)
+    from repro_torch.core.collective_bench import _library
+    _library("reduce_scatter_single", "reduce_scatter_tensor")(
+        out, whole, group=group)
+    return out.movedim(0, dim)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter (sum) along ``dim``; backward: all-gather."""
+
+    @staticmethod
+    def forward(fc, t, group, n: int, dim: int):
+        fc.group, fc.n, fc.dim = group, n, dim
+        return _reduce_scatter(t, group, n, dim)
+
+    @staticmethod
+    def backward(fc, g):
+        _check_transport(g, fc.group)
+        g = g.contiguous()
+        parts = [torch.empty_like(g) for _ in range(fc.n)]
+        dist.all_gather(parts, g, group=fc.group)
+        return torch.cat(parts, dim=fc.dim), None, None, None
+
+
+class _MeanEqual(torch.autograd.Function):
+    """The mean all-reduce of equal values: forward the value; backward
+    the mean all-reduce (float32) of the gradient."""
+
+    @staticmethod
+    def forward(fc, t, group, n: int):
+        fc.group, fc.n = group, n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(fc, g):
+        _check_transport(g, fc.group)
+        out = g.to(torch.float32)           # a new tensor: g is bfloat16
+        out = out.clone() if out is g else out
+        dist.all_reduce(out, group=fc.group)
+        return (out / fc.n).to(g.dtype), None, None
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -414,16 +542,55 @@ class _AllReduceSum(torch.autograd.Function):
         return out, None
 
 
-def gather_tree(ctx, tree, specs):
+class _PartialProduct(torch.autograd.Function):
+    """``a @ w`` of bf16 operands with its products summed in float32 and
+    left unrounded (cuBLAS's bf16 product with a float32 output on the
+    card); backward: the bf16 products of a bf16 matmul's backward."""
+
+    @staticmethod
+    def forward(fc, a, w):
+        fc.save_for_backward(a, w)
+        a2 = a.reshape(-1, a.shape[-1])
+        if a2.is_cuda:
+            out = torch.mm(a2, w, out_dtype=torch.float32)
+        else:
+            out = a2.to(torch.float32) @ w.to(torch.float32)
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(fc, g):
+        a, w = fc.saved_tensors
+        g = g.to(a.dtype)
+        g2 = g.reshape(-1, g.shape[-1])
+        return g @ w.T, a.reshape(-1, a.shape[-1]).T @ g2
+
+
+def gather_tree(ctx, tree, specs, keep: Sequence[str] = ()):
     """Every leaf of ``tree`` (a rank's parameters, each held whole or as
-    its ``ShardCtx.spec`` block) whole: all-gathered over the axes it is
-    split on (ZeRO-3, at use; under autograd the gradient of each block is
-    the sum of every rank's).  ``specs``: the matching tree of
-    ``ParamSpec`` (the whole shape and logical axes of each leaf); a leaf
-    whose spec is None, or absent, stays as it is.  ``ctx`` None, or a mesh
-    of one position, returns ``tree`` itself."""
+    its ``ShardCtx.spec`` block) whole, but for the mesh axes in ``keep``:
+    all-gathered over the other axes it is split on (ZeRO-3, at use; under
+    autograd the gradient of each block is the sum of every rank's).
+    ``keep=("model",)`` leaves each leaf its ``model`` block, the layer's
+    tensor-parallel share (``TP``).  Outside autograd a leaf of two dims or
+    more is cast to bfloat16 before it is gathered (every model reads such
+    a leaf through ``cast_compute``: the same values, half the bytes).
+    ``specs``: the matching tree of ``ParamSpec`` (the whole shape and
+    logical axes of each leaf); a leaf whose spec is None, or absent, stays
+    as it is.  ``ctx`` None, or a mesh of one position, returns ``tree``
+    itself."""
     if ctx is None or ctx.n_ranks == 1:
         return tree
+
+    def one(t, spec):
+        moved = [(dim, a) for dim, e in enumerate(spec)
+                 for a in reversed(entry_axes(e))
+                 if a not in keep and ctx.mesh.shape[a] > 1]
+        if moved and t.ndim >= 2 and not (torch.is_grad_enabled()
+                                          and t.requires_grad):
+            t = t.to(torch.bfloat16)
+        for dim, a in moved:
+            t = ctx.all_gather(t, a, dim)
+        return t
 
     def walk(t, s):
         if isinstance(t, dict):
@@ -431,8 +598,171 @@ def gather_tree(ctx, tree, specs):
             return {k: walk(v, s.get(k)) for k, v in t.items()}
         if s is None:
             return t
-        return ctx.gather(t, ctx.held_spec(t, s.shape, s.axes))
+        return one(t, ctx.held_spec(t, s.shape, s.axes))
     return walk(tree, specs)
+
+
+# ---------------------------------------------------------------------------
+# Tensor and sequence parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+TP_AXIS = "model"
+
+
+def rank_block(ctx, logical: str, size: int, rank: Optional[int] = None
+               ) -> tuple[int, int]:
+    """(start, length) of the ``model`` block of a dim of ``size`` under
+    ``logical`` that rank ``rank`` of the ``model`` line holds (this
+    rank's where None): the whole dim where the rules do not put it on
+    ``model`` (the fallback recorded once in ``ctx.fallbacks``)."""
+    if ctx is None or TP_AXIS not in ctx.mesh.axis_names \
+            or ctx.block_spec((size,), (logical,)) != (TP_AXIS,):
+        return 0, size
+    n = ctx.mesh.shape[TP_AXIS]
+    if rank is None:
+        rank = ctx.coord((TP_AXIS,))
+    return rank * (size // n), size // n
+
+
+@dataclass(frozen=True)
+class Heads:
+    """A rank's share of one attention, as the reference's
+    ``_constrain_qkv`` resolves it: query heads ``[q0, q0 + nq)``
+    (``act_heads``); the KV heads it projects and caches, ``[kv0, kv0 +
+    nkv)`` (``kv_heads``: its ``wk`` / ``wv`` block, or every KV head where
+    ``kv_heads`` falls back to whole); ``kv_of_q``, where the projected KV
+    heads are not the local query heads' own groups (a fallback of
+    ``kv_heads`` only: phi3's 10 KV heads over 4 give a rank query heads
+    10-19, of KV heads 2-4), the projected KV head each local query head
+    reads, else None."""
+    n_heads: int
+    n_kv: int
+    q0: int
+    nq: int
+    kv0: int
+    nkv: int
+    kv_of_q: Optional[tuple[int, ...]]
+
+    @property
+    def split(self) -> bool:
+        """The heads are split over ``model``: the out projection's output
+        is a partial sum."""
+        return self.nq < self.n_heads
+
+    def for_attention(self, k, v):
+        """The (k, v) the local query heads attend to, from the projected
+        KV heads (B, S, nkv, D): themselves, or one KV head a query head
+        (``kv_of_q``: G = 1, a copy)."""
+        if self.kv_of_q is None:
+            return k, v
+        idx = torch.tensor(self.kv_of_q, device=k.device)
+        return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def rank_heads(ctx, n_heads: int, n_kv: int, rank: Optional[int] = None
+               ) -> Heads:
+    """The query and KV heads rank ``rank`` of the ``model`` line computes
+    (this rank's where None), by the reference's resolution: where
+    ``act_heads`` resolves the query heads are split, and the KV heads
+    too where ``kv_heads`` resolves; else the rank projects every KV head
+    and its query heads read theirs (``Heads.kv_of_q``).  Where
+    ``act_heads`` does not resolve (phi3's 40 heads over 16) the reference
+    splits the attention's sequence over ``act_seq`` instead; the port
+    computes every head on every rank (ROADMAP Queue C).  Each fallback is
+    recorded once in ``ctx.fallbacks``."""
+    q0, nq = rank_block(ctx, "act_heads", n_heads, rank)
+    kv0, nkv = ((0, n_kv) if nq == n_heads
+                else rank_block(ctx, "kv_heads", n_kv, rank))
+    g = n_heads // n_kv
+    kv_of_q = (None if nkv * g == nq
+               else tuple((q0 + i) // g for i in range(nq)))
+    return Heads(n_heads, n_kv, q0, nq, kv0, nkv, kv_of_q)
+
+
+@dataclass(frozen=True)
+class TP:
+    """One forward pass's tensor- and sequence-parallel plan over
+    ``model``: ``n`` positions (1: nothing splits, every method the
+    identity), this rank's ``rank`` among them, and ``seq``: the residual
+    stream is this rank's block of the sequence (``act_seq`` resolved)."""
+    ctx: Any = None
+    n: int = 1
+    rank: int = 0
+    seq: bool = False
+
+    def heads(self, n_heads: int, n_kv: int) -> Heads:
+        return rank_heads(self.ctx if self.n > 1 else None, n_heads, n_kv)
+
+    def block(self, logical: str, size: int) -> tuple[int, int]:
+        """(start, length) of this rank's block of a ``logical`` dim."""
+        return rank_block(self.ctx if self.n > 1 else None, logical, size)
+
+    def splits(self, logical: str, size: int) -> bool:
+        return self.block(logical, size)[1] < size
+
+    def gather_seq(self, x, dim: int = 1):
+        """The whole sequence of a residual-stream block (an all-gather
+        over ``model``), before a column split.  Without sequence
+        parallelism the stream is whole on every rank: under autograd it
+        passes ``ShardCtx.mean_equal``, so that each rank's gradient of it
+        is the sum over ``model`` (over M), as the gather's
+        reduce-scatter gives it, and not the rank's own part."""
+        if self.seq:
+            return self.ctx.all_gather(x, TP_AXIS, dim)
+        if self.n > 1 and torch.is_grad_enabled() and x.requires_grad:
+            return self.ctx.mean_equal(x, TP_AXIS)
+        return x
+
+    def scatter_seq(self, x, dim: int = 1):
+        """This rank's block of a whole sequence (no collective)."""
+        if not self.seq:
+            return x
+        b = x.shape[dim] // self.n
+        return x.narrow(dim, self.rank * b, b)
+
+    def reduce(self, y, split: bool = True, dtype=None):
+        """Partial sums back on the residual stream: summed over
+        ``model`` in float32, all-reduced or reduce-scattered to this
+        rank's sequence block, in ``dtype`` (``y``'s where None); an
+        output that is not ``split`` (the layer computed whole) only takes
+        the sequence block."""
+        dtype = dtype or y.dtype
+        if self.n == 1 or not split:
+            return self.scatter_seq(y.to(dtype))
+        out = y.to(torch.float32)
+        if self.seq:
+            out = self.ctx.reduce_scatter(out, TP_AXIS, 1)
+        else:
+            out = self.ctx.all_reduce(out, (TP_AXIS,))
+        return out.to(dtype)
+
+    def row(self, a, w, split: bool, dtype=torch.bfloat16):
+        """A row split on the residual stream, ``a`` (..., K) @ ``w`` (K,
+        N), bf16 operands, in ``dtype``: where ``split`` (``a`` and ``w``
+        this rank's blocks of K) the rank's partial product in float32,
+        summed by ``reduce`` and rounded once; else the bf16 product, as
+        one device computes it (this rank's sequence block)."""
+        if self.n == 1 or not split:
+            return self.scatter_seq((a @ w).to(dtype))
+        return self.reduce(_PartialProduct.apply(a, w), True, dtype)
+
+    def sum(self, t):
+        """``t`` summed over ``model`` (a statistic of split features)."""
+        return self.ctx.all_reduce(t, (TP_AXIS,)) if self.n > 1 else t
+
+
+NO_TP = TP()
+
+
+def tp_plan(ctx, seq_len: int) -> TP:
+    """The plan of a forward pass over ``seq_len`` positions on ``ctx``'s
+    mesh (``NO_TP`` for None or a ``model`` axis of one position); a
+    ``model`` axis without its process group raises."""
+    if ctx is None or TP_AXIS not in ctx.mesh.axis_names \
+            or ctx.mesh.shape[TP_AXIS] == 1:
+        return NO_TP
+    seq = ctx.block_spec((seq_len,), ("act_seq",)) == (TP_AXIS,)
+    return TP(ctx, ctx.mesh.shape[TP_AXIS], ctx.coord((TP_AXIS,)), seq)
 
 
 def _check_transport(t, group) -> None:

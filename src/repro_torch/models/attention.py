@@ -10,12 +10,16 @@ probabilities instead of keeping them (the reference's ``@jax.checkpoint``
 body: the flash-attention backward).  The prefill's kernel route
 (``Variant.use_pallas``) goes to ``repro_torch.kernels.flash_attention``
 instead.  Layouts are the reference's: q ``(B, S, H, Dh)``, k/v ``(B, S,
-KV, Dh)``.  ``ctx`` (the reference's sharding context) is not read here:
-on a mesh the model hands these functions its layer's parameters already
-gathered whole and the activations as this rank's block of the batch, so
-attention is replicated over ``model`` (the reference's tensor-parallel
-heads are ROADMAP Queue A; the sequence-sharded decode is
-``serve.flash_decode``).  ``unroll`` (its scans' unrolling) is accepted
+KV, Dh)``.  On a mesh the layer functions take a ``sharding.TP`` plan
+and the layer's parameters as the rank's ``model`` blocks
+(``gather_tree(..., keep=("model",))``): ``wq`` / ``wk`` / ``wv`` column
+blocks give the rank's heads (``sharding.rank_heads``), the attention runs
+on them, and ``wo``'s row block gives a partial sum that ``TP.reduce``
+sums over ``model``, the reference's ``_constrain_qkv`` /
+``_constrain_attn_out`` (where ``act_heads`` does not resolve the layer
+computes every head, replicated; the reference splits its sequence:
+ROADMAP Queue C).  ``ctx`` is not read here; the sequence-sharded decode
+is ``serve.flash_decode``.  ``unroll`` (its scans' unrolling) is accepted
 and ignored.
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import NO_TP
 from repro_torch.models.common import ParamSpec, cast_compute, rms_norm
 
 # ---------------------------------------------------------------------------
@@ -201,11 +206,13 @@ def _proj_heads(xc, w):
     return (xc @ cast_compute(w).reshape(d, h * k)).reshape(*xc.shape[:-1], h, k)
 
 
-def out_proj(o, wo):
-    """einsum("bshk,hkd->bsd", bf16(o), bf16(wo)) as one matrix product."""
+def out_proj(o, wo, tp=NO_TP, split: bool = False, dtype=torch.bfloat16):
+    """einsum("bshk,hkd->bsd", bf16(o), bf16(wo)) as one matrix product, in
+    ``dtype``; where ``tp`` ``split``s the heads (``o`` and ``wo`` the
+    rank's) a row split summed over ``model`` (``TP.row``)."""
     h, k, d = wo.shape
-    return cast_compute(o).reshape(*o.shape[:-2], h * k) @ \
-        cast_compute(wo).reshape(h * k, d)
+    return tp.row(cast_compute(o).reshape(*o.shape[:-2], h * k),
+                  cast_compute(wo).reshape(h * k, d), split, dtype)
 
 
 def gqa_project_qkv(cfg, p: dict, x, positions, inv_freq):
@@ -223,52 +230,60 @@ def gqa_project_qkv(cfg, p: dict, x, positions, inv_freq):
 
 def gqa_attention(cfg, p: dict, x, *, causal: bool = True, positions=None,
                   kv_block: int = 1024, variant: str = "masked", ctx=None,
-                  unroll: bool = False):
+                  unroll: bool = False, tp=NO_TP):
     """The training attention, x (B, S, D) -> (B, S, D): the plain route
     (``chunked_attention``, or ``folded_causal_attention`` for
     ``variant="folded"`` where S is a multiple of ``kv_block`` above it),
-    never the flash kernel, which is forward only."""
-    B, S, _ = x.shape
+    never the flash kernel, which is forward only.  Under ``tp`` x is the
+    residual stream's block and the result is too; the attention runs on
+    the rank's heads."""
+    heads = tp.heads(cfg.n_heads, cfg.n_kv_heads)
+    xs = tp.gather_seq(x)
+    B, S, _ = xs.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
     inv_freq = rope_freqs(cfg.resolved_head_dim, cfg.rope_pct, cfg.rope_theta,
                           device=x.device)
-    q, k, v = gqa_project_qkv(cfg, p, x, positions, inv_freq)
+    q, k, v = gqa_project_qkv(cfg, p, xs, positions, inv_freq)
+    k, v = heads.for_attention(k, v)
     if causal and variant == "folded" and S > kv_block and S % kv_block == 0:
         o = folded_causal_attention(q, k, v, q_block=kv_block,
                                     kv_block=kv_block)
     else:
         o = chunked_attention(q, k, v, causal=causal,
                               kv_block=min(kv_block, S))
-    return out_proj(o, p["wo"]).to(x.dtype)
+    return out_proj(o, p["wo"], tp, heads.split, x.dtype)
 
 
-def gqa_decode(cfg, p: dict, x, cache_k, cache_v, pos: int):
+def gqa_decode(cfg, p: dict, x, cache_k, cache_v, pos: int, tp=NO_TP):
     """x: (B, 1, D); cache_(k|v): (B, Smax, KV, Dh); pos: int.
 
     Returns (out (B,1,D), cache_k, cache_v).  The new key and value are
     written into the cache tensors in place at ``pos`` (the reference returns
-    updated copies; in place saves a copy of the cache per token)."""
+    updated copies; in place saves a copy of the cache per token).  Under
+    ``tp`` the cache holds the KV heads the rank projects (``Heads``) and
+    the output is summed over ``model``."""
     B, _, D = x.shape
     hd = cfg.resolved_head_dim
+    heads = tp.heads(cfg.n_heads, cfg.n_kv_heads)
     inv_freq = rope_freqs(hd, cfg.rope_pct, cfg.rope_theta, device=x.device)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = gqa_project_qkv(cfg, p, x, positions, inv_freq)
     cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
     cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
+    ck, cv = heads.for_attention(cache_k, cache_v)
     Smax = cache_k.shape[1]
-    KV = cfg.n_kv_heads
-    G = cfg.n_heads // KV
+    KV = ck.shape[2]
+    G = heads.nq // KV
     s = torch.einsum("bkgd,bjkd->bkgj",
                      cast_compute(q).to(torch.float32).reshape(B, KV, G, hd),
-                     cast_compute(cache_k).to(torch.float32))
+                     cast_compute(ck).to(torch.float32))
     s = s / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=x.device))
     mask = torch.arange(Smax, device=x.device)[None, None, None, :] <= pos
     s = s.masked_fill(~mask, float("-inf"))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgj,bjkd->bkgd",
                      w.to(torch.bfloat16).to(torch.float32),
-                     cast_compute(cache_v).to(torch.float32))
-    o = o.reshape(B, 1, cfg.n_heads, -1).to(x.dtype)
-    out = out_proj(o, p["wo"])
-    return out.to(x.dtype), cache_k, cache_v
+                     cast_compute(cv).to(torch.float32))
+    o = o.reshape(B, 1, heads.nq, -1).to(x.dtype)
+    return out_proj(o, p["wo"], tp, heads.split, x.dtype), cache_k, cache_v

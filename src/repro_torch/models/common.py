@@ -8,6 +8,16 @@ from a ``torch.Generator``.  The layouts, the keys, the stacked leading dims
 and the standard deviations are the reference's, so a parameter tree crosses
 between the two packages leaf for leaf (``repro_torch.convert``).  Compute is
 in bfloat16, norms and softmax in float32, as in the reference.
+
+On a mesh the MLP, the embedding and the head take a ``sharding.TP``
+plan: ``apply_mlp`` is Megatron's pair (``w_gate`` / ``w_up`` column
+blocks, ``w_down`` a row block, one reduction over ``model``), and the
+head is vocabulary parallel (``embed_lookup`` masks the tokens outside the
+rank's vocabulary rows and sums over ``model``; ``lm_logits`` and
+``chunked_softmax_xent`` compute the rank's vocabulary columns, the
+softmax's max and sum over ``model``, the gold logit from the rank that
+owns it).  ``NO_TP`` (the default) is one device, the computation as it
+was.
 """
 from __future__ import annotations
 
@@ -19,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import gather_tree
+from repro_torch.distributed.sharding import (NO_TP, TP_AXIS, gather_tree,
+                                              tp_plan)
 
 
 @dataclass(frozen=True)
@@ -186,8 +197,10 @@ def mlp_specs(cfg, d: int, d_ff: int) -> dict:
     }
 
 
-def apply_mlp(cfg, p: dict, x):
-    xc = cast_compute(x)
+def apply_mlp(cfg, p: dict, x, tp=NO_TP):
+    """The MLP of ``x`` (this rank's sequence block under ``tp.seq``); ``p``
+    holds the rank's ``ffn`` blocks where ``tp`` splits them."""
+    xc = cast_compute(tp.gather_seq(x))
     if cfg.mlp == "swiglu":
         g = xc @ cast_compute(p["w_gate"])
         u = xc @ cast_compute(p["w_up"])
@@ -196,7 +209,8 @@ def apply_mlp(cfg, p: dict, x):
         u = xc @ cast_compute(p["w_up"])
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(u.to(torch.float32), approximate="tanh").to(xc.dtype)
-    return (h @ cast_compute(p["w_down"])).to(x.dtype)
+    return tp.row(h, cast_compute(p["w_down"]), tp.splits("ffn", cfg.d_ff),
+                  x.dtype)
 
 
 def stack_specs(specs, n: int, axis_name: str = "layers"):
@@ -233,21 +247,36 @@ def embed_tokens(p: dict, tokens):
 
 
 def embed_lookup(ctx, cfg, p: dict, tokens):
-    """``embed_tokens`` with the table gathered whole at use on a mesh
-    (``p`` holds this rank's block of it, or the whole)."""
-    return embed_tokens(gather_tree(ctx, {"embedding": p["embedding"]},
-                                    embed_specs(cfg)), tokens)
+    """``embed_tokens`` on a mesh (``p`` holds this rank's block of the
+    table, or the whole): the table gathered over the fsdp axes at use;
+    where the vocabulary is split over ``model``, each rank looks up the
+    tokens of its rows, zeros the others, and the sum over ``model``
+    (``TP.reduce``: this rank's sequence block under sequence parallelism)
+    is the lookup."""
+    tp = tp_plan(ctx, tokens.shape[1])
+    emb = gather_tree(ctx, {"embedding": p["embedding"]}, embed_specs(cfg),
+                      keep=(TP_AXIS,))
+    v0, nv = tp.block("vocab", vocab_padded(cfg))
+    if nv == vocab_padded(cfg):
+        return tp.scatter_seq(embed_tokens(emb, tokens))
+    local = tokens - v0
+    mine = (local >= 0) & (local < nv)
+    x = embed_tokens(emb, torch.where(mine, local, 0)) * mine[..., None]
+    return tp.reduce(x)
 
 
 def head_params(ctx, cfg, p: dict) -> dict:
     """The leaf ``lm_logits`` reads (the embedding where tied, else
-    ``lm_head``), gathered whole at use on a mesh."""
+    ``lm_head``), gathered at use on a mesh over the fsdp axes: its
+    ``model`` block is the rank's vocabulary."""
     name = "embedding" if cfg.tied_embeddings else "lm_head"
-    return gather_tree(ctx, {name: p[name]}, embed_specs(cfg))
+    return gather_tree(ctx, {name: p[name]}, embed_specs(cfg),
+                       keep=(TP_AXIS,))
 
 
-def lm_logits(cfg, p: dict, h):
-    """(..., D) -> (..., V_padded) f32 logits; padded columns masked."""
+def _logits_block(cfg, p: dict, h, v0: int = 0):
+    """(..., D) -> (..., nv) f32 logits of the vocabulary columns ``[v0, v0
+    + nv)`` that ``p`` holds; padded columns masked."""
     hc = cast_compute(h)
     if cfg.tied_embeddings:
         w = cast_compute(p["embedding"]).T
@@ -256,32 +285,61 @@ def lm_logits(cfg, p: dict, h):
     logits = (hc @ w).to(torch.float32)
     if cfg.logit_scale != 1.0:
         logits = logits / cfg.logit_scale
-    vp = w.shape[-1]
-    if vp != cfg.vocab_size:
-        pad_mask = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+    nv = w.shape[-1]
+    if v0 + nv > cfg.vocab_size:
+        pad_mask = torch.arange(v0, v0 + nv,
+                                device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_mask, -1e30)
     return logits
 
 
+def lm_logits(cfg, p: dict, h, tp=NO_TP):
+    """(..., D) -> (..., V_padded) f32 logits; padded columns masked.
+    Where ``tp`` splits the vocabulary, each rank computes its columns and
+    an all-gather over ``model`` joins them."""
+    v0, nv = tp.block("vocab", vocab_padded(cfg))
+    logits = _logits_block(cfg, p, h, v0)
+    if nv < vocab_padded(cfg):
+        logits = tp.ctx.all_gather(logits, TP_AXIS, logits.ndim - 1)
+    return logits
+
+
 def chunked_softmax_xent(cfg, p: dict, h, labels, chunk: int = 512,
-                         unroll: bool = False):
+                         unroll: bool = False, tp=NO_TP):
     """Mean token cross-entropy over sequence chunks of ``chunk`` (and the
     remainder), summed in float32 in the reference's order.
 
-    h: (B, S, D); labels: (B, S) int.  Each chunk's (B, c, V) float32
-    logits live only inside the chunk: under autograd the chunk is a
-    checkpoint, so its logits are recomputed in the backward pass (the
-    reference's ``@jax.checkpoint``).  ``unroll`` (the reference's scan
-    unrolling) is accepted and ignored.
+    h: (B, S, D), whole; labels: (B, S) int.  Each chunk's (B, c, V)
+    float32 logits live only inside the chunk: under autograd the chunk is
+    a checkpoint, so its logits are recomputed in the backward pass (the
+    reference's ``@jax.checkpoint``).  Where ``tp`` splits the vocabulary
+    each rank computes its columns' logits: the log-sum-exp takes the max
+    over ``model`` (a constant to autograd) and the sum of the
+    exponentials over ``model``, the gold logit comes from the rank whose
+    columns hold the label, and every rank gets the same loss.
+    ``unroll`` (the reference's scan unrolling) is accepted and ignored.
     """
     B, S, D = h.shape
     chunk = min(chunk, S)
     n = S // chunk
+    v0, nv = tp.block("vocab", vocab_padded(cfg))
+    split = nv < vocab_padded(cfg)
 
     def piece(h_c, y_c):
-        logits = lm_logits(cfg, p, h_c)                      # (B, c, V) f32
-        lse = torch.logsumexp(logits, dim=-1)                # (B, c)
-        gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+        logits = _logits_block(cfg, p, h_c, v0)              # (B, c, nv) f32
+        if not split:
+            lse = torch.logsumexp(logits, dim=-1)            # (B, c)
+            gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+            return torch.sum(lse - gold)
+        m = tp.ctx.all_reduce(torch.amax(logits, dim=-1).detach(),
+                              (TP_AXIS,), "max")
+        se = tp.sum(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+        lse = m + torch.log(se)
+        local = y_c.long() - v0
+        mine = (local >= 0) & (local < nv)
+        gold = torch.gather(logits, -1,
+                            torch.where(mine, local, 0)[..., None])[..., 0]
+        gold = tp.sum(torch.where(mine, gold, 0.0))
         return torch.sum(lse - gold)
 
     def one(h_c, y_c):

@@ -22,9 +22,18 @@ every encoder and decoder layer under ``remat_wrap``.  Decode
 stays plain PyTorch, its cross-attention against the cached ``xk``/``xv``
 as the reference computes it.  ``ctx`` (sharding): the parameters are
 held as ``registry.held_axes`` blocks, and each encoder and decoder layer,
-the final norms, the embedding and the head are gathered whole at use
-(``sharding.gather_tree``, in training inside each layer's remat region);
-the tokens and frames are this rank's block of the batch.
+the final norms, the embedding and the head are gathered over the fsdp
+axes at use, keeping their ``model`` blocks (``sharding.gather_tree``, in
+training inside each layer's remat region).  Each attention (the
+encoder's, the decoder's self- and cross-attention) runs on the rank's
+heads and each MLP on its ffn block, each ended by one reduction over
+``model`` (``sharding.tp_plan``: the encoder's plan over the frames, the
+decoder's over the tokens; with sequence parallelism the residual stream
+is the rank's block of the sequence); the cross-attention's keys and
+values come from the encoder's output, which every ``model`` rank holds
+whole, through the rank's ``wk`` / ``wv`` blocks; the head is vocabulary
+parallel, and the prefill's cache is the rank's KV heads.  The tokens and
+frames are this rank's block of the batch.
 """
 from __future__ import annotations
 
@@ -34,7 +43,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
-from repro_torch.distributed.sharding import gather_tree
+from repro_torch.distributed.sharding import (NO_TP, TP_AXIS, gather_tree,
+                                              tp_plan)
 from repro_torch.models.common import (apply_mlp, apply_norm, cast_compute,
                                        chunked_softmax_xent, embed_lookup,
                                        embed_specs, head_params, lm_logits,
@@ -75,6 +85,16 @@ def attend(q, k, v, *, causal: bool, variant: Variant):
                                   kv_block=min(variant.kv_block, k.shape[1]))
 
 
+def _attend_out(cfg, p, tp, q, k, v, *, causal: bool, variant: Variant,
+                dtype):
+    """The rank's heads of ``q`` against its KV heads ``k`` / ``v``, then
+    ``wo``'s block and the reduction over ``model``."""
+    heads = tp.heads(cfg.n_heads, cfg.n_kv_heads)
+    k, v = heads.for_attention(k, v)
+    o = attend(q, k, v, causal=causal, variant=variant)
+    return attn.out_proj(o, p["wo"], tp, heads.split, dtype)
+
+
 class EncDecLM:
     def __init__(self, cfg):
         self.cfg = cfg
@@ -109,66 +129,91 @@ class EncDecLM:
     def _norm(self, ctx, p):
         return gather_tree(ctx, p, self.final_norm_specs)
 
+    def _layer(self, ctx, p, specs):
+        return gather_tree(ctx, p, specs, keep=(TP_AXIS,))
+
     # -- encoder -------------------------------------------------------------
     def encode(self, params, frames, ctx=None, variant: Variant = BASELINE):
         """frames: (B, A, D) precomputed frame embeddings (frontend stub)
-        -> (B, A, D) bf16."""
+        -> (B, A, D) bf16, whole."""
         cfg = self.cfg
         B, A, D = frames.shape
-        x = cast_compute(frames) + sinusoid(A, D, device=frames.device)[None] \
-            .to(torch.bfloat16)
+        tp = tp_plan(ctx, A)
+        x = tp.scatter_seq(cast_compute(frames)
+                           + sinusoid(A, D, device=frames.device)[None]
+                           .to(torch.bfloat16))
         positions = torch.arange(A, device=frames.device)
 
         def body(p, x):
-            p = gather_tree(ctx, p, self.enc_specs)
-            h = apply_norm(cfg, p["ln1"], x)
+            p = self._layer(ctx, p, self.enc_specs)
+            h = tp.gather_seq(apply_norm(cfg, p["ln1"], x))
             q, k, v = attn.gqa_project_qkv(cfg, p["attn"], h, positions, None)
-            o = attend(q, k, v, causal=False, variant=variant)
-            x = x + attn.out_proj(o, p["attn"]["wo"]).to(x.dtype)
-            return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+            x = x + _attend_out(cfg, p["attn"], tp, q, k, v, causal=False,
+                                variant=variant, dtype=x.dtype)
+            return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
+                                 tp)
 
         body = remat_wrap(body, variant)
         for p in tree_unbind(params["enc_blocks"]):
             x = body(p, x)
-        return apply_norm(cfg, self._norm(ctx, params["enc_ln_f"]), x)
+        return tp.gather_seq(apply_norm(cfg, self._norm(ctx,
+                                                        params["enc_ln_f"]),
+                                        x))
 
     # -- decoder (teacher-forced train) -----------------------------------------
-    def _dec_block(self, p, x, enc_out, variant, positions, ctx=None):
+    def _cross(self, p, h, enc_out, positions, tp, variant, dtype):
+        """The cross-attention of the residual block ``h`` (already
+        normalised) against the whole ``enc_out``: (its output, the
+        rank's xk, xv)."""
         cfg = self.cfg
-        p = gather_tree(ctx, p, self.dec_specs)
+        q, _, _ = attn.gqa_project_qkv(cfg, p, tp.gather_seq(h), positions,
+                                       None)
+        enc = cast_compute(enc_out)
+        xk = attn._proj_heads(enc, p["wk"])
+        xv = attn._proj_heads(enc, p["wv"])
+        return _attend_out(cfg, p, tp, q, xk, xv, causal=False,
+                           variant=variant, dtype=dtype), xk, xv
+
+    def _dec_block(self, p, x, enc_out, variant, positions, ctx=None,
+                   tp=NO_TP):
+        cfg = self.cfg
+        p = self._layer(ctx, p, self.dec_specs)
         h = apply_norm(cfg, p["ln1"], x)
         x = x + attn.gqa_attention(cfg, p["self_attn"], h, causal=True,
                                    positions=positions,
                                    kv_block=variant.kv_block,
-                                   variant=variant.attn_variant)
-        h = apply_norm(cfg, p["ln_x"], x)
+                                   variant=variant.attn_variant, tp=tp)
         # cross attention: q from the decoder, k/v from the encoder output
-        q, _, _ = attn.gqa_project_qkv(cfg, p["cross_attn"], h, positions,
-                                       None)
-        enc = cast_compute(enc_out)
-        k = attn._proj_heads(enc, p["cross_attn"]["wk"])
-        v = attn._proj_heads(enc, p["cross_attn"]["wv"])
-        o = attn.chunked_attention(q, k, v, causal=False,
-                                   kv_block=min(variant.kv_block, k.shape[1]))
-        x = x + attn.out_proj(o, p["cross_attn"]["wo"]).to(x.dtype)
-        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        x = x + self._cross(p["cross_attn"], apply_norm(cfg, p["ln_x"], x),
+                            enc_out, positions, tp,
+                            replace(variant, use_pallas=False), x.dtype)[0]
+        return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x), tp)
+
+    def _dec_embed(self, ctx, params, tokens, tp, offset: int = 0):
+        """The decoder's input: the token embeddings and the sinusoid from
+        ``offset``, the rank's sequence block under ``tp``."""
+        S = tokens.shape[1]
+        x = embed_lookup(ctx, self.cfg, params["embed"], tokens)
+        pos = sinusoid(S, self.cfg.d_model, offset=offset,
+                       device=tokens.device)[None].to(x.dtype)
+        return x + tp.scatter_seq(pos)
 
     def hidden_states(self, params, tokens, enc_out, ctx=None,
                       variant: Variant = BASELINE):
         """tokens (B, S), the encoder's output (B, A, D) -> the decoder's
-        final hidden states (B, S, D) bf16."""
+        final hidden states (B, S, D) bf16, whole."""
         cfg = self.cfg
         B, S = tokens.shape
-        dev = tokens.device
-        x = embed_lookup(ctx, cfg, params["embed"], tokens)
-        x = x + sinusoid(S, cfg.d_model, device=dev)[None].to(x.dtype)
-        positions = torch.arange(S, device=dev)
+        tp = tp_plan(ctx, S)
+        x = self._dec_embed(ctx, params, tokens, tp)
+        positions = torch.arange(S, device=tokens.device)
         body = remat_wrap(lambda p, x: self._dec_block(p, x, enc_out, variant,
-                                                       positions, ctx),
+                                                       positions, ctx, tp),
                           variant)
         for p in tree_unbind(params["dec_blocks"]):
             x = body(p, x)
-        return apply_norm(cfg, self._norm(ctx, params["ln_f"]), x)
+        return tp.gather_seq(apply_norm(cfg, self._norm(ctx, params["ln_f"]),
+                                        x))
 
     def loss(self, params, batch, ctx=None, variant: Variant = BASELINE):
         # training's encoder attention is the plain route: the flash kernel
@@ -178,7 +223,8 @@ class EncDecLM:
         h = self.hidden_states(params, batch["tokens"], enc_out, ctx, variant)
         xent = chunked_softmax_xent(
             self.cfg, head_params(ctx, self.cfg, params["embed"]), h,
-            batch["labels"], chunk=variant.xent_chunk)
+            batch["labels"], chunk=variant.xent_chunk,
+            tp=tp_plan(ctx, h.shape[1]))
         return xent, {"xent": xent}
 
     # -- serving -------------------------------------------------------------
@@ -200,39 +246,37 @@ class EncDecLM:
         """Encode, then the teacher-forced decoder pass over the prompt.
         batch {"tokens" (B, S), "frames" (B, A, D)} -> (logits of the last
         position (B, V_padded) f32, cache {"k"/"v": (L, B, S, KV, hd),
-        "xk"/"xv": (L, B, A, KV, hd)} bf16)."""
+        "xk"/"xv": (L, B, A, KV, hd)} bf16; on a mesh the rank's KV
+        heads)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         enc_out = cast_compute(self.encode(params, batch["frames"], ctx,
                                            variant))
         B, S = tokens.shape
-        dev = tokens.device
-        x = embed_lookup(ctx, cfg, params["embed"], tokens)
-        x = x + sinusoid(S, cfg.d_model, device=dev)[None].to(x.dtype)
-        positions = torch.arange(S, device=dev)
+        tp = tp_plan(ctx, S)
+        x = self._dec_embed(ctx, params, tokens, tp)
+        positions = torch.arange(S, device=tokens.device)
         caches = []
         for layer in range(cfg.n_layers):
-            p = gather_tree(ctx, tree_index(params["dec_blocks"], layer),
+            p = self._layer(ctx, tree_index(params["dec_blocks"], layer),
                             self.dec_specs)
-            h = apply_norm(cfg, p["ln1"], x)
+            h = tp.gather_seq(apply_norm(cfg, p["ln1"], x))
             q, k, v = attn.gqa_project_qkv(cfg, p["self_attn"], h, positions,
                                            None)
-            o = attend(q, k, v, causal=True, variant=variant)
-            x = x + attn.out_proj(o, p["self_attn"]["wo"]).to(x.dtype)
-            h = apply_norm(cfg, p["ln_x"], x)
-            qx, _, _ = attn.gqa_project_qkv(cfg, p["cross_attn"], h,
-                                            positions, None)
-            xk = attn._proj_heads(enc_out, p["cross_attn"]["wk"])
-            xv = attn._proj_heads(enc_out, p["cross_attn"]["wv"])
-            o = attend(qx, xk, xv, causal=False, variant=variant)
-            x = x + attn.out_proj(o, p["cross_attn"]["wo"]).to(x.dtype)
-            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+            x = x + _attend_out(cfg, p["self_attn"], tp, q, k, v,
+                                causal=True, variant=variant, dtype=x.dtype)
+            a, xk, xv = self._cross(p["cross_attn"],
+                                    apply_norm(cfg, p["ln_x"], x), enc_out,
+                                    positions, tp, variant, x.dtype)
+            x = x + a
+            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x), tp)
             caches.append({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16),
                            "xk": xk.to(torch.bfloat16),
                            "xv": xv.to(torch.bfloat16)})
-        x = apply_norm(cfg, self._norm(ctx, params["ln_f"]), x[:, -1:, :])
-        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
-                          x)[:, 0], tree_stack(caches))
+        x = apply_norm(cfg, self._norm(ctx, params["ln_f"]),
+                       tp.gather_seq(x)[:, -1:, :])
+        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]), x,
+                          tp)[:, 0], tree_stack(caches))
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
                     variant: Variant = BASELINE):
@@ -243,25 +287,26 @@ class EncDecLM:
         cfg = self.cfg
         B = tokens.shape[0]
         dev = tokens.device
-        x = embed_lookup(ctx, cfg, params["embed"], tokens)
-        x = x + sinusoid(1, cfg.d_model, offset=pos, device=dev)[None] \
-            .to(x.dtype)
+        tp = tp_plan(ctx, 1)
+        x = self._dec_embed(ctx, params, tokens, tp, offset=pos)
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
         for layer in range(cfg.n_layers):
-            p = gather_tree(ctx, tree_index(params["dec_blocks"], layer),
+            p = self._layer(ctx, tree_index(params["dec_blocks"], layer),
                             self.dec_specs)
             h = apply_norm(cfg, p["ln1"], x)
             a, _, _ = attn.gqa_decode(cfg, p["self_attn"], h, cache["k"][layer],
-                                      cache["v"][layer], pos)
+                                      cache["v"][layer], pos, tp)
             x = x + a
             h = apply_norm(cfg, p["ln_x"], x)
             q, _, _ = attn.gqa_project_qkv(cfg, p["cross_attn"], h, positions,
                                            None)
             xk = cache["xk"][layer]
-            o = attn.chunked_attention(q, xk, cache["xv"][layer], causal=False,
-                                       kv_block=min(1024, xk.shape[1]))
-            x = x + attn.out_proj(o, p["cross_attn"]["wo"]).to(x.dtype)
-            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+            x = x + _attend_out(cfg, p["cross_attn"], tp, q, xk,
+                                cache["xv"][layer], causal=False,
+                                variant=replace(variant, use_pallas=False,
+                                                kv_block=1024),
+                                dtype=x.dtype)
+            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x), tp)
         x = apply_norm(cfg, self._norm(ctx, params["ln_f"]), x)
-        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
-                         x), cache
+        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]), x,
+                         tp), cache

@@ -22,30 +22,35 @@ outside any Pallas kernel.
 
 ``ctx`` (sharding), in training and serving: the parameters are held as
 ``registry.held_axes`` blocks, and each Mamba layer, each site's norm and
-the shared block at each site are gathered whole at use
-(``sharding.gather_tree``; in training inside the remat regions, so the
-shared block's gradient sums over its sites), the embedding, the final
-norm and the head theirs at the lookup and the logits.  The tokens are
-this rank's block of the batch over the data axes.  In
-``decode_step(..., seq_shard_decode=True)`` each site's attention is
-``serve.flash_decode.seq_sharded_gqa_decode`` over this rank's block of
-the KV cache (``flash_decode.cache_spec``); the SSM caches stay whole.
+the shared block at each site are gathered over the fsdp axes at use,
+keeping their ``model`` blocks (``sharding.gather_tree(...,
+keep=("model",))``; in training inside the remat regions, so the shared
+block's gradient sums over its sites), the embedding, the final norm and
+the head theirs at the lookup and the logits.  A layer computes on the
+rank's share (``sharding.tp_plan``): the shared attention on its heads,
+the MLP on its ffn block, a Mamba layer on its SSD heads, each ended by
+one reduction over ``model``; the head is vocabulary parallel, and with
+sequence parallelism the residual stream between layers is the rank's
+block of the sequence.  The tokens are this rank's block of the batch over
+the data axes; on a mesh the prefill's cache is the rank's block (KV
+heads, SSD heads, inner).  In ``decode_step(..., seq_shard_decode=True)``
+each site's attention is ``serve.flash_decode.seq_sharded_gqa_decode``
+over this rank's block of the KV cache (``flash_decode.cache_spec``).
 """
 from __future__ import annotations
-
-from functools import partial
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
-from repro_torch.distributed.sharding import gather_tree
+from repro_torch.distributed.sharding import (NO_TP, TP_AXIS, gather_tree,
+                                              tp_plan)
 from repro_torch.models.common import (apply_mlp, apply_norm,
                                        chunked_softmax_xent, embed_lookup,
                                        embed_specs, head_params, lm_logits,
                                        mlp_specs, norm_specs, stack_specs,
                                        tree_index, tree_stack, tree_unbind)
-from repro_torch.models.ssm import (mamba_prefill, ssm_block,
+from repro_torch.models.ssm import (keep_model, mamba_prefill, ssm_block,
                                     ssm_cache_shapes, ssm_decode, ssm_specs)
 from repro_torch.models.variant import BASELINE, Variant, remat_wrap
 from repro_torch.serve import flash_decode
@@ -83,32 +88,44 @@ class HybridLM:
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
 
+    def _shared(self, ctx, params):
+        return gather_tree(ctx, params["shared"], self.shared_specs,
+                           keep=(TP_AXIS,))
+
+    def _site_norm(self, ctx, site_norm):
+        return gather_tree(ctx, site_norm, self.site_norm_specs)
+
+    def _mamba(self, ctx, p, tp):
+        return gather_tree(ctx, p, self.mamba_specs,
+                           keep=keep_model(self.cfg, tp))
+
     # -- training ----------------------------------------------------------------
     def _shared_block(self, params, site_norm, x, variant, positions,
-                      ctx=None):
+                      ctx=None, tp=NO_TP):
         cfg = self.cfg
-        p = gather_tree(ctx, params["shared"], self.shared_specs)
-        site_norm = gather_tree(ctx, site_norm, self.site_norm_specs)
-        h = apply_norm(cfg, site_norm, x)      # per-site input norm
+        p = self._shared(ctx, params)
+        h = apply_norm(cfg, self._site_norm(ctx, site_norm), x)  # per-site
         h1 = apply_norm(cfg, p["ln1"], h)
         a = attn.gqa_attention(cfg, p["attn"], h1, causal=True,
                                positions=positions, kv_block=variant.kv_block,
-                               variant=variant.attn_variant)
+                               variant=variant.attn_variant, tp=tp)
         h = h + a
         h2 = apply_norm(cfg, p["ln2"], h)
-        return x + h + apply_mlp(cfg, p["mlp"], h2)  # residual onto the backbone
+        return x + h + apply_mlp(cfg, p["mlp"], h2, tp)  # onto the backbone
 
     def hidden_states(self, params, tokens, ctx=None,
                       variant: Variant = BASELINE):
-        """tokens (B, S) -> final hidden states (B, S, D) bf16."""
+        """tokens (B, S) -> final hidden states (B, S, D) bf16, whole."""
         cfg = self.cfg
         B, S = tokens.shape
+        tp = tp_plan(ctx, S)
         x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
 
         def mamba_body(p, x):
-            p = gather_tree(ctx, p, self.mamba_specs)
-            return x + ssm_block(cfg, p["ssm"], apply_norm(cfg, p["ln"], x))
+            p = self._mamba(ctx, p, tp)
+            return x + ssm_block(cfg, p["ssm"], apply_norm(cfg, p["ln"], x),
+                                 tp)
 
         # nested remat: the inner loop checkpoints its own body, or the
         # site-level recompute keeps every layer's SSD score matrices
@@ -116,7 +133,7 @@ class HybridLM:
 
         def site_body(group_p, site_norm, x):
             x = self._shared_block(params, site_norm, x, variant, positions,
-                                   ctx)
+                                   ctx, tp)
             for p in tree_unbind(group_p):
                 x = mamba_fn(p, x)
             return x
@@ -125,7 +142,7 @@ class HybridLM:
         for group_p, site_norm in zip(tree_unbind(params["mamba"]),
                                       tree_unbind(params["site_norms"])):
             x = site_fn(group_p, site_norm, x)
-        return apply_norm(cfg, self._ln_f(ctx, params), x)
+        return tp.gather_seq(apply_norm(cfg, self._ln_f(ctx, params), x))
 
     def _ln_f(self, ctx, params):
         return gather_tree(ctx, params["ln_f"], self.site_norm_specs)
@@ -134,7 +151,8 @@ class HybridLM:
         h = self.hidden_states(params, batch["tokens"], ctx, variant)
         xent = chunked_softmax_xent(
             self.cfg, head_params(ctx, self.cfg, params["embed"]), h,
-            batch["labels"], chunk=variant.xent_chunk)
+            batch["labels"], chunk=variant.xent_chunk,
+            tp=tp_plan(ctx, h.shape[1]))
         return xent, {"xent": xent}
 
     # -- serving -----------------------------------------------------------------
@@ -150,42 +168,46 @@ class HybridLM:
     def prefill(self, params, tokens, ctx=None, variant: Variant = BASELINE):
         """tokens (B, S) -> (logits of the last position (B, V_padded) f32,
         cache {"ssm": {name: (sites, group, ...)}, "k"/"v": (sites, B, S, KV,
-        hd) bf16})."""
+        hd) bf16}; on a mesh the rank's block)."""
         cfg = self.cfg
         B, S = tokens.shape
+        tp = tp_plan(ctx, S)
+        heads = tp.heads(cfg.n_heads, cfg.n_kv_heads)
         x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
         inv_freq = attn.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
                                    cfg.rope_theta, device=tokens.device)
         caches = []
         for site in range(self.n_sites):
-            shared = gather_tree(ctx, params["shared"], self.shared_specs)
-            h = apply_norm(cfg, gather_tree(
-                ctx, tree_index(params["site_norms"], site),
-                self.site_norm_specs), x)
-            h1 = apply_norm(cfg, shared["ln1"], h)
+            shared = self._shared(ctx, params)
+            h = apply_norm(cfg, self._site_norm(
+                ctx, tree_index(params["site_norms"], site)), x)
+            h1 = tp.gather_seq(apply_norm(cfg, shared["ln1"], h))
             q, k, v = attn.gqa_project_qkv(cfg, shared["attn"], h1, positions,
                                            inv_freq)
+            entry = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+            k, v = heads.for_attention(k, v)
             if variant.use_pallas:
                 o = fa_ops.flash(q, k, v, causal=True)
             else:
                 o = attn.chunked_attention(q, k, v, causal=True,
                                            kv_block=min(variant.kv_block, S))
-            h = h + attn.out_proj(o, shared["attn"]["wo"]).to(x.dtype)
+            h = h + attn.out_proj(o, shared["attn"]["wo"], tp, heads.split,
+                                  x.dtype)
             h2 = apply_norm(cfg, shared["ln2"], h)
-            x = x + h + apply_mlp(cfg, shared["mlp"], h2)
+            x = x + h + apply_mlp(cfg, shared["mlp"], h2, tp)
             layer_caches = []
             for layer in range(cfg.attn_every):
-                x, entry = mamba_prefill(
-                    cfg, gather_tree(ctx, tree_index(params["mamba"], site,
-                                                     layer),
-                                     self.mamba_specs), x, variant)
-                layer_caches.append(entry)
-            caches.append({"ssm": tree_stack(layer_caches),
-                           "k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)})
-        x = apply_norm(cfg, self._ln_f(ctx, params), x[:, -1:, :])
-        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
-                          x)[:, 0], tree_stack(caches))
+                x, e = mamba_prefill(
+                    cfg, self._mamba(ctx, tree_index(params["mamba"], site,
+                                                     layer), tp),
+                    x, variant, tp)
+                layer_caches.append(e)
+            caches.append({"ssm": tree_stack(layer_caches), **entry})
+        x = apply_norm(cfg, self._ln_f(ctx, params),
+                       tp.gather_seq(x)[:, -1:, :])
+        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]), x,
+                          tp)[:, 0], tree_stack(caches))
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
                     variant: Variant = BASELINE,
@@ -197,29 +219,33 @@ class HybridLM:
         this rank's ``flash_decode.cache_spec`` blocks on ``ctx``'s mesh and
         each site attends through the sequence-sharded decode."""
         cfg = self.cfg
+        tp = tp_plan(ctx, 1)
         x = embed_lookup(ctx, cfg, params["embed"], tokens)
         for site in range(self.n_sites):
-            shared = gather_tree(ctx, params["shared"], self.shared_specs)
-            h = apply_norm(cfg, gather_tree(
-                ctx, tree_index(params["site_norms"], site),
-                self.site_norm_specs), x)
+            shared = self._shared(ctx, params)
+            h = apply_norm(cfg, self._site_norm(
+                ctx, tree_index(params["site_norms"], site)), x)
             h1 = apply_norm(cfg, shared["ln1"], h)
-            decode = (partial(flash_decode.seq_sharded_gqa_decode, ctx)
-                      if seq_shard_decode else attn.gqa_decode)
-            a, _, _ = decode(cfg, shared["attn"], h1, cache["k"][site],
-                             cache["v"][site], pos)
+            if seq_shard_decode:
+                a, _, _ = flash_decode.seq_sharded_gqa_decode(
+                    ctx, cfg, shared["attn"], h1, cache["k"][site],
+                    cache["v"][site], pos)
+            else:
+                a, _, _ = attn.gqa_decode(cfg, shared["attn"], h1,
+                                          cache["k"][site], cache["v"][site],
+                                          pos, tp)
             h = h + a
             h2 = apply_norm(cfg, shared["ln2"], h)
-            x = x + h + apply_mlp(cfg, shared["mlp"], h2)
+            x = x + h + apply_mlp(cfg, shared["mlp"], h2, tp)
             for layer in range(cfg.attn_every):
-                p = gather_tree(ctx, tree_index(params["mamba"], site, layer),
-                                self.mamba_specs)
+                p = self._mamba(ctx, tree_index(params["mamba"], site, layer),
+                                tp)
                 h = apply_norm(cfg, p["ln"], x)
                 y, new = ssm_decode(cfg, p["ssm"], h,
-                                    tree_index(cache["ssm"], site, layer))
+                                    tree_index(cache["ssm"], site, layer), tp)
                 for name, t in new.items():
                     cache["ssm"][name][site, layer] = t
                 x = x + y
         x = apply_norm(cfg, self._ln_f(ctx, params), x)
-        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
-                         x), cache
+        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]), x,
+                         tp), cache

@@ -10,6 +10,12 @@ through ``flash_attn.cu``'s (192, 128) instance under
 ``Variant.use_pallas`` in the prefill.  Decode uses weight absorption
 against the compressed cache ``(c, k_rope)``, plain PyTorch as the
 reference computes it.
+
+On a mesh (a ``sharding.TP`` plan) ``wq``, ``w_uk``, ``w_uv`` and ``wo``
+arrive as the rank's blocks of heads and the layer runs on those heads,
+its output a partial sum that ``TP.reduce`` sums over ``model``;
+``w_dkv`` and ``kv_norm`` are whole (``kv_lora`` is replicated by the
+rules), and so is the compressed cache.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from repro_torch.models.attention import (_proj_heads, apply_rope,
                                           chunked_attention,
                                           folded_causal_attention, out_proj,
                                           rope_freqs)
+from repro_torch.distributed.sharding import NO_TP
 from repro_torch.models.common import ParamSpec, cast_compute, rms_norm
 
 
@@ -61,11 +68,13 @@ def _project_latent(cfg, p, x, positions, inv_freq):
 def mla_expand(cfg, p, x, positions, inv_freq):
     """The expanded form's operands for a prompt: q and k (B, S, H, nope +
     rope), v (B, S, H, v_head_dim), all contiguous bf16, and the cache
-    entries c (B, S, kv_lora) and k_rope (B, S, rope)."""
+    entries c (B, S, kv_lora) and k_rope (B, S, rope); H the heads of
+    ``p``'s blocks."""
     B, S, _ = x.shape
-    H, R = cfg.n_heads, cfg.mla.rope_head_dim
+    R = cfg.mla.rope_head_dim
     q_nope, q_rope, c, k_rope = _project_latent(cfg, p, x, positions,
                                                 inv_freq)
+    H = q_nope.shape[2]
     k_nope = _proj_heads(c, p["w_uk"])
     v = _proj_heads(c, p["w_uv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -74,23 +83,25 @@ def mla_expand(cfg, p, x, positions, inv_freq):
 
 
 def mla_attention(cfg, p: dict, x, *, positions=None, kv_block: int = 1024,
-                  variant: str = "masked", ctx=None, unroll: bool = False):
+                  variant: str = "masked", ctx=None, unroll: bool = False,
+                  tp=NO_TP):
     """Expanded-form causal MLA for training, on the plain route.  x: (B,
-    S, D) -> (B, S, D)."""
-    B, S, _ = x.shape
+    S, D) -> (B, S, D), the residual stream's block under ``tp``."""
+    xs = tp.gather_seq(x)
+    B, S, _ = xs.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    q, k, v, _, _ = mla_expand(cfg, p, x, positions,
+    q, k, v, _, _ = mla_expand(cfg, p, xs, positions,
                                mla_rope_freqs(cfg, x.device))
     if variant == "folded" and S > kv_block and S % kv_block == 0:
         o = folded_causal_attention(q, k, v, q_block=kv_block,
                                     kv_block=kv_block)
     else:
         o = chunked_attention(q, k, v, causal=True, kv_block=min(kv_block, S))
-    return out_proj(o, p["wo"]).to(x.dtype)
+    return out_proj(o, p["wo"], tp, q.shape[2] < cfg.n_heads, x.dtype)
 
 
-def mla_decode(cfg, p: dict, x, cache_c, cache_kr, pos: int):
+def mla_decode(cfg, p: dict, x, cache_c, cache_kr, pos: int, tp=NO_TP):
     """Absorbed-form decode against the compressed cache.
 
     x: (B, 1, D); cache_c: (B, Smax, R); cache_kr: (B, Smax, rope_dim).
@@ -99,7 +110,8 @@ def mla_decode(cfg, p: dict, x, cache_c, cache_kr, pos: int):
     The new c and k_rope are written into the cache tensors in place at
     ``pos`` (the reference returns updated copies).  Each product takes
     bf16 operands and sums in float32, rounded where the reference's
-    einsum rounds (its bf16 outputs)."""
+    einsum rounds (its bf16 outputs).  Under ``tp``: the rank's heads, the
+    output summed over ``model``."""
     m = cfg.mla
     B = x.shape[0]
     f32, bf16 = torch.float32, torch.bfloat16
@@ -125,5 +137,8 @@ def mla_decode(cfg, p: dict, x, cache_c, cache_kr, pos: int):
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(bf16).to(f32),
                      cast_compute(p["w_uv"]).to(f32)).to(bf16)
     out = torch.einsum("bhk,hkd->bd", o.to(f32),
-                       cast_compute(p["wo"]).to(f32)).to(bf16)[:, None, :]
-    return out.to(x.dtype), cache_c, cache_kr
+                       cast_compute(p["wo"]).to(f32))[:, None, :]
+    split = o.shape[1] < cfg.n_heads
+    # a split's float32 partial sums are rounded once, after the sum
+    return tp.reduce(out if split else out.to(bf16), split, x.dtype), \
+        cache_c, cache_kr

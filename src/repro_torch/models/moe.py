@@ -18,14 +18,18 @@ is averaged over the whole mesh.  The expert products are plain batched
 matrix products (the reference leaves them to XLA).
 
 Held layout on a mesh (``registry.held_axes``): the experts' weights are
-blocks, E over ``model`` and D over the fsdp axes (ZeRO-3: all-gathered
-over those axes inside the layer, in bfloat16 when serving and in float32
-under autograd, so that the gather's backward reduce-scatters float32
-gradients), the shared and residual weights (fsdp, model) / (model, fsdp)
-blocks; the router arrives whole (the model gathers it with the rest of
-the layer, ``gathered_at_layer``).  The layer's input and output are this
-rank's block of the batch over the data axes (the batch as the pipeline
-or the caller splits it), replicated over ``model``.  ``ctx`` None, or a
+blocks, E over ``model`` and D over the fsdp axes, the shared and residual
+weights (fsdp, model) / (model, fsdp) blocks; the layer reads them through
+the models' gather, over the fsdp axes with the ``model`` block kept
+(``sharding.gather_tree(..., keep=("model",))``: ZeRO-3, in bfloat16 when
+serving and in float32 under autograd, so that the gather's backward
+reduce-scatters float32 gradients).  The router arrives whole (the model
+gathers it with the rest of the layer, ``gathered_at_layer``).  The
+layer's input and output are this rank's block of the batch over the data
+axes (the batch as the pipeline or the caller splits it), the whole
+sequence, replicated over ``model`` (under sequence parallelism the models
+all-gather the sequence before the layer and keep their block of its
+output).  ``ctx`` None, or a
 mesh whose axes all have one position, is one device: ``E_local = E``, no
 collective.  Under autograd every collective carries its gradient
 (``ShardCtx.all_gather``, ``all_reduce``).
@@ -37,6 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import TP_AXIS, gather_tree
 from repro_torch.models.common import ParamSpec, cast_compute
 
 
@@ -136,15 +141,14 @@ def moe_layer(ctx, cfg, p: dict, x, *, capacity_factor=None,
             raise ValueError(f"{name} is {tuple(p[name].shape)}; on this mesh "
                              f"the layer holds a block of {shape}")
 
-    def gather(w, dim):
-        """ZeRO-3: the fsdp blocks of ``w`` gathered and cast to bfloat16
-        (gathered in bfloat16 when serving, in float32 under autograd:
-        the same values either way)."""
-        train = torch.is_grad_enabled() and w.requires_grad
-        wc = w if train else cast_compute(w)
-        for a in reversed(fsdp) if fs_size > 1 else ():
-            wc = ctx.all_gather(wc, a, dim)
-        return cast_compute(wc)
+    specs = moe_specs(cfg)
+
+    def gather(name):
+        """ZeRO-3: the fsdp blocks of leaf ``name`` gathered, its ``model``
+        block kept, in bfloat16."""
+        return cast_compute(gather_tree(ctx, {name: p[name]},
+                                        {name: specs[name]},
+                                        keep=(TP_AXIS,))[name])
 
     xf = cast_compute(x.reshape(T, D))
     probs, topv, topi = route(cfg, p, xf)
@@ -172,10 +176,10 @@ def moe_layer(ctx, cfg, p: dict, x, *, capacity_factor=None,
     xe = buf[:E_local * C].reshape(E_local, C, D)
 
     # the local experts' SwiGLU, batched over the experts (bf16 products)
-    g = torch.bmm(xe, gather(p["w_gate"], 1))
-    u = torch.bmm(xe, gather(p["w_up"], 1))
+    g = torch.bmm(xe, gather("w_gate"))
+    u = torch.bmm(xe, gather("w_up"))
     h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(xe.dtype)
-    ye = torch.bmm(h, gather(p["w_down"], 2)).reshape(E_local * C, D)
+    ye = torch.bmm(h, gather("w_down")).reshape(E_local * C, D)
     ye = torch.cat([ye, torch.zeros((1, D), dtype=ye.dtype, device=dev)])
 
     # combine: K gathers of (T, D), float32
@@ -189,9 +193,8 @@ def moe_layer(ctx, cfg, p: dict, x, *, capacity_factor=None,
                        ("res", m.dense_residual)):
         if on:
             out = out + _ffn_partial(
-                xf, gather(p[f"{prefix}_gate"], 0),
-                gather(p[f"{prefix}_up"], 0),
-                gather(p[f"{prefix}_down"], 1)).to(torch.float32)
+                xf, gather(f"{prefix}_gate"), gather(f"{prefix}_up"),
+                gather(f"{prefix}_down")).to(torch.float32)
 
     if ep > 1:
         out = ctx.all_reduce(out.to(getattr(torch, psum_dtype)), (tp,))

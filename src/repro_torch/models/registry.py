@@ -135,10 +135,13 @@ def held_axes(cfg: ArchConfig) -> dict:
     own (``ParamSpec.axes``).  ``ShardCtx.spec`` then gives its block: the
     vocabulary, heads, ffn, inner and expert dims over ``model``, ``embed``
     over the fsdp axes, a dim the rules cannot divide whole (recorded in
-    ``ShardCtx.fallbacks``).  The models gather each layer's leaves whole
-    at use (``sharding.gather_tree``), except a moe layer's experts, shared
-    experts and dense residual (``moe.HELD``), which ``moe_layer`` gathers
-    over the fsdp axes only."""
+    ``ShardCtx.fallbacks``).  The models gather each layer's leaves over
+    the fsdp axes at use and keep their ``model`` blocks
+    (``sharding.gather_tree(..., keep=("model",))``), the rank's share of
+    the layer's heads, ffn, SSD heads and inner dims, and of the
+    vocabulary (tensor parallelism, ``sharding.tp_plan``); a moe layer's
+    experts, shared experts and dense residual (``moe.HELD``) go through
+    the same gather inside ``moe_layer``."""
     return spec_map(lambda s: s.axes, build(cfg).param_specs())
 
 

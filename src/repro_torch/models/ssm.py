@@ -10,12 +10,24 @@ roundings of the einsum operands.  The prefill's kernel route
 ``mamba_prefill`` is one whole Mamba layer of a prefill, shared by the
 hybrid and the ssm-only model; ``ssm_block`` is the block for training,
 always on ``ssd_chunked`` (the kernel is forward only).
+
+On a mesh (a ``sharding.TP`` plan) the layer runs on the rank's SSD heads:
+``w_z``, ``w_x``, ``conv_x``, ``w_dt``, ``A_log``, ``D``, ``dt_bias`` and
+``gate_norm`` arrive as its ``model`` blocks (inner and heads), ``w_B``,
+``w_C``, ``conv_B`` and ``conv_C`` whole (their axis is ``state``, and the
+one group serves every head); the gated RMS norm runs over the whole
+``d_inner``, its sum of squares summed over ``model``, and ``w_out``'s row
+block gives a partial sum that ``TP.reduce`` sums over ``model``.  The
+decode cache is the rank's block too: ``state`` by heads, ``conv_x`` by
+inner.  ``keep_model`` says whether a layer's leaves keep their ``model``
+block (``heads`` and ``inner`` both split, or both whole).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import NO_TP, TP_AXIS
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.common import (ParamSpec, apply_norm, cast_compute,
                                        rms_norm)
@@ -50,6 +62,30 @@ def ssm_specs(cfg) -> dict:
     }
 
 
+def keep_model(cfg, tp) -> tuple[str, ...]:
+    """The mesh axes a Mamba layer's leaves keep as blocks when gathered
+    (``gather_tree``'s ``keep``): ``model``, unless the rules split the
+    SSD heads and the inner dim differently (then the layer is gathered
+    whole and computed whole on every rank)."""
+    d_in, H = ssm_dims(cfg)
+    if tp.splits("heads", H) != tp.splits("inner", d_in):
+        return ()
+    return (TP_AXIS,)
+
+
+def _gated_norm(cfg, y, w, tp):
+    """``rms_norm`` over the whole ``d_inner`` of the rank's block ``y``
+    (B, S, d_local): the sum of squares summed over ``model`` where
+    ``y`` is a block."""
+    d_in, _ = ssm_dims(cfg)
+    if y.shape[-1] == d_in:
+        return rms_norm(y, w, cfg.norm_eps)
+    yf = y.to(torch.float32)
+    var = tp.sum(torch.sum(yf * yf, dim=-1, keepdim=True)) / d_in
+    out = yf * torch.rsqrt(var + cfg.norm_eps) * w.to(torch.float32)
+    return out.to(y.dtype)
+
+
 def softplus(x):
     """``jax.nn.softplus`` (``logaddexp(x, 0)``), not ``F.softplus``, whose
     threshold returns x itself above 20."""
@@ -72,9 +108,10 @@ def _causal_conv(x, w, prepend=None):
 
 
 def _project(cfg, p, x):
-    """x: (B,S,D) -> z, xh (B,S,H,P), Bm/Cm (B,S,G,N), dt (B,S,H) [post conv+act]."""
+    """x: (B,S,D) -> z, xh (B,S,H,P), Bm/Cm (B,S,G,N), dt (B,S,H) [post
+    conv+act]; H the heads of ``p``'s blocks."""
     s = cfg.ssm
-    d_in, H = ssm_dims(cfg)
+    H = p["w_dt"].shape[-1]
     xc = cast_compute(x)
     z = xc @ cast_compute(p["w_z"])
     xs = xc @ cast_compute(p["w_x"])
@@ -182,40 +219,42 @@ def ssd_kernel_route(xh, dt, A, Bm, Cm, chunk: int):
     return y, st.reshape(B, H, N, P).transpose(-1, -2)
 
 
-def _gated_out(cfg, p, x, y, z, xh):
+def _gated_out(cfg, p, x, y, z, xh, tp=NO_TP):
     """The block's tail from the SSD's y: the D skip, the SiLU gate, the
-    gated RMS norm and the output projection, (B, S, D) in x's dtype."""
-    B, S, _ = x.shape
+    gated RMS norm and the output projection, (B, S, D) in x's dtype (the
+    residual stream's block under ``tp``)."""
+    B, S, H, P = xh.shape
     y = y + p["D"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
-    d_in, H = ssm_dims(cfg)
-    y = y.reshape(B, S, d_in)
+    y = y.reshape(B, S, H * P)
     y = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    y = rms_norm(y.to(x.dtype), p["gate_norm"], cfg.norm_eps)
-    return (cast_compute(y) @ cast_compute(p["w_out"])).to(x.dtype)
+    y = _gated_norm(cfg, y.to(x.dtype), p["gate_norm"], tp)
+    return tp.row(cast_compute(y), cast_compute(p["w_out"]),
+                  H < ssm_dims(cfg)[1], x.dtype)
 
 
-def ssm_block(cfg, p: dict, x, ctx=None):
+def ssm_block(cfg, p: dict, x, tp=NO_TP):
     """The Mamba2 block for training, x (B, S, D) -> (B, S, D): the block
-    output only, no cache, its SSD through ``ssd_chunked``."""
-    z, xh, Bm, Cm, dt = _project(cfg, p, x)
+    output only, no cache, its SSD through ``ssd_chunked``.  Under ``tp``
+    x and the output are the residual stream's block."""
+    z, xh, Bm, Cm, dt = _project(cfg, p, tp.gather_seq(x))
     A = -torch.exp(p["A_log"].to(torch.float32))
     y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size)
-    return _gated_out(cfg, p, x, y, z, xh)
+    return _gated_out(cfg, p, x, y, z, xh, tp)
 
 
-def mamba_prefill(cfg, p, x, variant):
+def mamba_prefill(cfg, p, x, variant, tp=NO_TP):
     """One Mamba layer ``{"ln", "ssm"}`` over the whole prompt, residual
     included (the layer the reference writes out twice, in ``HybridLM`` and
     ``SSMLM``'s prefill); the SSD through the hand-written kernel where
     ``variant.use_pallas``, else ``ssd_chunked``.  Returns (x + the layer's
-    output, its decode cache)."""
-    B, S, _ = x.shape
-    h = apply_norm(cfg, p["ln"], x)
+    output, its decode cache: the rank's block under ``tp``)."""
+    h = tp.gather_seq(apply_norm(cfg, p["ln"], x))
+    S = h.shape[1]
     z, xh, Bm, Cm, dt = _project(cfg, p["ssm"], h)
     A = -torch.exp(p["ssm"]["A_log"].to(torch.float32))
     ssd = ssd_kernel_route if variant.use_pallas else ssd_chunked
     y, state = ssd(xh, dt, A, Bm, Cm, cfg.ssm.chunk_size)
-    out = x + _gated_out(cfg, p["ssm"], x, y, z, xh)
+    out = x + _gated_out(cfg, p["ssm"], x, y, z, xh, tp)
     W = cfg.ssm.conv_width
     # conv caches: last W-1 *pre-activation* conv inputs
     xc = cast_compute(h)[:, S - (W - 1):, :]
@@ -251,10 +290,12 @@ def ssm_cache_shapes(cfg, batch: int):
     }
 
 
-def ssm_decode(cfg, p: dict, x, cache: dict):
-    """x: (B,1,D); cache: dict of state/conv_x/conv_B/conv_C.  Returns (y, cache)."""
+def ssm_decode(cfg, p: dict, x, cache: dict, tp=NO_TP):
+    """x: (B,1,D); cache: dict of state/conv_x/conv_B/conv_C (the rank's
+    heads and inner block under ``tp``).  Returns (y, cache)."""
     s = cfg.ssm
-    d_in, H = ssm_dims(cfg)
+    H = p["w_dt"].shape[-1]
+    d_in = H * s.head_dim
     B = x.shape[0]
     xc = cast_compute(x)
     z = xc @ cast_compute(p["w_z"])
@@ -290,7 +331,8 @@ def ssm_decode(cfg, p: dict, x, cache: dict):
     y = y + p["D"].to(torch.float32)[None, :, None] * xh.to(torch.float32)
     y = y.reshape(B, 1, d_in)
     y = y * F.silu(z.to(torch.float32))
-    y = rms_norm(y.to(x.dtype), p["gate_norm"], cfg.norm_eps)
-    out = (cast_compute(y) @ cast_compute(p["w_out"])).to(x.dtype)
+    y = _gated_norm(cfg, y.to(x.dtype), p["gate_norm"], tp)
+    out = tp.row(cast_compute(y), cast_compute(p["w_out"]),
+                 H < ssm_dims(cfg)[1], x.dtype)
     new_cache = {"state": state, "conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C}
     return out, new_cache

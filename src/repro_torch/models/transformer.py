@@ -21,12 +21,20 @@ computes it outside any Pallas kernel.
 
 ``ctx`` (sharding), in training and serving alike: the parameters are
 held as ``registry.held_axes`` blocks, and each layer gathers its leaves
-whole at use (``sharding.gather_tree``; in training inside the layer's
-remat region, so the whole copies die with the layer and are gathered
-again for the recompute), the embedding and the head theirs at the
-lookup and the logits; ``moe_layer`` gathers its experts itself and runs
-expert parallel.  The tokens are this rank's block of the batch over the
-data axes; compute over ``model`` is replicated (ROADMAP Queue C).
+over the fsdp axes at use, keeping their ``model`` blocks
+(``sharding.gather_tree(..., keep=("model",))``; in training inside the
+layer's remat region, so the gathered copies die with the layer and are
+gathered again for the recompute).  A layer then computes on the rank's
+share (``sharding.tp_plan``): the attention on its heads, the MLP on its
+ffn block, each ended by one reduction over ``model``; the head is
+vocabulary parallel.  With sequence parallelism the residual stream
+between layers is this rank's block of the sequence, all-gathered before
+the attention, the MLP and ``moe_layer`` (which gathers its experts over
+the fsdp axes itself and runs expert parallel; its output is all-reduced,
+and the rank keeps its block), reduce-scattered after the row splits, and
+gathered again before the final norm's logits.  The tokens are this
+rank's block of the batch over the data axes; on a mesh the prefill's
+cache is the rank's block (its KV heads).
 """
 from __future__ import annotations
 
@@ -36,7 +44,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.distributed.sharding import gather_tree
+from repro_torch.distributed.sharding import (NO_TP, TP_AXIS, gather_tree,
+                                              tp_plan)
 from repro_torch.models.common import (apply_mlp, apply_norm,
                                        chunked_softmax_xent, embed_lookup,
                                        embed_specs, head_params, lm_logits,
@@ -79,58 +88,66 @@ class DecoderLM:
             "ln_f": norm_specs(cfg, cfg.d_model),
         }
 
-    def _ffn(self, p, h, variant: Variant, ctx=None):
+    def _moe(self, p, h, variant: Variant, ctx=None, tp=NO_TP):
+        """The layer's MoE of the residual block ``h``: (output block, aux
+        loss); ``moe_layer`` takes the whole sequence."""
+        y, aux = moe_mod.moe_layer(
+            ctx, self.cfg, p["moe"], tp.gather_seq(h),
+            capacity_factor=variant.moe_capacity_factor,
+            psum_dtype=variant.psum_dtype)
+        return tp.scatter_seq(y), aux
+
+    def _ffn(self, p, h, variant: Variant, ctx=None, tp=NO_TP):
         """The layer's MLP, or its MoE (whose aux loss serving drops)."""
         if self.is_moe:
-            return moe_mod.moe_layer(
-                ctx, self.cfg, p["moe"], h,
-                capacity_factor=variant.moe_capacity_factor,
-                psum_dtype=variant.psum_dtype)[0]
-        return apply_mlp(self.cfg, p["mlp"], h)
+            return self._moe(p, h, variant, ctx, tp)[0]
+        return apply_mlp(self.cfg, p["mlp"], h, tp)
+
+    def _layer(self, ctx, p):
+        return gather_tree(ctx, p, self.layer_specs, keep=(TP_AXIS,))
 
     # -- training ------------------------------------------------------------
-    def _block(self, p, x, variant: Variant, positions, ctx=None):
+    def _block(self, p, x, variant: Variant, positions, ctx=None, tp=NO_TP):
         """One layer for training: (x after the layer, its aux loss)."""
         cfg = self.cfg
-        p = gather_tree(ctx, p, self.layer_specs)
+        p = self._layer(ctx, p)
         h = apply_norm(cfg, p["ln1"], x)
         if self.is_mla:
             a = mla_mod.mla_attention(cfg, p["attn"], h, positions=positions,
                                       kv_block=variant.kv_block,
-                                      variant=variant.attn_variant)
+                                      variant=variant.attn_variant, tp=tp)
         else:
             a = attn.gqa_attention(cfg, p["attn"], h, causal=True,
                                    positions=positions,
                                    kv_block=variant.kv_block,
-                                   variant=variant.attn_variant)
+                                   variant=variant.attn_variant, tp=tp)
         x = x + a
         h = apply_norm(cfg, p["ln2"], x)
         if self.is_moe:
-            y, aux = moe_mod.moe_layer(
-                ctx, cfg, p["moe"], h,
-                capacity_factor=variant.moe_capacity_factor,
-                psum_dtype=variant.psum_dtype)
+            y, aux = self._moe(p, h, variant, ctx, tp)
         else:
-            y = apply_mlp(cfg, p["mlp"], h)
+            y = apply_mlp(cfg, p["mlp"], h, tp)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + y, aux
 
     def hidden_states(self, params, tokens, ctx=None,
                       variant: Variant = BASELINE):
-        """tokens (B, S) -> (final hidden states (B, S, D) bf16, the aux
-        loss averaged over the layers)."""
+        """tokens (B, S) -> (final hidden states (B, S, D) bf16, whole, the
+        aux loss averaged over the layers)."""
         cfg = self.cfg
         B, S = tokens.shape
+        tp = tp_plan(ctx, S)
         x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
         block = remat_wrap(
-            lambda p, x: self._block(p, x, variant, positions, ctx), variant)
+            lambda p, x: self._block(p, x, variant, positions, ctx, tp),
+            variant)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for p in tree_unbind(params["blocks"]):
             x, a = block(p, x)
             aux = aux + a
         x = apply_norm(cfg, self._ln_f(ctx, params), x)
-        return x, aux / cfg.n_layers
+        return tp.gather_seq(x), aux / cfg.n_layers
 
     def _ln_f(self, ctx, params):
         return gather_tree(ctx, params["ln_f"],
@@ -144,7 +161,8 @@ class DecoderLM:
         xent = chunked_softmax_xent(cfg, head_params(ctx, cfg,
                                                      params["embed"]),
                                     h, batch["labels"],
-                                    chunk=variant.xent_chunk)
+                                    chunk=variant.xent_chunk,
+                                    tp=tp_plan(ctx, h.shape[1]))
         loss = xent
         if self.is_moe:
             loss = loss + cfg.moe.aux_loss_weight * aux
@@ -169,9 +187,12 @@ class DecoderLM:
     def prefill(self, params, tokens, ctx=None, variant: Variant = BASELINE):
         """tokens (B, S) -> (logits of the last position (B, V_padded) f32,
         cache {"k"/"v": (L, B, S, KV, hd)} or, mla, {"c": (L, B, S,
-        kv_lora), "k_rope": (L, B, S, rope)}, bf16)."""
+        kv_lora), "k_rope": (L, B, S, rope)}, bf16; on a mesh the rank's
+        KV heads)."""
         cfg = self.cfg
         B, S = tokens.shape
+        tp = tp_plan(ctx, S)
+        heads = tp.heads(cfg.n_heads, cfg.n_kv_heads)
         x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
         inv_freq = (mla_mod.mla_rope_freqs(cfg, tokens.device) if self.is_mla
@@ -180,30 +201,34 @@ class DecoderLM:
                                          device=tokens.device))
         caches = []
         for layer in range(cfg.n_layers):
-            p = gather_tree(ctx, tree_index(params["blocks"], layer),
-                            self.layer_specs)
-            h = apply_norm(cfg, p["ln1"], x)
+            p = self._layer(ctx, tree_index(params["blocks"], layer))
+            h = tp.gather_seq(apply_norm(cfg, p["ln1"], x))
             if self.is_mla:
                 q, k, v, c, kr = mla_mod.mla_expand(cfg, p["attn"], h,
                                                     positions, inv_freq)
                 entry = {"c": c.to(torch.bfloat16),
                          "k_rope": kr.to(torch.bfloat16)}
+                split = q.shape[2] < cfg.n_heads
             else:
                 q, k, v = attn.gqa_project_qkv(cfg, p["attn"], h, positions,
                                                inv_freq)
                 entry = {"k": k.to(torch.bfloat16),
                          "v": v.to(torch.bfloat16)}
+                k, v = heads.for_attention(k, v)
+                split = heads.split
             if variant.use_pallas:
                 o = fa_ops.flash(q, k, v, causal=True)
             else:
                 o = attn.chunked_attention(q, k, v, causal=True,
                                            kv_block=min(variant.kv_block, S))
-            x = x + attn.out_proj(o, p["attn"]["wo"]).to(x.dtype)
-            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx)
+            x = x + attn.out_proj(o, p["attn"]["wo"], tp, split, x.dtype)
+            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx,
+                              tp)
             caches.append(entry)
-        x = apply_norm(cfg, self._ln_f(ctx, params), x[:, -1:, :])
-        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
-                          x)[:, 0], tree_stack(caches))
+        x = apply_norm(cfg, self._ln_f(ctx, params),
+                       tp.gather_seq(x)[:, -1:, :])
+        return (lm_logits(cfg, head_params(ctx, cfg, params["embed"]), x,
+                          tp)[:, 0], tree_stack(caches))
 
     def decode_step(self, params, cache, tokens, pos: int, ctx=None,
                     variant: Variant = BASELINE):
@@ -212,21 +237,22 @@ class DecoderLM:
         returns a new cache; in place saves a copy of it per token), and the
         same dict is returned."""
         cfg = self.cfg
+        tp = tp_plan(ctx, 1)
         x = embed_lookup(ctx, cfg, params["embed"], tokens)
         for layer in range(cfg.n_layers):
-            p = gather_tree(ctx, tree_index(params["blocks"], layer),
-                            self.layer_specs)
+            p = self._layer(ctx, tree_index(params["blocks"], layer))
             h = apply_norm(cfg, p["ln1"], x)
             if self.is_mla:
                 a, _, _ = mla_mod.mla_decode(cfg, p["attn"], h,
                                              cache["c"][layer],
-                                             cache["k_rope"][layer], pos)
+                                             cache["k_rope"][layer], pos, tp)
             else:
                 a, _, _ = attn.gqa_decode(cfg, p["attn"], h,
                                           cache["k"][layer],
-                                          cache["v"][layer], pos)
+                                          cache["v"][layer], pos, tp)
             x = x + a
-            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx)
+            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx,
+                              tp)
         x = apply_norm(cfg, self._ln_f(ctx, params), x)
-        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]),
-                         x), cache
+        return lm_logits(cfg, head_params(ctx, cfg, params["embed"]), x,
+                         tp), cache

@@ -29,7 +29,7 @@ from repro_torch.distributed.sharding import ShardCtx
 from repro_torch.ft.stragglers import StepTimer
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import build, shard_params
-from repro_torch.models.variant import BASELINE, Variant
+from repro_torch.models.variant import BASELINE, Variant, apply_rules
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import init_error
 from repro_torch.train.step import make_train_step
@@ -73,7 +73,8 @@ class Trainer:
         self.mesh = mesh
         self.tcfg = tcfg = tcfg or TrainConfig()
         self.variant = variant
-        self.ctx = ShardCtx(mesh) if n > 1 else None
+        # the variant's rules (``seq_parallel``) on the mesh
+        self.ctx = apply_rules(ShardCtx(mesh), variant) if n > 1 else None
         self.device = mesh.device if n > 1 else resolve_device(device)
         self.primary = n == 1 or torch.distributed.get_rank() == 0
         self.model = build(arch_cfg)

@@ -72,12 +72,16 @@ by default), any failure raises and the script exits non-zero:
            device; NCCL on CUDA, gloo on the CPU);
   train    training on a mesh: granite-3-2b at full width through the
            Trainer, batch 4 x 512, 8 AdamW steps with remat full, on
-           (1, 1, 1) (the yardstick), (1, N, 1) and (1, 2, N/2): losses
-           finite and falling, step 0 within 2e-3 of one device's and
-           every later step within 2e-2, step wall ms, device-busy ms of
-           a further step and its NCCL share, tokens/s, peak memory, the
-           bytes of parameters and moments a rank against the rules',
-           no hand-written kernel launched; on (1, 2, N/2) also
+           (1, 1, 1) (the yardstick), (1, N, 1), (1, 2, N/2) and (1, 1,
+           N) (pure tensor parallelism): losses finite and falling, step
+           0 within 2e-3 of one device's and every later step within
+           2e-2, step wall ms, device-busy ms of a further step and its
+           NCCL share (compute a rank: busy less NCCL), its matmul FLOPs a
+           rank (``FlopCounterMode``) beside one GPU's, within 1.15 x of
+           one GPU's over the ranks (the batch splits over data, the
+           layers over model), tokens/s, peak memory, the bytes of
+           parameters and moments a rank against the rules', no
+           hand-written kernel launched; on (1, 2, N/2) also
            deepseek-v2-236b at full width on 2 layers (blocks drawn rank
            by rank), two steps through the expert-parallel MoE.
 
@@ -592,9 +596,11 @@ def hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos,
     plain step on a copy of the whole cache with the whole ``params``, and
     the sequence-sharded step (``make_decode_step(seq_shard_decode=True)``)
     on this rank's blocks of it with the parameters as the rank holds them
-    (``held_params``, default ``params``), with each site's sharded
-    attention held against the plain ``gqa_decode`` on the same input
-    (which writes the whole cache's row ``pos``).  Returns the largest
+    (``held_params``, default ``params``) and the SSM caches cut to the
+    rank's SSD heads (``flash_decode.shard_ssm``), with each site's
+    sharded attention held against the plain ``gqa_decode`` of the whole
+    weights on the same input (which writes the whole cache's row
+    ``pos``).  Returns the largest
     attention difference, the logits' relative RMS, whether every block
     equals its part of the whole cache bit for bit afterwards (so only
     the owner of ``pos`` wrote, and wrote the plain decode's row), and the
@@ -612,7 +618,7 @@ def hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos,
     lg_plain, _ = make_decode_step(cfg, None, BASELINE)(params, plain, batch,
                                                          pos)
     del plain
-    blocks = {"ssm": {k: v.clone() for k, v in ssm.items()},
+    blocks = {"ssm": fd.shard_ssm(ctx, cfg, ssm),
               "k": ctx.shard(whole["k"], spec).clone(),
               "v": ctx.shard(whole["v"], spec).clone()}
     before = row_sums(blocks["k"]) + row_sums(blocks["v"])
@@ -621,8 +627,8 @@ def hold_decode_at(ctx, cfg, params, whole, ssm, tok, pos,
 
     def held(ctx_, cfg_, p, x, kb, vb, pos_):
         s = next(sites)
-        o_plain, _, _ = attn.gqa_decode(cfg_, p, x, whole["k"][s],
-                                        whole["v"][s], pos_)
+        o_plain, _, _ = attn.gqa_decode(cfg_, params["shared"]["attn"], x,
+                                        whole["k"][s], whole["v"][s], pos_)
         out = orig(ctx_, cfg_, p, x, kb, vb, pos_)
         errs.append(float((out[0].float() - o_plain.float()).abs().max()))
         return out
@@ -746,7 +752,7 @@ def flash_decode_worker(shape, device: str) -> int:
     bshape = (n_sites, 1, S_long // n_seq, cfg.n_kv_heads // tp_n,
               cfg.resolved_head_dim)
     gen = torch.Generator(device=dev).manual_seed(1000 + rank)
-    cache = {"ssm": {k: v.clone() for k, v in ssm.items()},
+    cache = {"ssm": fd.shard_ssm(ctx, cfg, ssm),
              "k": torch.randn(bshape, generator=gen, device=dev,
                               dtype=torch.bfloat16).mul_(0.3),
              "v": torch.randn(bshape, generator=gen, device=dev,
@@ -1110,8 +1116,8 @@ def check_flash_decode(dev, n, src, log) -> dict:
             f"{c_rank / 1e9:.2f} of the cache's {c_whole / 1e9:.2f} GB and "
             f"{p_rank / 1e9:.2f} of the parameters' {p_whole / 1e9:.2f} GB; "
             f"the port holds exactly those parameter bytes (every leaf as "
-            f"its block, gathered at use) and the KV as blocks, the SSM "
-            f"caches whole")
+            f"its block, gathered over the fsdp axes at use) and the KV and "
+            f"SSM caches as blocks")
         log(f"  mesh {key}: long_500k S {S_long}, "
             f"{ranks[0]['long']['kv_bytes_a_rank'] / 1e9:.2f} GB of KV a rank "
             f"(block {ranks[0]['long']['block']}): median "
@@ -1215,6 +1221,17 @@ TRAIN_MOE = (2, 2)
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2)
 #: the loss against one GPU's: step 0, every later step (relative)
 TRAIN_LOSS0_TOL, TRAIN_LOSS_TOL = 2e-3, 2e-2
+#: a rank's matmul FLOPs of a step against one GPU's over the mesh's ranks
+TRAIN_FLOPS_TOL = 1.15
+
+
+def _matmul_flops(fn) -> int:
+    """The matrix-product FLOPs ``torch.utils.flop_counter`` counts in one
+    call of ``fn`` (forward, backward and the remat recompute)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return int(fc.get_total_flops())
 
 
 def _busy_ms(fn, dev) -> tuple:
@@ -1294,6 +1311,7 @@ def train_granite(mesh, dev) -> dict:
     batch = trainer.pipeline.batch(steps)
     busy, nccl = _busy_ms(lambda: trainer.step_fn(params, opt_state, batch),
                           dev)
+    flops = _matmul_flops(lambda: trainer.step_fn(params, opt_state, batch))
     shape = tuple(mesh.shape.values()) if mesh is not None else (1, 1, 1)
     rules = ShardCtx(AbstractMesh(shape, MESH_AXES)).layout(
         spec_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
@@ -1304,7 +1322,7 @@ def train_granite(mesh, dev) -> dict:
             "losses": [h["loss"] for h in hist],
             "grad_norms": [h["grad_norm"] for h in hist],
             "step_ms": [h["dt"] * 1e3 for h in hist],
-            "busy_ms": busy, "nccl_ms": nccl,
+            "busy_ms": busy, "nccl_ms": nccl, "matmul_flops": flops,
             "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None),
             "held_bytes": _held_bytes(params, opt_state["mu"],
@@ -1388,18 +1406,22 @@ def train_worker(shape, device: str) -> int:
 
 
 def check_train(dev, n, src, log) -> dict:
-    """Training on meshes (1, n, 1) and (1, 2, n/2) against one device of
-    the same machine: granite-3-2b at full width (reduced on the CPU)
-    through the Trainer, the same steps each; finite losses that fall,
+    """Training on meshes (1, n, 1), (1, 2, n/2) and (1, 1, n) against one
+    device of the same machine: granite-3-2b at full width (reduced on the
+    CPU) through the Trainer, the same steps each; finite losses that fall,
     step 0 within TRAIN_LOSS0_TOL of one device's and every later step
-    within TRAIN_LOSS_TOL, every rank holding the rules' bytes of
-    parameters and moments, no hand-written kernel launched; on (1, 2,
+    within TRAIN_LOSS_TOL, every rank's matmul FLOPs within
+    TRAIN_FLOPS_TOL of one device's over the ranks, every rank holding the
+    rules' bytes of parameters and moments, no hand-written kernel
+    launched; on (1, 2,
     n/2) also deepseek-v2-236b at full width on 2 layers, a finite loss
     that falls and the rules' parameter bytes."""
     out = {}
     B, S, steps = TRAIN_SHAPE[dev.type]
     one = None
-    for shape in ((1, 1, 1), (1, n, 1), (1, 2, n // 2)):
+    one_flops = None
+    for shape in dict.fromkeys(((1, 1, 1), (1, n, 1), (1, 2, n // 2),
+                                (1, 1, n))):
         t0 = time.perf_counter()
         ranks, _ = _launch_workers("train_worker", shape, math.prod(shape),
                                    dev, src, "TRAIN", 1500)
@@ -1416,6 +1438,14 @@ def check_train(dev, n, src, log) -> dict:
                                      f"{x['held_bytes']} bytes, the rules "
                                      f"{x['rule_bytes']}; kernel launches "
                                      f"{x['kernel_launches']}")
+        flops = [r["granite"]["matmul_flops"] for r in ranks]
+        if one_flops is None:
+            one_flops = flops[0]
+        ratio = [f * math.prod(shape) / one_flops for f in flops]
+        if max(ratio) > TRAIN_FLOPS_TOL:
+            raise AssertionError(f"{key}: matmul FLOPs a rank {flops} "
+                                 f"against one device's {one_flops} over "
+                                 f"{math.prod(shape)} ranks")
         if one is None:
             one = losses
         else:
@@ -1429,8 +1459,12 @@ def check_train(dev, n, src, log) -> dict:
         peak = [r["granite"]["peak_bytes"] for r in ranks]
         busy = [r["granite"]["busy_ms"] for r in ranks]
         nccl = [r["granite"]["nccl_ms"] for r in ranks]
+        compute = [None if b is None else b - c
+                   for b, c in zip(busy, nccl)]
         out[key] = {"ranks": ranks, "median_step_ms": med,
                     "tokens_per_s": B * S / (med / 1e3),
+                    "matmul_flops": flops, "one_flops": one_flops,
+                    "flops_over_ranks": ratio, "compute_ms": compute,
                     "wall_s": time.perf_counter() - t0}
         log(f"  mesh {key} {g['arch']} ({g['layers']} layers, "
             f"{g['params']} parameters, batch {B} x {S}, {steps} steps, "
@@ -1447,6 +1481,13 @@ def check_train(dev, n, src, log) -> dict:
                    f"{c:.1f}" for c in nccl) + " ms of it"
                if dev.type == "cuda" and None not in busy else
                "device busy not measured")
+            + f"; matmul FLOPs a rank {flops[0] / 1e9:.1f} G against one "
+            f"GPU's {one_flops / 1e9:.1f} G ("
+            + ", ".join(f"{x:.3f}" for x in ratio)
+            + f" of it over the {math.prod(shape)} ranks, limit "
+            f"{TRAIN_FLOPS_TOL}); compute a rank (busy less NCCL) "
+            + (", ".join(f"{c:.1f}" for c in compute) + " ms"
+               if None not in compute else "not measured")
             + "; peak " + (", ".join(f"{p / 2**30:.2f}" for p in peak)
                            + " GiB a GPU" if dev.type == "cuda" else
                            "not measured (CPU)")
@@ -1577,8 +1618,9 @@ def main(argv=None) -> int:
             f"(1, 2, {n // 2})")
         summary["moe_ep"] = check_moe_ep(dev, n, src, log)
     if "train" in steps:
-        log(f"== train: granite-3-2b on (1, 1, 1), (1, {n}, 1) and "
-            f"(1, 2, {n // 2}); deepseek-v2-236b on (1, 2, {n // 2})")
+        log(f"== train: granite-3-2b on (1, 1, 1), (1, {n}, 1), (1, 2, "
+            f"{n // 2}) and (1, 1, {n}); deepseek-v2-236b on (1, 2, "
+            f"{n // 2})")
         summary["train"] = check_train(dev, n, src, log)
     launched = {k: v for mod in (mb, fa, sk)
                 for k, v in mod.launch_counts.items() if v}
