@@ -12,10 +12,10 @@ entry here smoke-runs it).  Output: ``name,us_per_call,derived`` CSV lines
 (+ analysis tables).  fig4 runs in a subprocess (it sets its own device
 pool before anything else), and so does ``collectives``, which launches
 its own ranks: 8 gloo processes on a 2x4 mesh on the CPU, one process a
-GPU on a 1xN mesh on CUDA; everything else runs in-process.  The
-``roofline`` entry of the reference waits for its modules to be ported
-(ROADMAP Queue A 8): asked for by ``--only``, it says so and the run exits
-non-zero.
+GPU on a 1xN mesh on CUDA; everything else runs in-process.  ``roofline``
+renders the records of ``repro_torch.launch.dryrun`` and ``launch.probe``
+(counted on the CPU, whatever ``--device`` says); a record of a failed
+cell makes the run exit non-zero.
 
 ``--backend`` and ``--device`` (default ``cuda`` and ``cuda``) go to every
 entry that takes them; fig4 runs its ``sharded`` mesh on ``--device``.
@@ -32,8 +32,6 @@ ROOT = Path(__file__).resolve().parents[1]
 
 ENTRIES = ("bench", "fig1", "fig2", "fig3", "fig4", "fig5", "fig6", "fig7",
            "table1", "collectives", "roofline")
-#: entries of the reference whose modules the port does not have yet
-NOT_PORTED = {"roofline": "ROADMAP Queue A 8 (roofline/, launch/dryrun.py)"}
 
 
 def _subproc(mod: str, quick: bool, device: str, *extra: str) -> int:
@@ -124,10 +122,11 @@ def main(argv=None) -> int:
             mesh = f"1x{torch.cuda.device_count()}"
         rc |= _subproc("benchmarks_torch.collective_bench_main", quick,
                        args.device, "--mesh", mesh)
-    for name, where in NOT_PORTED.items():
-        if only is not None and name in only:
-            print(f"\n## {name}: not ported yet — waits for {where}")
-            rc |= 1
+    if want("roofline"):
+        print("\n## roofline: the dry-run table (reads artifacts/torch/"
+              "dryrun, artifacts/torch/probe)")
+        from benchmarks_torch import roofline_table
+        rc |= roofline_table.main()
     if want("table1"):
         print("\n## table1: machine models (documented vs measured)")
         from benchmarks_torch import table1_machine

@@ -53,6 +53,14 @@ Phases (any failure raises and the script exits non-zero):
      (16 / 8 heads of 80), deepseek's 64 / 32 heads of (192, 128),
      whisper's encoder (4, 1500, 8 / 4 heads, 64) non-causal; the SSD at
      zamba2's and mamba2's 40 / 20 SSD heads (mamba2's N 128 on route 0).
+     Then flash with a causal query offset, as a rank of a ``model`` axis
+     of 16 launches it where the heads do not divide and the attention
+     splits its queries' sequence (``sharding.Heads.seq``): train_4k's
+     block of 16 x 256 queries against the keys up to its end (Sk 256 (r
+     + 1), q_offset 256 r) for phi3-medium-14b (40 / 10 heads) and
+     arctic-480b (56 / 8), D 128, ranks 0 and 15, bf16: against
+     ``plain_flash`` with the offset, and bit for bit against those rows
+     of the whole sequence's launch without one.
   3  the main paths, each with the launch counters set to 0 just before and
      read just after: ``run --backend cuda`` over the working-set ladder
      32 KiB .. 2 GiB for the six first mixes, then for the rw ladder, float32
@@ -154,6 +162,24 @@ Phases (any failure raises and the script exits non-zero):
      ``moe_layer`` through the one-device ctx against no ctx at
      deepseek-v2-236b's layer shapes, bit for bit.  The 4-GPU half is
      ``tools/mesh_check.py --steps flash_decode,moe_ep``.
+     3l: the dry run and the roofline — ``python -m
+     repro_torch.launch.dryrun`` and ``launch.probe`` (host only: meta
+     tensors on a fake world of 256 ranks; started with phase 1 in
+     subprocesses of their own, at low priority, one thread each, beside
+     the builds and the checks of phase 2, which time nothing, and waited
+     for before phase 3's first timed run) for
+     granite-3-2b x train_4k and phi3-medium-14b x prefill_32k on the
+     single-pod mesh: status ok, the probe's parts equal to the whole
+     step, the rank's state within 80 GB; phi3's record lists the
+     ``act_heads`` fallback and its rank's attention FLOPs are at most
+     (2n - 1) / n**2 of one device's.  Then the roofline of the one-card
+     paths timed above, by the same counts (``FlopCounterMode`` on meta
+     tensors, ``roofline.model_bytes.analytic_bytes`` on one device):
+     3j's granite-3-2b train step and 3d's granite-3-2b prefill (kernel
+     route; counted on the plain route, whose one masked attention block
+     at 512 tokens holds the kernel's products and more), t_compute,
+     t_memory and the larger over the measured device-busy ms: a share
+     above 1.0 fails (the count would be wrong).  No new timed run.
   4  the measurement is real: doubling ``passes`` doubles the time (also
      for acc.cu and copy.cu at 32 KiB and 1 MiB), no GB/s above the card's
      memory rate at 2 GiB nor above the SMs' load/store rate (128 B a clock
@@ -305,6 +331,9 @@ RW_LADDER = ((1, 2), (1, 1), (2, 1), (3, 1), (4, 1))
 RW_CORNERS = ((1, 8), (8, 1), (8, 8))
 RW_MIXES = ",".join(rw_name(r, w) for r, w in RW_LADDER)
 OUT_DIR = ROOT / "artifacts" / "chip_smoke"      # --out-dir replaces it
+#: device-busy ms of the timed runs 3l's roofline reads: 3d's granite
+#: prefill (kernel route) and 3j's further train step
+BUSY_MS: dict[str, float | None] = {}
 
 
 def say(msg: str = "") -> None:
@@ -1149,15 +1178,17 @@ def flash_qkv(B, Sq, Sk, H, KV, D, Dv, dtype, seed) -> tuple:
             _randn((B, Sk, KV, Dv), dtype, g))
 
 
-def hold_flash(q, k, v, causal: bool, label: str) -> float:
+def hold_flash(q, k, v, causal: bool, label: str, q_offset: int = 0
+               ) -> float:
     """The kernel against plain_flash on the card; raises unless every
     element is within the reference's tolerance.  Returns the max abs
     error.  The blocks are encdec's rule (256, or the whole sequence where
     256 does not divide it): they change nothing in the kernel's tiling."""
     got = fa.flash_attention(q, k, v, causal=causal,
                              q_block=encdec_mod.flash_block(q.shape[1]),
-                             kv_block=encdec_mod.flash_block(k.shape[1]))
-    want = fa.plain_flash(q, k, v, causal=causal).float()
+                             kv_block=encdec_mod.flash_block(k.shape[1]),
+                             q_offset=q_offset)
+    want = fa.plain_flash(q, k, v, causal=causal, q_offset=q_offset).float()
     sync()
     tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
     diff = (got.float() - want).abs()
@@ -1442,6 +1473,71 @@ def phase_rank_kernels(quick: bool) -> dict[str, dict]:
     for name, e in errs.items():
         say(f"  {name} at a rank's shapes, bf16, max abs err: "
             + "; ".join(f"{k} {v:.3e}" for k, v in e.items()))
+    return errs
+
+
+#: 2c's query-offset launches: a rank of train_4k's production mesh,
+#: (data 16, model 16), where the heads do not divide 16 and the attention
+#: splits its queries' sequence (``sharding.Heads.seq``): the rank's 16 of
+#: 256 sequences, its 256 of 4096 positions, against the keys up to its
+#: block's end; ranks 0 and 15
+OFFSET_TP, OFFSET_B, OFFSET_S = 16, 16, 4096
+OFFSET_ARCHS = ("phi3-medium-14b", "arctic-480b")
+OFFSET_RANKS = (0, OFFSET_TP - 1)
+
+
+def offset_shapes() -> list[tuple]:
+    """[(arch, rank, (B, Sq, Sk, H, KV, D, Dv), q_offset)] of 2c's
+    query-offset launches."""
+    sq = OFFSET_S // OFFSET_TP
+    out = []
+    for arch in OFFSET_ARCHS:
+        cfg = get_arch(arch)
+        d = cfg.resolved_head_dim
+        for r in OFFSET_RANKS:
+            out.append((arch, r, (OFFSET_B, sq, sq * (r + 1), cfg.n_heads,
+                                  cfg.n_kv_heads, d, d), sq * r))
+    return out
+
+
+def phase_offset_kernels(quick: bool) -> dict[str, float]:
+    """2c, the query offset: ``flash_attn.cu`` at ``offset_shapes()``,
+    bf16, against ``plain_flash`` with the same offset, and bit for bit
+    against the same rows of the whole sequence's launch at offset 0 (the
+    CTAs tile the rows alike, so the offset moves only the mask).  Returns
+    the max abs error at each, and the launches these comparisons made
+    (``launches``)."""
+    say("== phase 2c (a rank's query block): flash with a causal query "
+        f"offset at train_4k's rank shapes on a model axis of {OFFSET_TP} "
+        f"(the act_seq fallback), ranks {OFFSET_RANKS}")
+    errs: dict[str, float] = {}
+    before = fa.launch_counts["flash_attn"]
+    offsets_before = fa.offset_launch_counts["flash_attn"]
+    cases = offset_shapes()[:2] if quick else offset_shapes()
+    for arch, r, shape, q0 in cases:
+        B, Sq, Sk, H, KV, D, Dv = shape
+        qf, k, v = flash_qkv(B, Sk, Sk, H, KV, D, Dv, torch.bfloat16,
+                             seed=sum(shape))
+        q = qf[:, q0:].contiguous()
+        label = f"{arch} rank {r} {shape} q_offset {q0}"
+        errs[label] = hold_flash(q, k, v, True, label, q_offset=q0)
+        whole = fa.flash_attention(qf, k, v)[:, q0:]
+        block = fa.flash_attention(q, k, v, q_offset=q0)
+        if not torch.equal(whole, block):
+            raise AssertionError(f"flash {label}: the offset launch differs "
+                                 f"from the whole launch's rows")
+        del qf, q, k, v, whole, block
+    torch.cuda.empty_cache()
+    errs["launches"] = fa.launch_counts["flash_attn"] - before
+    # the held launch and the block's launch of each case with an offset
+    offsets = fa.offset_launch_counts["flash_attn"] - offsets_before
+    if offsets != 2 * sum(1 for c in cases if c[3]):
+        raise AssertionError(f"flash's offset launches counted {offsets} "
+                             f"for {cases}")
+    say("  flash with a query offset, bf16, max abs err (tolerance "
+        f"{FLASH_TOL['bfloat16']}): " + "; ".join(
+            f"{k} {v:.3e}" for k, v in errs.items() if k != "launches")
+        + "; each equal to the whole sequence's launch in its rows")
     return errs
 
 
@@ -2682,6 +2778,17 @@ def _prefill_routes(model, params, tokens, label: str,
     return ck, lk
 
 
+#: flash_attn's launches with a query offset on the main paths: each
+#: serving path sets the wrapper's counts to 0 just before it runs and adds
+#: its ``offset_launch_counts`` here just after (training launches no
+#: kernel; no one-card path splits a sequence over ``model``)
+MAIN_OFFSET_LAUNCHES = {"flash_attn": 0}
+
+
+def note_offset_launches() -> None:
+    MAIN_OFFSET_LAUNCHES["flash_attn"] += fa.offset_launch_counts["flash_attn"]
+
+
 def serve_cli(argv: list[str], want: dict[str, int]) -> dict[str, int]:
     """``python -m repro_torch.launch.serve`` in process, the launch
     counters set to 0 just before and read just after; raises unless it
@@ -2696,6 +2803,7 @@ def serve_cli(argv: list[str], want: dict[str, int]) -> dict[str, int]:
     sync()
     lines = buf.getvalue().strip().splitlines()
     counts = {**fa.launch_counts, **sk.launch_counts}
+    note_offset_launches()
     say(f"  serve: exit {rc}, {time.perf_counter() - t0:.1f} s")
     for line in lines:
         say("  | " + line)
@@ -2722,6 +2830,7 @@ def serve_run(cfg, prompt_len: int, want: dict[str, int]) -> dict[str, int]:
                       seed=0, device=DEV)
     sync()
     counts = {**fa.launch_counts, **sk.launch_counts}
+    note_offset_launches()
     if counts != want or any(mb.launch_counts.values()) \
             or [len(t) for t in r["tokens"]] != [4] * SERVE_B \
             or not all(0 <= t < cfg.vocab_size for row in r["tokens"]
@@ -2746,19 +2855,22 @@ def serve_inputs(cfg, model, prompt_len: int) -> tuple:
     return params, batch if cfg.family == "encdec" else batch["tokens"]
 
 
-def warm_times(model, params, prompt, cache, logits, prompt_len: int) -> None:
+def warm_times(model, params, prompt, cache, logits, prompt_len: int
+               ) -> float | None:
     """Warm prefill on both routes (wall and device-busy time), then three
     decode steps from the kernel route's cache (its logits' greedy tokens;
     each step's logits finite): wall time of the second, busy time of the
-    third."""
+    third.  Returns the kernel route's prefill busy ms."""
     cfg = model.cfg
     V = cfg.vocab_size
+    prefill_busy = {}
     for name, variant in (("kernel route", replace(BASELINE,
                                                    use_pallas=True)),
                           ("plain route", BASELINE)):
         run = lambda v=variant: model.prefill(params, prompt, None, v)  # noqa: E731
         wall, _ = wall_ms(run)
         busy, _ = device_busy_ms(run)
+        prefill_busy[name] = busy
         say(f"  warm prefill, {name}: {wall:.1f} ms wall, device busy "
             f"{'not measured' if busy is None else f'{busy:.1f} ms'}")
     cache = serve.pad_cache(cfg, cache, SERVE_B, prompt_len, 3)
@@ -2775,6 +2887,7 @@ def warm_times(model, params, prompt, cache, logits, prompt_len: int) -> None:
     say(f"  decode steps from the kernel route's cache: finite logits; one "
         f"step {wall:.1f} ms wall, device busy "
         f"{'not measured' if busy is None else f'{busy:.1f} ms'}")
+    return prefill_busy["kernel route"]
 
 
 def phase_dense_serve_path(quick: bool) -> dict[str, int]:
@@ -2804,7 +2917,8 @@ def phase_dense_serve_path(quick: bool) -> dict[str, int]:
             raise AssertionError(f"a layer's attention routes disagree: "
                                  f"{worst}")
         ck, lk = _prefill_routes(model, params, tokens, DENSE_SERVE)
-        warm_times(model, params, tokens, ck, lk, SERVE_P)
+        BUSY_MS["prefill"] = warm_times(model, params, tokens, ck, lk,
+                                        SERVE_P)
     del params, ck, lk
     torch.cuda.empty_cache()
 
@@ -2980,6 +3094,7 @@ def phase_mesh_serve_path(quick: bool) -> dict[str, int]:
         sync()
     launches = {**fa.launch_counts, **sk.launch_counts,
                 "membench": sum(mb.launch_counts.values())}
+    note_offset_launches()
     want = {"flash_attn": model.n_sites, "ssd_scan": cfg.n_layers,
             "membench": 0}
     say(f"  prefill 1 x {P}: launches {launches} (expected {want})")
@@ -3191,6 +3306,7 @@ def train_full_width(quick: bool) -> tuple:
     wall, _ = wall_ms(lambda: trainer.step_fn(params, opt_state, batch))
     busy, (_, _, m) = device_busy_ms(
         lambda: trainer.step_fn(params, opt_state, batch))
+    BUSY_MS["train"] = busy
     opt_busy, _ = device_busy_ms(lambda: adamw.apply(
         tcfg.opt, params, opt_state, opt_state["mu"]))
     say(f"  a further step: {wall:.1f} ms wall, device busy "
@@ -3406,6 +3522,134 @@ def phase_train_path(quick: bool) -> dict[str, int]:
         raise AssertionError(f"training launched a kernel: {counts}")
     say(f"  phase 3j: {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3l — the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+#: the production cells the dry run and the probe trace on the host
+#: (single pod, the rank of the last model coordinate)
+DRYRUN_CELLS = (("granite-3-2b", "train_4k"), ("phi3-medium-14b",
+                                               "prefill_32k"))
+#: the processes 3l starts with phase 1 (``start_dryruns``); stopped in
+#: ``main``
+DRYRUNS: list = []
+
+
+def start_dryruns() -> None:
+    """Start ``python -m repro_torch.launch.dryrun`` then ``launch.probe``
+    for each of DRYRUN_CELLS, one subprocess a cell, at low priority and
+    one thread (host only: meta tensors, a fake world), their output in
+    ``dryrun_<arch>.log`` under the output directory."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    for arch, shape in DRYRUN_CELLS:
+        common = f"--arch {arch} --shape {shape} --mesh single --force"
+        cmd = (f"{sys.executable} -m repro_torch.launch.dryrun {common} "
+               f"--out-dir {OUT_DIR / 'dryrun'} && {sys.executable} -m "
+               f"repro_torch.launch.probe {common} --out-dir "
+               f"{OUT_DIR / 'probe'} --dryrun-dir {OUT_DIR / 'dryrun'}")
+        log = open(OUT_DIR / f"dryrun_{arch}.log", "w")
+        DRYRUNS.append((arch, shape, log, subprocess.Popen(
+            ["nice", "-n", "10", "sh", "-c", cmd], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT)))
+
+
+def wait_dryruns() -> None:
+    """Wait for ``start_dryruns``' processes, so that none runs beside a
+    timed phase; 3l reads what they wrote."""
+    t0 = time.perf_counter()
+    for _, _, _, proc in DRYRUNS:
+        proc.wait(timeout=600)
+    say(f"== the dry-run processes of 3l have ended (waited "
+        f"{time.perf_counter() - t0:.1f} s after phase 2c)")
+
+
+def stop_dryruns() -> None:
+    for _, _, log, proc in DRYRUNS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _records(arch: str, shape: str) -> tuple[dict, dict]:
+    name = f"{arch}__{shape}__pod1__baseline.json"
+    return tuple(json.loads((OUT_DIR / d / name).read_text())
+                 for d in ("dryrun", "probe"))
+
+
+def phase_roofline(quick: bool) -> None:
+    """3l: the dry-run cells (``start_dryruns``' processes, ended before
+    phase 3), then the roofline of the one-card paths 3j and 3d timed."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import make_smoke_ctx
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analyze import RooflineTerms
+    from repro_torch.roofline.model_bytes import analytic_bytes
+    say("== phase 3l: the dry run and the roofline (python -m "
+        "repro_torch.launch.dryrun / launch.probe on the host; the "
+        "roofline of 3j and 3d)")
+    t_phase = time.perf_counter()
+    for arch, shape, log, proc in DRYRUNS:
+        rc = proc.wait(timeout=600)
+        text = (OUT_DIR / f"dryrun_{arch}.log").read_text()
+        for line in text.splitlines():
+            if line.startswith("["):
+                say("  | " + line[:300])
+        if rc != 0:
+            raise AssertionError(f"dry run / probe of {arch} x {shape}: exit "
+                                 f"{rc}\n{text[-3000:]}")
+        dry, probe = _records(arch, shape)
+        if dry["status"] != "ok" or probe["status"] != "ok":
+            raise AssertionError(f"{arch} x {shape}: {dry.get('error')} / "
+                                 f"{probe.get('error')}")
+        if not all(abs(v) <= 0.01 for v in probe["match"].values()):
+            raise AssertionError(f"{arch} x {shape}: the probe's parts "
+                                 f"{probe['match']} from the whole")
+        if not dry["fits_hbm"]:
+            raise AssertionError(f"{arch} x {shape}: "
+                                 f"{dry['peak_device_bytes']} bytes a rank")
+        say(f"  {arch} x {shape} (16 x 16, rank {dry['rank']}): ok; FLOPs "
+            f"{dry['flops']:.4e}, parts within {probe['match']}; "
+            f"peak {dry['peak_device_bytes'] / 2**30:.2f} GiB; dominant "
+            f"{dry['dominant']}; fallbacks {dry['sharding_fallbacks']}")
+    dry, _ = _records(*DRYRUN_CELLS[1])
+    n, a = OFFSET_TP, dry["attention_flops"]
+    if "act_heads(40) !% ('model',)(16)" not in dry["sharding_fallbacks"] \
+            or not 0 < a["rank"] <= (2 * n - 1) / n ** 2 * a["one_device"]:
+        raise AssertionError(f"phi3 prefill_32k: {dry['sharding_fallbacks']}"
+                             f", attention FLOPs {a}")
+    say(f"  phi3's rank attends {a['rank'] / a['one_device']:.4f} of one "
+        f"device's attention FLOPs (at most {(2 * n - 1) / n ** 2:.4f})")
+
+    cfg = get_arch(TRAIN_ARCH)
+    if quick:
+        cfg = reduced(cfg)
+    for name, shape in (
+            ("train", ShapeConfig("3j", TRAIN_S, TRAIN_B, "train")),
+            ("prefill", ShapeConfig("3d", SERVE_P, SERVE_B, "prefill"))):
+        busy = BUSY_MS.get(name)
+        if busy is None:
+            raise AssertionError(f"3l: {name}'s device-busy time was not "
+                                 f"measured")
+        counts = dryrun.trace(cfg, shape, make_smoke_ctx(), BASELINE,
+                              memory=False)
+        terms = RooflineTerms(counts["flops"], analytic_bytes(
+            cfg, shape, 1, tp=1, dp=1))
+        share = max(terms.t_compute, terms.t_memory) * 1e3 / busy
+        say(f"  roofline, {TRAIN_ARCH} {name} ({shape.global_batch} x "
+            f"{shape.seq_len}): {counts['flops']:.4e} FLOPs, "
+            f"{terms.hbm_bytes:.4e} bytes; t_compute "
+            f"{terms.t_compute * 1e3:.3f} ms, t_memory "
+            f"{terms.t_memory * 1e3:.3f} ms, dominant {terms.dominant}; "
+            f"device busy {busy:.1f} ms; share {share:.4f}")
+        if share > 1.0:
+            raise AssertionError(f"3l: {name}'s roofline share {share} > 1: "
+                                 f"the count is wrong")
+    say(f"  phase 3l: {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4224,26 +4468,36 @@ def ssd_entry(shape: tuple, err: float, launches: int) -> dict:
 
 
 def flash_entry(path: str, shape: tuple, causal: bool, err: float,
-                launches: int) -> dict:
+                launches: int, q_offset: int = 0) -> dict:
     """The ``kernels`` entry of flash_attn at a serving shape (B, Sq, Sk, H,
     KV, D, Dv), bf16, with encdec's blocks: kernel ms (CUDA events) and
     device ms, ``plain_flash``'s ms, ``scaled_dot_product_attention``'s on
     the same tensors (it takes Dv != D and Sq != Sk; timed here, used
-    nowhere in the port), and the bound: 2 B H Sq Sk (D + Dv) operations
-    (halved when causal) at the bf16 tensor peak against q, k, v read once
-    and o written once."""
+    nowhere in the port; with a ``q_offset``, which ``is_causal`` cannot
+    shift, an explicit boolean mask of the same causal limit), and the
+    bound: 2 B H (D + Dv) operations a (query, key) pair the mask keeps
+    (Sq Sk, halved when causal; Sq q_offset + Sq**2 / 2 with an offset) at
+    the bf16 tensor peak against q, k, v read once and o written once."""
     B, Sq, Sk, H, KV, D, Dv = shape
     q, k, v = flash_qkv(*shape, torch.bfloat16, seed=sum(shape))
     blocks = dict(q_block=encdec_mod.flash_block(Sq),
-                  kv_block=encdec_mod.flash_block(Sk))
+                  kv_block=encdec_mod.flash_block(Sk), q_offset=q_offset)
     run = lambda: fa.flash_attention(q, k, v, causal=causal, **blocks)  # noqa: E731
     ms, host_ms = time_both_ms(run, 20)
-    plain_ms = time_ms(lambda: fa.plain_flash(q, k, v, causal=causal), 5)
+    plain_ms = time_ms(lambda: fa.plain_flash(q, k, v, causal=causal,
+                                              q_offset=q_offset), 5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = None
+    if q_offset:
+        mask = (torch.arange(Sq, device=DEV)[:, None] + q_offset
+                >= torch.arange(Sk, device=DEV)[None, :])
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=causal, enable_gqa=True)
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     nb = 2 * (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv)
-    nf = 2.0 * B * H * Sq * Sk * (D + Dv) / (2 if causal else 1)
+    pairs = (Sq * q_offset + Sq * Sq / 2 if q_offset
+             else Sq * Sk / (2 if causal else 1))
+    nf = 2.0 * B * H * (D + Dv) * pairs
     return {
         "name": "flash_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn.cu",
@@ -4255,7 +4509,30 @@ def flash_entry(path: str, shape: tuple, causal: bool, err: float,
         "library_ms": time_ms(sdpa, 20), "device_ms": device_ms(run, 20),
         "library_device_ms": device_ms(sdpa, 20), "flops": nf, "bytes": nb,
         "shape": list(shape), "dtype": "bfloat16", "causal": causal,
+        "q_offset": q_offset,
     }
+
+
+def offset_kernel_entry(errs: dict) -> dict:
+    """flash_attn with a query offset (``PERF.md`` row 7f), under the
+    serving entry's ``q_offset``: the last rank's shape of
+    ``offset_shapes()`` for phi3, timed as ``flash_entry`` times a serving
+    shape.  ``launches``: the offset launches the main paths made
+    (``MAIN_OFFSET_LAUNCHES``; no one-card path splits a sequence over
+    ``model``, so they read 0 there); ``launches_holds`` counts 2c's
+    comparisons."""
+    arch, r, shape, q0 = [c for c in offset_shapes()
+                          if c[0] == OFFSET_ARCHS[0]][-1]
+    e = flash_entry(f"{arch} rank {r} of a model axis of {OFFSET_TP} "
+                    f"(train_4k)", shape, True,
+                    max(v for k, v in errs.items() if k != "launches"),
+                    MAIN_OFFSET_LAUNCHES["flash_attn"], q_offset=q0)
+    e["launches_holds"] = errs["launches"]
+    e["max_abs_err_by_case"] = {k: v for k, v in errs.items()
+                                if k != "launches"}
+    say_model_entry(e)
+    torch.cuda.empty_cache()
+    return e
 
 
 def family_kernel_entries(errs: dict, launches: dict) -> list[dict]:
@@ -4295,12 +4572,26 @@ def main(argv=None) -> int:
         OUT_DIR = Path(args.out_dir).resolve()
     t0 = time.perf_counter()
     (OUT_DIR / "log.txt").unlink(missing_ok=True)
-    info = phase_device()
-    phase_kernels(args.quick)
-    phase_rw_chase(args.quick)
-    errs = phase_model_kernels(args.quick)
-    family_errs = phase_family_kernels(args.quick)
-    rank_errs = phase_rank_kernels(args.quick)
+    if torch.cuda.is_available():
+        # host only: beside the builds and phase 2's checks, none timed
+        start_dryruns()
+    try:
+        info = phase_device()
+        phase_kernels(args.quick)
+        phase_rw_chase(args.quick)
+        errs = phase_model_kernels(args.quick)
+        family_errs = phase_family_kernels(args.quick)
+        rank_errs = phase_rank_kernels(args.quick)
+        offset_errs = phase_offset_kernels(args.quick)
+        wait_dryruns()
+        return _main_paths(args, t0, info, errs, family_errs, rank_errs,
+                           offset_errs)
+    finally:
+        stop_dryruns()
+
+
+def _main_paths(args, t0, info, errs, family_errs, rank_errs,
+                offset_errs) -> int:
     counts = phase_main_path(args.quick)
     counts["rw"] = phase_rw_path(args.quick)["rw"]
     counts["chase"] = phase_latency_path(args.quick)["chase"]
@@ -4314,11 +4605,14 @@ def main(argv=None) -> int:
     phase_mesh_path(args.quick)
     figures = phase_figures_path(args.quick)
     probed = phase_collectives_path(args.quick)
+    phase_roofline(args.quick)
     phase_real(args.quick)
     phase_real_rw_chase(args.quick)
     line = phase_kernels_line(counts, args.quick)
     line["kernels"] += model_kernel_entries(counts, errs, dense)
     line["kernels"] += family_kernel_entries(family_errs, families)
+    flash = next(e for e in line["kernels"] if e["name"] == "flash_attn")
+    flash["q_offset"] = offset_kernel_entry(offset_errs)
     for e in line["kernels"]:
         if e["name"] == "load_sum":
             e["launches_probe"] = probed["load_sum"]

@@ -42,8 +42,18 @@ sequence) the residual stream between layers is this rank's block of the
 sequence: ``TP.gather_seq`` (an all-gather) comes before each column
 split and the row split's sum is a reduce-scatter; without it the stream
 is whole on every rank, ``gather_seq`` is the identity and the sum an
-all-reduce.  A dim the rules cannot divide (phi3's 40 heads over 16) is
-computed whole on every rank, its output not reduced.
+all-reduce.  A dim the rules cannot divide is computed whole on every
+rank, its output not reduced; but where the query heads do not divide
+(phi3's 40 heads over 16) and the sequence does, the attention splits its
+queries' sequence instead, as the reference's ``act_seq`` fallback does
+(``Heads.seq``): each rank computes every head for its block of the
+sequence, against the keys and values all-gathered up to its block's end.
+
+``ShardCtx.recording()`` logs every collective the ctx issues, backward
+passes included, as a plain tuple (kind, the bytes of its result, group
+size, mesh axis): the port's counterpart of the collectives the
+reference's roofline parses out of compiled HLO (``launch.dryrun`` turns
+them into ``roofline.analyze.CollectiveOp`` records).
 
 Autograd goes through the collectives, and every one of them has the
 sum-conjugate backward: an all-gather's is a reduce-scatter (sum) over
@@ -85,6 +95,7 @@ makes either whole, or whole but for its ``model`` block.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
@@ -186,6 +197,23 @@ class ShardCtx:
     fallbacks: list[str] = field(default_factory=list)  # dropped axes
     _block_specs: dict = field(default_factory=dict, repr=False,
                                compare=False)
+    #: (kind, bytes, group size, mesh axis) of every collective issued
+    #: while ``recording``; None: not recording
+    log: Optional[list] = field(default=None, repr=False, compare=False)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Log every collective this ctx issues inside the block, its
+        backward passes' included, into the list it yields: (kind, bytes
+        of the result, group size, mesh axis), counted as the reference's
+        HLO parser counts them (an all-gather the gathered
+        tensor, a reduce-scatter the rank's block, an all-reduce its
+        operand).  An axis of one position issues, and logs, nothing."""
+        prev, self.log = self.log, []
+        try:
+            yield self.log
+        finally:
+            self.log = prev
 
     # -- mesh helpers -------------------------------------------------------
     def axis_size(self, *names: str) -> int:
@@ -259,9 +287,9 @@ class ShardCtx:
           ``act_heads`` / ``kv_heads``: ``rank_heads``, and the layer's
           ``wq`` / ``wk`` / ``wv`` / ``wo`` blocks
           (``gather_tree(..., keep=("model",))``); where ``act_heads``
-          does not resolve the reference splits the attention's sequence,
-          and the port computes that attention whole on every rank
-          (ROADMAP Queue C);
+          does not resolve and ``act_seq`` does, the query rows of the
+          rank's sequence block against the keys and values all-gathered
+          (``Heads.seq``), else every head whole on every rank;
         - ``ssm_block``'s ``xh`` over ``heads``: the rank's ``w_x`` /
           ``w_dt`` / ``conv_x`` / ``A_log`` / ``D`` / ``dt_bias`` blocks
           (``models.ssm``)."""
@@ -398,7 +426,9 @@ class ShardCtx:
             return t
         group = self._group(axis)
         _check_transport(t, group)
-        return _AllGather.apply(t, group, self.mesh.shape[axis], dim)
+        n = self.mesh.shape[axis]
+        _record(self.log, "all-gather", t, axis, n, n)
+        return _AllGather.apply(t, group, n, dim, self.log, axis)
 
     def reduce_scatter(self, t, axis: str, dim: int):
         """The sum over the ``axis`` group of every position's ``t``, of
@@ -409,7 +439,9 @@ class ShardCtx:
             return t
         group = self._group(axis)
         _check_transport(t, group)
-        return _ReduceScatter.apply(t, group, self.mesh.shape[axis], dim)
+        n = self.mesh.shape[axis]
+        _record(self.log, "reduce-scatter", t, axis, n, 1 / n)
+        return _ReduceScatter.apply(t, group, n, dim, self.log, axis)
 
     def mean_equal(self, t, axis: str):
         """The mean over the ``axis`` group of a tensor every position
@@ -420,20 +452,27 @@ class ShardCtx:
             return t
         group = self._group(axis)
         _check_transport(t, group)
-        return _MeanEqual.apply(t, group, self.mesh.shape[axis])
+        return _MeanEqual.apply(t, group, self.mesh.shape[axis], self.log,
+                                axis)
 
     def all_reduce(self, t, axes: Sequence[str], op: str = "sum"):
         """``t`` reduced (``sum`` or ``max``) over ``axes``, one collective an
         axis of more than one position.  In place, and returned; a sum on a
         tensor that autograd records is out of place, and its backward is
         the sum all-reduce of the gradient."""
-        groups = []
+        groups, names = [], []
         for a in axes:
             if self.mesh.shape[a] > 1:
                 groups.append(self._group(a))
+                names.append(a)
                 _check_transport(t, groups[-1])
+        for a in names:
+            _record(self.log, "all-reduce", t, a, self.mesh.shape[a])
         if op == "sum" and torch.is_grad_enabled() and t.requires_grad:
-            return _AllReduceSum.apply(t, tuple(groups)) if groups else t
+            return _AllReduceSum.apply(
+                t, tuple(groups), self.log,
+                tuple((a, self.mesh.shape[a]) for a in names)) \
+                if groups else t
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         for group in groups:
             dist.all_reduce(t, op=red, group=group)
@@ -459,12 +498,22 @@ class ShardCtx:
         return self.all_reduce(t, self.mesh.axis_names) / self.n_ranks
 
 
+def _record(log, kind: str, t, axis: str, n: int,
+            result_scale: float = 1.0) -> None:
+    """Append one collective over ``axis`` (``n`` positions) of operand
+    ``t`` to ``log`` (None: not recording): the bytes of its result,
+    ``result_scale`` times the operand's."""
+    if log is not None:
+        nbytes = int(t.numel() * t.element_size() * result_scale)
+        log.append((kind, nbytes, n, axis))
+
+
 class _AllGather(torch.autograd.Function):
     """All-gather along ``dim``; backward: reduce-scatter (sum)."""
 
     @staticmethod
-    def forward(fc, t, group, n: int, dim: int):
-        fc.group, fc.n, fc.dim = group, n, dim
+    def forward(fc, t, group, n: int, dim: int, log=None, axis=None):
+        fc.group, fc.n, fc.dim, fc.log, fc.axis = group, n, dim, log, axis
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=group)
@@ -473,7 +522,9 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(fc, g):
         _check_transport(g, fc.group)
-        return _reduce_scatter(g, fc.group, fc.n, fc.dim), None, None, None
+        _record(fc.log, "reduce-scatter", g, fc.axis, fc.n, 1 / fc.n)
+        return (_reduce_scatter(g, fc.group, fc.n, fc.dim), None, None, None,
+                None, None)
 
 
 def _reduce_scatter(t, group, n: int, dim: int):
@@ -491,17 +542,18 @@ class _ReduceScatter(torch.autograd.Function):
     """Reduce-scatter (sum) along ``dim``; backward: all-gather."""
 
     @staticmethod
-    def forward(fc, t, group, n: int, dim: int):
-        fc.group, fc.n, fc.dim = group, n, dim
+    def forward(fc, t, group, n: int, dim: int, log=None, axis=None):
+        fc.group, fc.n, fc.dim, fc.log, fc.axis = group, n, dim, log, axis
         return _reduce_scatter(t, group, n, dim)
 
     @staticmethod
     def backward(fc, g):
         _check_transport(g, fc.group)
+        _record(fc.log, "all-gather", g, fc.axis, fc.n, fc.n)
         g = g.contiguous()
         parts = [torch.empty_like(g) for _ in range(fc.n)]
         dist.all_gather(parts, g, group=fc.group)
-        return torch.cat(parts, dim=fc.dim), None, None, None
+        return torch.cat(parts, dim=fc.dim), None, None, None, None, None
 
 
 class _MeanEqual(torch.autograd.Function):
@@ -509,8 +561,8 @@ class _MeanEqual(torch.autograd.Function):
     the mean all-reduce (float32) of the gradient."""
 
     @staticmethod
-    def forward(fc, t, group, n: int):
-        fc.group, fc.n = group, n
+    def forward(fc, t, group, n: int, log=None, axis=None):
+        fc.group, fc.n, fc.log, fc.axis = group, n, log, axis
         return t.view_as(t)
 
     @staticmethod
@@ -518,16 +570,17 @@ class _MeanEqual(torch.autograd.Function):
         _check_transport(g, fc.group)
         out = g.to(torch.float32)           # a new tensor: g is bfloat16
         out = out.clone() if out is g else out
+        _record(fc.log, "all-reduce", out, fc.axis, fc.n)
         dist.all_reduce(out, group=fc.group)
-        return (out / fc.n).to(g.dtype), None, None
+        return (out / fc.n).to(g.dtype), None, None, None, None
 
 
 class _AllReduceSum(torch.autograd.Function):
     """Sum all-reduce over each group in turn; backward: the same."""
 
     @staticmethod
-    def forward(fc, t, groups):
-        fc.groups = groups
+    def forward(fc, t, groups, log=None, axes=()):
+        fc.groups, fc.log, fc.axes = groups, log, axes
         out = t.clone()
         for group in groups:
             dist.all_reduce(out, group=group)
@@ -536,22 +589,24 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(fc, g):
         out = g.clone()
-        for group in fc.groups:
+        for group, (axis, n) in zip(fc.groups, fc.axes):
             _check_transport(out, group)
+            _record(fc.log, "all-reduce", out, axis, n)
             dist.all_reduce(out, group=group)
-        return out, None
+        return out, None, None, None
 
 
 class _PartialProduct(torch.autograd.Function):
     """``a @ w`` of bf16 operands with its products summed in float32 and
     left unrounded (cuBLAS's bf16 product with a float32 output on the
-    card); backward: the bf16 products of a bf16 matmul's backward."""
+    card, and on the dry run's meta tensors; the CPU widens the operands);
+    backward: the bf16 products of a bf16 matmul's backward."""
 
     @staticmethod
     def forward(fc, a, w):
         fc.save_for_backward(a, w)
         a2 = a.reshape(-1, a.shape[-1])
-        if a2.is_cuda:
+        if a2.device.type != "cpu":
             out = torch.mm(a2, w, out_dtype=torch.float32)
         else:
             out = a2.to(torch.float32) @ w.to(torch.float32)
@@ -634,7 +689,11 @@ class Heads:
     heads are not the local query heads' own groups (a fallback of
     ``kv_heads`` only: phi3's 10 KV heads over 4 give a rank query heads
     10-19, of KV heads 2-4), the projected KV head each local query head
-    reads, else None."""
+    reads, else None.  ``nq_seq`` (the sequence mode, where ``act_heads``
+    does not resolve and the sequence is split over ``act_seq``): the rank
+    computes every head for the query rows ``[q0_seq, q0_seq + nq_seq)``
+    of the sequence, against the keys up to the block's end; None: the
+    whole sequence."""
     n_heads: int
     n_kv: int
     q0: int
@@ -642,12 +701,20 @@ class Heads:
     kv0: int
     nkv: int
     kv_of_q: Optional[tuple[int, ...]]
+    q0_seq: int = 0
+    nq_seq: Optional[int] = None
 
     @property
     def split(self) -> bool:
         """The heads are split over ``model``: the out projection's output
         is a partial sum."""
         return self.nq < self.n_heads
+
+    @property
+    def seq(self) -> bool:
+        """The queries' sequence is split over ``model`` (every head on
+        every rank, no reduction of the output)."""
+        return self.nq_seq is not None
 
     def for_attention(self, k, v):
         """The (k, v) the local query heads attend to, from the projected
@@ -659,16 +726,18 @@ class Heads:
         return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def rank_heads(ctx, n_heads: int, n_kv: int, rank: Optional[int] = None
-               ) -> Heads:
+def rank_heads(ctx, n_heads: int, n_kv: int, rank: Optional[int] = None,
+               seq_len: int = 0) -> Heads:
     """The query and KV heads rank ``rank`` of the ``model`` line computes
     (this rank's where None), by the reference's resolution: where
     ``act_heads`` resolves the query heads are split, and the KV heads
     too where ``kv_heads`` resolves; else the rank projects every KV head
     and its query heads read theirs (``Heads.kv_of_q``).  Where
     ``act_heads`` does not resolve (phi3's 40 heads over 16) the reference
-    splits the attention's sequence over ``act_seq`` instead; the port
-    computes every head on every rank (ROADMAP Queue C).  Each fallback is
+    splits the attention's sequence over ``act_seq`` instead: given the
+    ``seq_len`` of a sequence that ``act_seq`` splits (0: none), the rank
+    takes every head for its block of the queries (``Heads.nq_seq``);
+    without it every head on the whole sequence.  Each fallback is
     recorded once in ``ctx.fallbacks``."""
     q0, nq = rank_block(ctx, "act_heads", n_heads, rank)
     kv0, nkv = ((0, n_kv) if nq == n_heads
@@ -676,7 +745,12 @@ def rank_heads(ctx, n_heads: int, n_kv: int, rank: Optional[int] = None
     g = n_heads // n_kv
     kv_of_q = (None if nkv * g == nq
                else tuple((q0 + i) // g for i in range(nq)))
-    return Heads(n_heads, n_kv, q0, nq, kv0, nkv, kv_of_q)
+    q0_seq, nq_seq = 0, None
+    if nq == n_heads and seq_len:
+        q0_seq, nq_seq = rank_block(ctx, "act_seq", seq_len, rank)
+        if nq_seq == seq_len:
+            q0_seq, nq_seq = 0, None
+    return Heads(n_heads, n_kv, q0, nq, kv0, nkv, kv_of_q, q0_seq, nq_seq)
 
 
 @dataclass(frozen=True)
@@ -684,14 +758,23 @@ class TP:
     """One forward pass's tensor- and sequence-parallel plan over
     ``model``: ``n`` positions (1: nothing splits, every method the
     identity), this rank's ``rank`` among them, and ``seq``: the residual
-    stream is this rank's block of the sequence (``act_seq`` resolved)."""
+    stream is this rank's block of the sequence (``act_seq`` resolved)
+    of ``seq_len`` positions."""
     ctx: Any = None
     n: int = 1
     rank: int = 0
     seq: bool = False
+    seq_len: int = 0
 
-    def heads(self, n_heads: int, n_kv: int) -> Heads:
-        return rank_heads(self.ctx if self.n > 1 else None, n_heads, n_kv)
+    def heads(self, n_heads: int, n_kv: int, split_seq: bool = False
+              ) -> Heads:
+        """The rank's ``Heads``; ``split_seq``: the caller computes the
+        sequence mode where the heads fall back (a causal self-attention
+        on the residual stream's block), else every head on the whole
+        sequence."""
+        return rank_heads(self.ctx if self.n > 1 else None, n_heads, n_kv,
+                          seq_len=self.seq_len if self.seq and split_seq
+                          else 0)
 
     def block(self, logical: str, size: int) -> tuple[int, int]:
         """(start, length) of this rank's block of a ``logical`` dim."""
@@ -741,7 +824,9 @@ class TP:
         N), bf16 operands, in ``dtype``: where ``split`` (``a`` and ``w``
         this rank's blocks of K) the rank's partial product in float32,
         summed by ``reduce`` and rounded once; else the bf16 product, as
-        one device computes it (this rank's sequence block)."""
+        one device computes it, of which the rank keeps its sequence
+        block (``a`` the whole sequence: a ``Heads.seq`` layer's output
+        is already the block and goes through ``NO_TP.row``)."""
         if self.n == 1 or not split:
             return self.scatter_seq((a @ w).to(dtype))
         return self.reduce(_PartialProduct.apply(a, w), True, dtype)
@@ -762,7 +847,8 @@ def tp_plan(ctx, seq_len: int) -> TP:
             or ctx.mesh.shape[TP_AXIS] == 1:
         return NO_TP
     seq = ctx.block_spec((seq_len,), ("act_seq",)) == (TP_AXIS,)
-    return TP(ctx, ctx.mesh.shape[TP_AXIS], ctx.coord((TP_AXIS,)), seq)
+    return TP(ctx, ctx.mesh.shape[TP_AXIS], ctx.coord((TP_AXIS,)), seq,
+              seq_len)
 
 
 def _check_transport(t, group) -> None:

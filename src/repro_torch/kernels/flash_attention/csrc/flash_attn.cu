@@ -87,7 +87,7 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
-          int KV, int causal, float scale) {
+          int KV, int causal, int q_offset, float scale) {
   static_assert(D % kLanes == 0 && DV % kLanes == 0,
                 "head dims must be multiples of 4");
   constexpr int DL = D / kLanes;           // q / k head dims per thread
@@ -107,7 +107,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const long long t_last = (t0 + kRows < n_rows ? t0 + kRows : n_rows) - 1;
   const int s_last = (int)(t_last / G);
   // causal skip: key tiles that start after the CTA's last row are not run
-  const int k_end = causal ? (Sk < s_last + 1 ? Sk : s_last + 1) : Sk;
+  const int k_end = causal ? (Sk < s_last + 1 + q_offset ? Sk : s_last + 1 + q_offset)
+                           : Sk;
 
   // this row's (position, head): q at head * D, o at head * DV
   const long long head = ((long long)b * Sq + s) * H + kvh * G + g;
@@ -155,7 +156,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int jj = j0 + j;
-      const bool ok = jj < Sk && (!causal || jj <= s);
+      const bool ok = jj < Sk && (!causal || jj <= s + q_offset);
       sc[j] = ok ? part * scale : kMasked;
       tile_max = fmaxf(tile_max, sc[j]);
     }
@@ -217,7 +218,8 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
 flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-             int Sq, int Sk, int H, int KV, int causal, float scale) {
+             int Sq, int Sk, int H, int KV, int causal, int q_offset,
+             float scale) {
   static_assert(D % 16 == 0 && DV % 16 == 0,
                 "head dims must be multiples of 16");
   using Smem = TcSmem<D, DV>;
@@ -241,8 +243,10 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   // the last query tiles have the most keys under a causal mask: run first
   const int t0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;
   const int t_last = (t0 + kTcRows < n_rows ? t0 + kTcRows : n_rows) - 1;
-  const int s_first = t0 / G, s_last = t_last / G;
-  const int k_end = causal ? (Sk < s_last + 1 ? Sk : s_last + 1) : Sk;
+  // the causal limit of query row s is key s + q_offset: the CTA's first
+  // row's, and the keys up to its last row's
+  const int lim_first = t0 / G + q_offset, lim_last = t_last / G + q_offset;
+  const int k_end = causal ? (Sk < lim_last + 1 ? Sk : lim_last + 1) : Sk;
   const int n_kt = (k_end + kTcKeys - 1) / kTcKeys;
 
   // Q rows t0 .. t0+63 (zeros past n_rows), then key tile 0
@@ -311,11 +315,11 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const int wrow = warp * 16;
   const __nv_bfloat16* qrow = qs + (wrow + lane % 16) * S + (lane / 16) * 8;
   const float sc = scale * kLog2e;
-  int srow[2];                             // position s of each row
+  int klim[2];                             // each row's last key: s + q_offset
   float oacc[ND][4], m[2], l[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    srow[h] = (t0 + wrow + g + 8 * h) / G;
+    klim[h] = (t0 + wrow + g + 8 * h) / G + q_offset;
     m[h] = kMasked;
     l[h] = 0.f;
   }
@@ -353,7 +357,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
 
     // scale (base 2), mask, online softmax; row h of the thread holds
     // elements 2h and 2h+1 of each fragment
-    const bool edge = (causal && j0 + kTcKeys - 1 > s_first) ||
+    const bool edge = (causal && j0 + kTcKeys - 1 > lim_first) ||
                       j0 + kTcKeys > Sk;
     // (the max is taken over the unscaled scores and scaled once; each p is
     // one FFMA and one ex2)
@@ -364,7 +368,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         if (edge) {
           const int key = j0 + n * 8 + 2 * tq + (e & 1);
-          if (key >= Sk || (causal && key > srow[e / 2])) sacc[n][e] = kMasked;
+          if (key >= Sk || (causal && key > klim[e / 2])) sacc[n][e] = kMasked;
         }
         mx[e / 2] = fmaxf(mx[e / 2], sacc[n][e]);
       }
@@ -422,7 +426,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     const int t = t0 + wrow + g + 8 * h;
     if (t >= n_rows) continue;
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    const int s = srow[h];
+    const int s = klim[h] - q_offset;
     __nv_bfloat16* dst =
         o + ((size_t)(b * Sq + s) * H + kvh * G + t - s * G) * DV + 2 * tq;
 #pragma unroll
@@ -434,8 +438,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
 
 template <int D, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Sk, int H, int KV, int causal, float scale,
-              cudaStream_t stream) {
+              int Sq, int Sk, int H, int KV, int causal, int q_offset,
+              float scale, cudaStream_t stream) {
   const long long n_rows = (long long)Sq * (H / KV);
   if (n_rows >= (1LL << 31) || (long long)B * Sq >= (1LL << 31) ||
       (long long)B * Sk >= (1LL << 31))
@@ -448,39 +452,44 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd_tc<D, DV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Sk, H, KV, causal, scale);
+      Sk, H, KV, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KV, int causal, float scale,
-               cudaStream_t stream) {
+               int Sq, int Sk, int H, int KV, int causal, int q_offset,
+               float scale, cudaStream_t stream) {
   const long long n_rows = (long long)Sq * (H / KV);
   dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), (unsigned)(B * KV));
   flash_fwd<D, DV><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
-      causal, scale);
+      causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace fa
 
 // dtype: 0 float32 (the exact route), 1 bfloat16 (the tensor cores).
-// Returns cudaGetLastError() of the launch (cudaErrorInvalidValue for a
-// (D, Dv) pair it was not built for).
+// q_offset: query row s is position s + q_offset of the keys' sequence, so
+// under the causal mask it sees keys 0 .. s + q_offset (a block of the
+// queries against every key up to the block's end: q_offset = Sk - Sq);
+// 0 is the square causal mask.  Returns cudaGetLastError() of the launch
+// (cudaErrorInvalidValue for a (D, Dv) pair it was not built for, or a
+// negative q_offset).
 extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
                               const void* v, void* o, int B, int Sq, int Sk,
                               int H, int KV, int D, int Dv, int causal,
-                              float scale, cudaStream_t stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+                              int q_offset, float scale, cudaStream_t stream) {
+  if ((dtype != 0 && dtype != 1) || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
 #define FA_CASE(DIM, DIMV)                                                    \
   if (D == DIM && Dv == DIMV)                                                 \
     return dtype ? fa::launch_tc<DIM, DIMV>(q, k, v, o, B, Sq, Sk, H, KV,     \
-                                            causal, scale, stream)            \
+                                            causal, q_offset, scale, stream)  \
                  : fa::launch_f32<DIM, DIMV>(q, k, v, o, B, Sq, Sk, H, KV,    \
-                                             causal, scale, stream);
+                                             causal, q_offset, scale, stream);
   FA_CASE(32, 32)
   FA_CASE(64, 64)
   FA_CASE(80, 80)

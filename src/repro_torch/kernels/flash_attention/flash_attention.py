@@ -11,7 +11,9 @@ is imported.
 
 The wrapper takes its plain version ONLY for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises: no fallback.  It adds one
-to ``launch_counts["flash_attn"]`` where it launches, and nowhere else.
+to ``launch_counts["flash_attn"]`` where it launches, and nowhere else;
+a launch with a query offset adds one to ``offset_launch_counts
+["flash_attn"]`` too.
 """
 from __future__ import annotations
 
@@ -30,27 +32,32 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the kernel since the last ``reset_launch_counts``
 launch_counts: dict[str, int] = {"flash_attn": 0}
+#: of those, the launches with a causal query offset (``q_offset`` > 0)
+offset_launch_counts: dict[str, int] = {"flash_attn": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, offset_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).resolve().parent / "csrc", {
-        # dtype q k v o B Sq Sk H KV D Dv causal scale stream
+        # dtype q k v o B Sq Sk H KV D Dv causal q_offset scale stream
         "flash_attn.cu": ("flash_attn_fwd",
                           [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, ctypes.c_float, _P]),
+                           _I, _I, ctypes.c_float, _P]),
     }, headers=("../../tensor_core.cuh",))
 
 
-def plain_flash(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def plain_flash(q, k, v, *, causal: bool = True,
+                q_offset: int = 0) -> torch.Tensor:
     """Plain softmax attention in float32 (the port of
     ``repro.kernels.flash_attention.ref.reference``): q (B, Sq, H, D), k/v
-    (B, Sk, KV, D|Dv) -> (B, Sq, H, Dv) in q's dtype."""
+    (B, Sk, KV, D|Dv) -> (B, Sq, H, Dv) in q's dtype.  Under the causal
+    mask query row s sees keys 0 .. s + ``q_offset``."""
     B, Sq, H, D = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
@@ -59,7 +66,7 @@ def plain_flash(q, k, v, *, causal: bool = True) -> torch.Tensor:
     vf = v.to(torch.float32)
     s = torch.einsum("bqkgd,bjkd->bkgqj", qf, kf) / (D ** 0.5)
     if causal:
-        mask = torch.arange(Sq, device=q.device)[:, None] >= \
+        mask = torch.arange(Sq, device=q.device)[:, None] + q_offset >= \
             torch.arange(Sk, device=q.device)[None, :]
         s = torch.where(mask[None, None, None], s,
                         torch.tensor(-1e30, device=q.device))
@@ -108,15 +115,21 @@ def check_built(D: int, Dv: int) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 256,
-                    kv_block: int = 256) -> torch.Tensor:
+                    kv_block: int = 256, q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D/Dv) -> (B, Sq, H, Dv), GQA with
     H = G * KV.  ``q_block``/``kv_block`` keep the reference's signature and
     its divisibility rule; the CUDA kernel tiles by 64 query rows and 64 keys
     (bfloat16, on the tensor cores) or 32 keys (float32) whatever they are
-    (the output depends on the tiling only by rounding)."""
+    (the output depends on the tiling only by rounding).  ``q_offset``: the
+    queries are positions ``q_offset .. q_offset + Sq - 1`` of the keys'
+    sequence under the causal mask (a rank's block of the sequence against
+    the keys up to its end: ``Sk - Sq``); 0 is the square mask."""
     _check(q, k, v, q_block, kv_block)
+    if q_offset < 0 or (q_offset and not causal):
+        raise ValueError(f"q_offset {q_offset}: a causal mask's offset, "
+                         f">= 0")
     if q.device.type == "cpu":
-        return plain_flash(q, k, v, causal=causal)
+        return plain_flash(q, k, v, causal=causal, q_offset=q_offset)
     B, Sq, H, D = q.shape
     _, Sk, KV, Dv = v.shape
     check_built(D, Dv)
@@ -125,7 +138,10 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 256,
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     err = launch(LIBRARY.entry("flash_attn.cu"), q, _DTYPE_CODE[q.dtype],
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-                 Sq, Sk, H, KV, D, Dv, int(causal), 1.0 / (D ** 0.5))
+                 Sq, Sk, H, KV, D, Dv, int(causal), int(q_offset),
+                 1.0 / (D ** 0.5))
     launch_counts["flash_attn"] += 1
+    if q_offset:
+        offset_launch_counts["flash_attn"] += 1
     raise_on(err, "flash_attn")
     return o

@@ -16,18 +16,26 @@ and the layer's parameters as the rank's ``model`` blocks
 blocks give the rank's heads (``sharding.rank_heads``), the attention runs
 on them, and ``wo``'s row block gives a partial sum that ``TP.reduce``
 sums over ``model``, the reference's ``_constrain_qkv`` /
-``_constrain_attn_out`` (where ``act_heads`` does not resolve the layer
-computes every head, replicated; the reference splits its sequence:
-ROADMAP Queue C).  ``ctx`` is not read here; the sequence-sharded decode
-is ``serve.flash_decode``.  ``unroll`` (its scans' unrolling) is accepted
-and ignored.
+``_constrain_attn_out``.  Where ``act_heads`` does not resolve and the
+residual stream is split over ``act_seq`` (``Heads.seq``), the reference's
+constraint shards the attention's sequence instead: the rank projects q,
+k and v of its own block of the sequence (positions offset by the
+block's start), all-gathers k and v over ``model``, attends its query
+rows to the keys up to its block's end under the causal mask
+(``q_offset``) and projects the output of its block, with no reduction
+(``gqa_attention``, ``gqa_prefill``); the ``masked`` variant visits every
+key block up to that end, the ``folded`` one only those up to each query
+block's.  ``ctx`` is not read here; the
+sequence-sharded decode is ``serve.flash_decode``.  ``unroll`` (its
+scans' unrolling) is accepted and ignored.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import NO_TP
+from repro_torch.distributed.sharding import NO_TP, TP_AXIS
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import ParamSpec, cast_compute, rms_norm
 
 # ---------------------------------------------------------------------------
@@ -68,13 +76,16 @@ def apply_rope(x, positions, inv_freq):
 
 def chunked_attention(q, k, v, *, causal: bool, kv_block: int = 1024,
                       q_block: int = 1024, q_positions=None, kv_positions=None,
-                      ctx=None, unroll: bool = False):
+                      ctx=None, unroll: bool = False, q_offset: int = 0):
     """q: (B, Sq, H, Dh); k/v: (B, Sk, KV, Dh|Dv).  GQA by head grouping (no
     materialised repeat).  Returns (B, Sq, H, Dv).  Online softmax, blocked
-    over queries and keys: temporaries are O(q_block * kv_block) per head."""
+    over queries and keys: temporaries are O(q_block * kv_block) per head.
+    ``q_offset``: with the default positions, the queries are positions
+    ``q_offset .. q_offset + Sq - 1`` of the keys' sequence (a rank's
+    block of it)."""
     B, Sq, H, Dh = q.shape
     if q_positions is None:
-        q_positions = torch.arange(Sq, device=q.device)
+        q_positions = torch.arange(Sq, device=q.device) + q_offset
     if Sq > q_block and Sq % q_block == 0:
         outs = [_kv_scan_attention(q[:, i:i + q_block], k, v, causal=causal,
                                    kv_block=kv_block,
@@ -159,25 +170,31 @@ def _kv_scan_attention(q, k, v, *, causal: bool, kv_block: int,
 
 def folded_causal_attention(q, k, v, *, q_block: int = 1024,
                             kv_block: int = 1024, ctx=None,
-                            unroll: bool = False):
+                            unroll: bool = False, q_offset: int = 0):
     """Causal attention that does ~half the block work of
     ``chunked_attention``: query block i visits KV blocks [0, i] only, a
-    static prefix, so nq(nq + 1)/2 block pairs against nq^2."""
+    static prefix, so nq(nq + 1)/2 block pairs against nq^2.  ``q_offset``
+    (a multiple of ``kv_block``): the queries are positions ``q_offset ..
+    q_offset + Sq - 1`` of the keys' sequence, and query block i visits
+    the KV blocks up to ``q_offset / kv_block + i``."""
     B, S, H, Dh = q.shape
-    if S % q_block or S % kv_block or q_block != kv_block:
-        raise ValueError(f"folded attention needs S ({S}) a multiple of "
-                         f"q_block == kv_block ({q_block}, {kv_block})")
+    if S % q_block or q_offset % kv_block or q_block != kv_block:
+        raise ValueError(f"folded attention needs S ({S}) and q_offset "
+                         f"({q_offset}) multiples of q_block == kv_block "
+                         f"({q_block}, {kv_block})")
     nq = S // q_block
     if nq <= 1:
-        return chunked_attention(q, k, v, causal=True, kv_block=kv_block)
+        return chunked_attention(q, k, v, causal=True, kv_block=kv_block,
+                                 q_offset=q_offset)
     dev = q.device
     outs = []
     for i in range(nq):
-        kv_len = (i + 1) * kv_block
+        q0 = q_offset + i * q_block
+        kv_len = q0 + q_block
         outs.append(_kv_scan_attention(
             q[:, i * q_block:(i + 1) * q_block], k[:, :kv_len], v[:, :kv_len],
             causal=True, kv_block=kv_block,
-            q_positions=torch.arange(q_block, device=dev) + i * q_block,
+            q_positions=torch.arange(q_block, device=dev) + q0,
             kv_positions=torch.arange(kv_len, device=dev)))
     return torch.cat(outs, dim=1)
 
@@ -228,31 +245,90 @@ def gqa_project_qkv(cfg, p: dict, x, positions, inv_freq):
     return q, k, v
 
 
+def _seq_block_qkv(cfg, p: dict, x, positions, inv_freq, tp, heads):
+    """``Heads.seq``: q of the rank's block ``x`` of the sequence at its
+    positions, and k / v of the whole sequence up to the block's end (each
+    rank's block projected, all-gathered over ``model``, cut there), with
+    the whole sequence's k / v (for a cache)."""
+    q0, n = heads.q0_seq, heads.nq_seq
+    q, k, v = gqa_project_qkv(cfg, p, x, positions[..., q0:q0 + n], inv_freq)
+    k = tp.ctx.all_gather(k, TP_AXIS, 1)
+    v = tp.ctx.all_gather(v, TP_AXIS, 1)
+    return q, k[:, :q0 + n], v[:, :q0 + n], k, v
+
+
 def gqa_attention(cfg, p: dict, x, *, causal: bool = True, positions=None,
                   kv_block: int = 1024, variant: str = "masked", ctx=None,
                   unroll: bool = False, tp=NO_TP):
     """The training attention, x (B, S, D) -> (B, S, D): the plain route
     (``chunked_attention``, or ``folded_causal_attention`` for
-    ``variant="folded"`` where S is a multiple of ``kv_block`` above it),
+    ``variant="folded"`` where the query rows are a multiple of
+    ``kv_block`` above it),
     never the flash kernel, which is forward only.  Under ``tp`` x is the
     residual stream's block and the result is too; the attention runs on
-    the rank's heads."""
-    heads = tp.heads(cfg.n_heads, cfg.n_kv_heads)
-    xs = tp.gather_seq(x)
-    B, S, _ = xs.shape
+    the rank's heads, or (``Heads.seq``) on every head of the rank's
+    query rows."""
+    heads = tp.heads(cfg.n_heads, cfg.n_kv_heads, split_seq=causal)
+    xs = x if heads.seq else tp.gather_seq(x)
+    S = tp.seq_len if heads.seq else xs.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
     inv_freq = rope_freqs(cfg.resolved_head_dim, cfg.rope_pct, cfg.rope_theta,
                           device=x.device)
-    q, k, v = gqa_project_qkv(cfg, p, xs, positions, inv_freq)
-    k, v = heads.for_attention(k, v)
-    if causal and variant == "folded" and S > kv_block and S % kv_block == 0:
+    if heads.seq:
+        q, k, v, _, _ = _seq_block_qkv(cfg, p, xs, positions, inv_freq, tp,
+                                       heads)
+        q_offset, out_tp = heads.q0_seq, NO_TP
+    else:
+        q, k, v = gqa_project_qkv(cfg, p, xs, positions, inv_freq)
+        k, v = heads.for_attention(k, v)
+        q_offset, out_tp = 0, tp
+    Sq = q.shape[1]
+    if causal and variant == "folded" and Sq > kv_block \
+            and Sq % kv_block == 0 and q_offset % kv_block == 0:
         o = folded_causal_attention(q, k, v, q_block=kv_block,
-                                    kv_block=kv_block)
+                                    kv_block=kv_block, q_offset=q_offset)
     else:
         o = chunked_attention(q, k, v, causal=causal,
-                              kv_block=min(kv_block, S))
-    return out_proj(o, p["wo"], tp, heads.split, x.dtype)
+                              kv_block=min(kv_block, S), q_offset=q_offset)
+    return out_proj(o, p["wo"], out_tp, heads.split, x.dtype)
+
+
+def gqa_prefill(cfg, p: dict, h, positions, inv_freq, *, tp=NO_TP,
+                use_pallas: bool = False, kv_block: int = 1024, dtype=None):
+    """The prefill's causal attention of a layer: ``h`` (B, S | S/n, D) the
+    normed residual stream (the rank's block under sequence parallelism)
+    -> (output on the residual stream's layout, {"k", "v"}: the cache entry
+    of the KV heads the rank projects, bf16).  The attention runs on the
+    flash kernel where ``use_pallas`` (the reference's meaning), else on
+    ``chunked_attention``; on the rank's heads, or (``Heads.seq``) every
+    head of the rank's query rows against the keys up to its block's end
+    (the kernel's ``q_offset``), the cache then the whole sequence's.
+    The output is in ``dtype`` (``h``'s where None)."""
+    dtype = dtype or h.dtype
+    heads = tp.heads(cfg.n_heads, cfg.n_kv_heads, split_seq=True)
+    if heads.seq:
+        q, k, v, k_all, v_all = _seq_block_qkv(cfg, p, h, positions,
+                                               inv_freq, tp, heads)
+        q_offset, S = heads.q0_seq, tp.seq_len
+    else:
+        h = tp.gather_seq(h)
+        q, k, v = gqa_project_qkv(cfg, p, h, positions, inv_freq)
+        k_all, v_all = k, v
+        k, v = heads.for_attention(k, v)
+        q_offset, S = 0, h.shape[1]
+    if use_pallas:
+        from repro_torch.models.encdec import flash_block
+        o = fa_ops.flash(q, k, v, causal=True,
+                         q_block=flash_block(q.shape[1]),
+                         kv_block=flash_block(k.shape[1]), q_offset=q_offset)
+    else:
+        o = chunked_attention(q, k, v, causal=True, kv_block=min(kv_block, S),
+                              q_offset=q_offset)
+    entry = {"k": k_all.to(torch.bfloat16), "v": v_all.to(torch.bfloat16)}
+    if heads.seq:
+        return out_proj(o, p["wo"], NO_TP, False, dtype), entry
+    return out_proj(o, p["wo"], tp, heads.split, dtype), entry
 
 
 def gqa_decode(cfg, p: dict, x, cache_k, cache_v, pos: int, tp=NO_TP):

@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn
 from repro_torch.distributed.sharding import (NO_TP, TP_AXIS, gather_tree,
                                               tp_plan)
@@ -172,7 +171,6 @@ class HybridLM:
         cfg = self.cfg
         B, S = tokens.shape
         tp = tp_plan(ctx, S)
-        heads = tp.heads(cfg.n_heads, cfg.n_kv_heads)
         x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
         inv_freq = attn.rope_freqs(cfg.resolved_head_dim, cfg.rope_pct,
@@ -182,18 +180,11 @@ class HybridLM:
             shared = self._shared(ctx, params)
             h = apply_norm(cfg, self._site_norm(
                 ctx, tree_index(params["site_norms"], site)), x)
-            h1 = tp.gather_seq(apply_norm(cfg, shared["ln1"], h))
-            q, k, v = attn.gqa_project_qkv(cfg, shared["attn"], h1, positions,
-                                           inv_freq)
-            entry = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-            k, v = heads.for_attention(k, v)
-            if variant.use_pallas:
-                o = fa_ops.flash(q, k, v, causal=True)
-            else:
-                o = attn.chunked_attention(q, k, v, causal=True,
-                                           kv_block=min(variant.kv_block, S))
-            h = h + attn.out_proj(o, shared["attn"]["wo"], tp, heads.split,
-                                  x.dtype)
+            a, entry = attn.gqa_prefill(
+                cfg, shared["attn"], apply_norm(cfg, shared["ln1"], h),
+                positions, inv_freq, tp=tp, use_pallas=variant.use_pallas,
+                kv_block=variant.kv_block, dtype=x.dtype)
+            h = h + a
             h2 = apply_norm(cfg, shared["ln2"], h)
             x = x + h + apply_mlp(cfg, shared["mlp"], h2, tp)
             layer_caches = []

@@ -34,7 +34,11 @@ the fsdp axes itself and runs expert parallel; its output is all-reduced,
 and the rank keeps its block), reduce-scattered after the row splits, and
 gathered again before the final norm's logits.  The tokens are this
 rank's block of the batch over the data axes; on a mesh the prefill's
-cache is the rank's block (its KV heads).
+cache is the rank's block (its KV heads).  Where the query heads do not
+divide over ``model`` (phi3's 40 and arctic's 56 over 16), the attention
+splits its queries' sequence instead (``sharding.Heads.seq``: every head
+of the rank's block of positions, the flash kernel's ``q_offset`` in the
+prefill), and the cache is the whole sequence's.
 """
 from __future__ import annotations
 
@@ -192,7 +196,6 @@ class DecoderLM:
         cfg = self.cfg
         B, S = tokens.shape
         tp = tp_plan(ctx, S)
-        heads = tp.heads(cfg.n_heads, cfg.n_kv_heads)
         x = embed_lookup(ctx, cfg, params["embed"], tokens)
         positions = torch.arange(S, device=tokens.device)
         inv_freq = (mla_mod.mla_rope_freqs(cfg, tokens.device) if self.is_mla
@@ -202,26 +205,27 @@ class DecoderLM:
         caches = []
         for layer in range(cfg.n_layers):
             p = self._layer(ctx, tree_index(params["blocks"], layer))
-            h = tp.gather_seq(apply_norm(cfg, p["ln1"], x))
+            h = apply_norm(cfg, p["ln1"], x)
             if self.is_mla:
-                q, k, v, c, kr = mla_mod.mla_expand(cfg, p["attn"], h,
+                q, k, v, c, kr = mla_mod.mla_expand(cfg, p["attn"],
+                                                    tp.gather_seq(h),
                                                     positions, inv_freq)
                 entry = {"c": c.to(torch.bfloat16),
                          "k_rope": kr.to(torch.bfloat16)}
-                split = q.shape[2] < cfg.n_heads
+                if variant.use_pallas:
+                    o = fa_ops.flash(q, k, v, causal=True)
+                else:
+                    o = attn.chunked_attention(
+                        q, k, v, causal=True,
+                        kv_block=min(variant.kv_block, S))
+                a = attn.out_proj(o, p["attn"]["wo"], tp,
+                                  q.shape[2] < cfg.n_heads, x.dtype)
             else:
-                q, k, v = attn.gqa_project_qkv(cfg, p["attn"], h, positions,
-                                               inv_freq)
-                entry = {"k": k.to(torch.bfloat16),
-                         "v": v.to(torch.bfloat16)}
-                k, v = heads.for_attention(k, v)
-                split = heads.split
-            if variant.use_pallas:
-                o = fa_ops.flash(q, k, v, causal=True)
-            else:
-                o = attn.chunked_attention(q, k, v, causal=True,
-                                           kv_block=min(variant.kv_block, S))
-            x = x + attn.out_proj(o, p["attn"]["wo"], tp, split, x.dtype)
+                a, entry = attn.gqa_prefill(
+                    cfg, p["attn"], h, positions, inv_freq, tp=tp,
+                    use_pallas=variant.use_pallas, kv_block=variant.kv_block,
+                    dtype=x.dtype)
+            x = x + a
             x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx,
                               tp)
             caches.append(entry)

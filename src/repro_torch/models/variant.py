@@ -19,9 +19,11 @@ the port reads of it:
 - the mesh: ``psum_dtype`` (the expert-parallel combine of
   ``moe_layer``), ``seq_parallel`` and ``cache_layout`` (the sharding
   rules, through ``apply_rules``).
+- the dry run and the probe (``launch.dryrun``, ``launch.probe``):
+  ``kv_cache_dtype``, the decode cache's dtype (``float8_e4m3fn`` for the
+  fp8 variants; its bytes a element in ``roofline.model_bytes``), as the
+  reference's dry run reads it.
 
-Waiting for the dry run (ROADMAP Queue A 8c): ``kv_cache_dtype`` (read by
-the reference's dry run and probe).
 ``unroll`` unrolls the reference's ``lax.scan`` loops for XLA's cost
 analysis; eager PyTorch has no scan to unroll, so it is accepted and
 ignored.

@@ -23,7 +23,13 @@ logit, 16 bf16 unit roundoffs, twice ``tests/test_torch_moe.py``'s 8: the
 reference's SPMD step rounds its partitioned products elsewhere, and the
 second layer's input parts further from the port's; measured, reduced
 deepseek on (1, 2, 2), 3 tokens of 1024 differ, the widest 9.2).
+
+An arch of a case may carry an override, "<arch>+<tag>": the reduced
+config with ``OVERRIDES[tag]``'s fields replaced, on both sides (e.g.
+``granite-3-2b+h6kv2``: 6 query and 2 KV heads, which do not divide a
+``model`` axis of 4).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,6 +55,20 @@ GRAD_RMS_TOL = 2e-2
 B, S = 8, 64
 ENV_ALL = (dist.ENV_COORDINATOR + dist.ENV_NUM_PROCESSES
            + dist.ENV_PROCESS_ID)
+#: "<arch>+<tag>" -> the reduced config's fields replaced
+OVERRIDES = {"h6kv2": {"n_heads": 6, "n_kv_heads": 2}}
+#: config(arch) in the templates (``reduced`` and ``get_arch`` are the
+#: side's own)
+CONFIG = '''
+from dataclasses import replace as _replace
+OVERRIDES = %r
+
+
+def config(arch):
+    base, _, tag = arch.partition("+")
+    cfg = reduced(get_arch(base))
+    return _replace(cfg, **OVERRIDES[tag]) if tag else cfg
+''' % (OVERRIDES,)
 
 REF = r"""
 import os, sys
@@ -67,6 +87,7 @@ from repro.optim import adamw
 from repro.optim.compression import compress_grads, init_error
 
 out, cases = sys.argv[1], %r
+%s
 inp = np.load(f"{out}/inputs.npz")
 J_MOE = j_moe.moe_layer
 log = []
@@ -103,7 +124,7 @@ def unflat(like, flat, prefix=""):
 res = {}
 for arch, shape in cases:
     tag = f"{arch}/{'x'.join(map(str, shape))}"
-    cfg = reduced(get_arch(arch))
+    cfg = config(arch)
     model = build(cfg)
     specs = model.param_specs()
     mesh = make_mesh(tuple(shape), ("pod", "data", "model"))
@@ -178,12 +199,13 @@ from repro_torch.optim import adamw, compression
 from repro_torch.train import step as step_mod
 
 out, cases, compress = sys.argv[1], %r, %r
+%s
 NEAR_TIE = 16 * 2.0 ** -8
 dist.ensure_initialized("cpu")
 rank = dist.process_index()
 inp = np.load(f"{out}/inputs.npz")
 ref = np.load(f"{out}/ref.npz") if any(
-    get_arch(a).moe is not None for a, _ in cases) else None
+    config(a).moe is not None for a, _ in cases) else None
 meshes, res, report = {}, {}, {}
 
 
@@ -233,7 +255,7 @@ for arch, shape in cases:
         meshes[shape] = make_mesh(shape, ("pod", "data", "model"),
                                   device="cpu")
     ctx = ShardCtx(meshes[shape])
-    cfg = reduced(get_arch(arch))
+    cfg = config(arch)
     model = registry.build(cfg)
     specs = model.param_specs()
     flat = {k[len(arch) + 3:]: inp[k] for k in inp.files
@@ -326,7 +348,10 @@ def inputs(path: Path, archs) -> None:
     "<arch>/b/<name>"."""
     arrays = {}
     for arch in archs:
-        jcfg = j_reduced(j_get_arch(arch))
+        base, _, t = arch.partition("+")
+        jcfg = j_reduced(j_get_arch(base))
+        if t:
+            jcfg = dataclasses.replace(jcfg, **OVERRIDES[t])
         p = j_common.init_params(j_build(jcfg).param_specs(),
                                  jax.random.key(0))
         for keys, leaf in jax.tree_util.tree_flatten_with_path(p)[0]:
@@ -366,13 +391,15 @@ def run_cases(out: Path, cases, compress: bool = False) -> dict:
     "rep" (every rank's report)}."""
     archs = sorted({a for a, _ in cases})
     inputs(out / "inputs.npz", archs)
-    r = subprocess.run([sys.executable, "-c", REF % (cases,), str(out)],
+    r = subprocess.run([sys.executable, "-c", REF % (cases, CONFIG),
+                        str(out)],
                        capture_output=True, text=True, env=env(),
                        timeout=600)
     assert r.returncode == 0 and "REF_OK" in r.stdout, r.stderr[-3000:]
     n = max(int(np.prod(s)) for _, s in cases)
     sink = _Sink()
-    rc = dist.launch_local([sys.executable, "-c", PORT % (cases, compress),
+    rc = dist.launch_local([sys.executable, "-c",
+                            PORT % (cases, compress, CONFIG),
                             str(out)], processes=n, env=env(), timeout=600,
                            stream_to=sink, device="cpu")
     assert rc == 0, sink.text()[-4000:]

@@ -261,17 +261,36 @@ def test_run_bench_and_table1_match_the_reference(monkeypatch, capsys,
 
 def test_run_keeps_the_reference_entries():
     """The entries the reference's ``run.py`` asks ``want`` about, in its
-    order; the one whose modules are not ported is named (``collectives``
-    runs: ``tests/test_torch_collectives.py``)."""
+    order, each asked about here too: every entry is ported (``roofline``
+    since the dry run: ``tests/test_torch_dryrun.py``)."""
     ref = re.findall(r'want\("(\w+)"\)', inspect.getsource(ref_run))
     assert sorted(run.ENTRIES) == sorted(ref)
-    assert set(run.NOT_PORTED) == {"roofline"}
+    port = re.findall(r'want\("(\w+)"\)', inspect.getsource(run))
+    assert sorted(port) == sorted(ref)
+    assert not hasattr(run, "NOT_PORTED")
 
 
 @pytest.mark.parametrize("entry", ["roofline"])
-def test_run_entries_not_ported_exit_nonzero(capsys, entry):
+def test_run_entries_not_ported_exit_nonzero(capsys, entry, tmp_path,
+                                             monkeypatch):
+    """``roofline`` renders the dry run's records; a record of a failed
+    cell (``status: error``) makes the entry exit non-zero, a skipped one
+    does not."""
+    from benchmarks_torch import roofline_table
+    monkeypatch.setattr(roofline_table, "ART", tmp_path / "dryrun")
+    monkeypatch.setattr(roofline_table, "PROBE", tmp_path / "probe")
+    (tmp_path / "dryrun").mkdir()
+    skipped = {"arch": "a", "shape": "s", "multi_pod": False,
+               "status": "skipped", "reason": "r"}
+    (tmp_path / "dryrun" / "a__s__pod1__baseline.json").write_text(
+        json.dumps(skipped))
+    assert run.main(["--only", entry, "--device", "cpu"]) == 0
+    assert "| a | s | 16x16 | - | - | - | skipped |" in \
+        capsys.readouterr().out
+    (tmp_path / "dryrun" / "b__s__pod1__baseline.json").write_text(
+        json.dumps(dict(skipped, arch="b", status="error", error="E")))
     assert run.main(["--only", entry, "--device", "cpu"]) == 1
-    assert "not ported yet" in capsys.readouterr().out
+    assert "| b | s | 16x16 | ERROR: E |" in capsys.readouterr().out
 
 
 def test_run_rejects_an_unknown_entry(capsys):

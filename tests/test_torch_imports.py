@@ -76,7 +76,10 @@ def test_the_port_has_the_slice_modules():
                  "data/pipeline.py", "checkpoint/checkpoint.py",
                  "train/step.py", "train/trainer.py", "launch/train.py",
                  "distributed/__init__.py", "distributed/sharding.py",
-                 "serve/__init__.py", "serve/flash_decode.py"):
+                 "serve/__init__.py", "serve/flash_decode.py",
+                 "roofline/__init__.py", "roofline/analyze.py",
+                 "roofline/model_bytes.py", "launch/dryrun.py",
+                 "launch/probe.py"):
         assert want in have, want
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     for package, sources in (
@@ -97,7 +100,8 @@ def test_the_port_has_the_figure_scripts():
                  "fig6_istream.py", "fig7_loaded_latency.py",
                  "table1_machine.py", "run.py", "launch_distributed.py",
                  "collective_bench_main.py", "characterize_machine.py",
-                 "serve_lm.py", "train_lm.py", "quickstart.py"):
+                 "serve_lm.py", "train_lm.py", "quickstart.py",
+                 "roofline_table.py", "gen_experiments.py"):
         assert want in have, want
         assert any((ROOT / d / want).exists()
                    for d in ("benchmarks", "scripts", "examples")), want
@@ -132,6 +136,8 @@ def test_bench_imports_with_jax_blocked():
         "import repro_torch.launch.train, repro_torch.optim.compression\n"
         "import repro_torch.distributed.sharding\n"
         "import repro_torch.serve.flash_decode\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.probe\n"
+        "import repro_torch.roofline.analyze\n"
         "from repro_torch.bench import Runner, BenchSpec\n"
         "from repro_torch.characterize import characterize\n"
         "m, s = characterize(('copy', 'load_sum'), primary='copy',\n"

@@ -141,7 +141,9 @@ def test_rank_share_matches_the_reference(arch, m):
 def test_phi3_falls_back_as_the_reference_does():
     """phi3-medium's 40 query / 10 KV heads: over 4, a rank's 10 query
     heads and every KV head, rank 1's reading KV heads 2-4; over 16 the
-    query heads do not divide and every head is computed on every rank."""
+    query heads do not divide, and the rank computes every head of its
+    block of a sequence that ``act_seq`` splits (the reference's
+    ``_constrain_qkv`` fallback), every head of the whole without one."""
     cfg = get_arch("phi3-medium-14b")
     t = sh.ShardCtx(sh.AbstractMesh((1, 1, 4), ("pod", "data", "model")))
     h = sh.rank_heads(t, cfg.n_heads, cfg.n_kv_heads, 1)
@@ -149,8 +151,10 @@ def test_phi3_falls_back_as_the_reference_does():
     assert h.kv_of_q == (2, 2, 3, 3, 3, 3, 4, 4, 4, 4)
     assert t.fallbacks == ["kv_heads(10) !% ('model',)(4)"]
     t = sh.ShardCtx(sh.AbstractMesh((1, 1, 16), ("pod", "data", "model")))
-    h = sh.rank_heads(t, cfg.n_heads, cfg.n_kv_heads, 5)
+    h = sh.rank_heads(t, cfg.n_heads, cfg.n_kv_heads, 5, seq_len=4096)
     assert (h.q0, h.nq, h.kv0, h.nkv, h.split) == (0, 40, 0, 10, False)
+    assert h.seq and (h.q0_seq, h.nq_seq) == (5 * 256, 256)
+    assert not sh.rank_heads(t, cfg.n_heads, cfg.n_kv_heads, 5).seq
     assert t.fallbacks == ["act_heads(40) !% ('model',)(16)"]
 
 
