@@ -36,7 +36,9 @@ Phases (any failure raises and the script exits non-zero):
      against ``plain_flash`` (the reference test's shapes, head dims 80 and
      128, causal and not, float32 and bfloat16, block-shape invariance) and
      the SSD against ``plain_ssd`` (the reference test's shapes, chunk
-     invariance, stride-0 B/C views), both also at the serving shapes;
+     invariance, stride-0 B/C views, route 0 at N 128 in float32, route 2
+     at width 64 on a chunk of 672 that route 1 cannot stage), both
+     also at the serving shapes;
      flash also at the five dense / vlm serving shapes, (4, 512, H, KV, D)
      bf16: granite (32, 8, 64), stablelm (32, 32, 80), phi3 (40, 10, 128),
      internlm2 (48, 8, 128), chameleon (64, 8, 128).  Then the ssm / encdec
@@ -46,13 +48,13 @@ Phases (any failure raises and the script exits non-zero):
      ragged tail both ways; whisper's encoder (4, 1500, 16, 16, 64) and
      cross-attention (4, 256 against 1500, 16, 16, 64), non-causal, float32
      and bfloat16, with whole-sequence blocks; the SSD at mamba2's serving
-     shape (4 x 80 heads, 512, P 64, N 128, chunk 256) on route 0.  Then
+     shape (4 x 80 heads, 512, P 64, N 128, chunk 256) on route 2.  Then
      both kernels at a rank's shapes of a ``model`` axis of 2 and 4, as the
      tensor-parallel prefills launch them (``rank_shapes``, bf16): flash at
      granite's (4, 512, 16, 4, 64) / (4, 512, 8, 2, 64), zamba2's site
      (16 / 8 heads of 80), deepseek's 64 / 32 heads of (192, 128),
      whisper's encoder (4, 1500, 8 / 4 heads, 64) non-causal; the SSD at
-     zamba2's and mamba2's 40 / 20 SSD heads (mamba2's N 128 on route 0).
+     zamba2's and mamba2's 40 / 20 SSD heads (mamba2's N 128 on route 2).
      Then flash with a causal query offset, as a rank of a ``model`` axis
      of 16 launches it where the heads do not divide and the attention
      splits its queries' sequence (``sharding.Heads.seq``): train_4k's
@@ -68,7 +70,8 @@ Phases (any failure raises and the script exits non-zero):
      JSON is read back and checked; ``compare`` of ``torch`` vs ``cuda``.
      3d: ``python -m repro_torch.launch.serve --arch zamba2-2.7b --batch 4
      --prompt-len 512 --gen 16`` at full width (9 flash and 54 SSD launches
-     in its one prefill, no membench launch), then in process the kernel
+     in its one prefill, the SSD's all on route 1, counted by route; no
+     membench launch), then in process the kernel
      route's prefill against the plain route's, and two decode steps.
      Then the dense / vlm families: ``serve --arch granite-3-2b`` on the
      same batch at full width (40 flash launches, no SSD, no membench), in
@@ -78,7 +81,7 @@ Phases (any failure raises and the script exits non-zero):
      width cut to 2 layers through ``serve.run`` (2 flash launches each),
      their routes held the same way.  Then the ssm, encdec and moe
      families: ``serve --arch mamba2-2.7b`` (full width and depth: 64 SSD
-     launches, no flash) and ``serve --arch whisper-medium --prompt-len
+     launches, all on route 2; no flash) and ``serve --arch whisper-medium --prompt-len
      256`` (full width and depth: 24 encoder + 24 self + 24 cross = 72
      flash launches, no SSD), deepseek-v2-236b at full width cut to 2
      layers (2 flash launches at (192, 128)) and arctic-480b reduced
@@ -189,7 +192,9 @@ Phases (any failure raises and the script exits non-zero):
   5  one JSON line listing every kernel with its time, its plain version's,
      the library call's, and its bound (flash_attn and ssd_scan at the
      serving shapes; bytes at the SMs' load/store rate where a call's
-     buffers fit the L2, at the HBM rate above it, ``bytes_bound``); every
+     buffers fit the L2, at the HBM rate above it, ``bytes_bound``; the
+     SSD's operations those the function needs, ``ssd_ops.work_flops``);
+     every
      membench kernel and rw ladder member, and flash_attn, and their library
      calls, also by device time (the calls enqueued behind a device-side
      sleep; flash also at granite-3-2b's shape, under ``dense``, and as
@@ -1291,12 +1296,28 @@ def phase_model_kernels(quick: bool) -> dict[str, float]:
                            f"{dname} {(BH, S, P, N)}")
             worst[f"ssd/{dname}"] = max(worst.get(f"ssd/{dname}", 0.0), err)
             n += 1
-    # a bf16 shape the tensor-core route does not take (P not a multiple
+    # a bf16 shape the tensor-core routes do not take (P not a multiple
     # of 8): route 0 on inputs widened to float32
     if sk.launch_plan(2, 12, 8, 16, torch.bfloat16)["route"] != 0:
         raise AssertionError("ssd: P 12 should take route 0")
     err = hold_ssd(*ssd_inputs(2, 64, 12, 8, torch.bfloat16, seed=12), 16,
                    "bfloat16 (2, 64, 12, 8) route 0")
+    worst["ssd/bfloat16"] = max(worst["ssd/bfloat16"], err)
+    n += 1
+    # route 0 at N 128 (float32: mamba2's width, which bfloat16 sends to
+    # route 2)
+    if sk.launch_plan(2, 32, 128, 64, torch.float32)["route"] != 0:
+        raise AssertionError("ssd: float32 at N 128 should take route 0")
+    err = hold_ssd(*ssd_inputs(2, 256, 32, 128, torch.float32, seed=128), 64,
+                   "float32 (2, 256, 32, 128) route 0")
+    worst["ssd/float32"] = max(worst["ssd/float32"], err)
+    n += 1
+    # route 2 at width 64: a chunk too long for route 1 to stage
+    if sk.launch_plan(2, 64, 64, 672, torch.bfloat16)["route"] != 2:
+        raise AssertionError("ssd: bf16 N 64 at chunk 672 should take "
+                             "route 2")
+    err = hold_ssd(*ssd_inputs(2, 672, 64, 64, torch.bfloat16, seed=672),
+                   672, "bfloat16 (2, 672, 64, 64) chunk 672 route 2")
     worst["ssd/bfloat16"] = max(worst["ssd/bfloat16"], err)
     n += 1
     routes = {dname: sorted({sk.launch_plan(BH, P, N, Q, dtype)["route"]
@@ -1347,7 +1368,7 @@ def phase_family_kernels(quick: bool) -> dict[str, float]:
     small shapes, float32 and bfloat16, both causal flags; deepseek's mla
     shape), Sq != Sk and a sequence of 1500 with whole-sequence blocks
     (whisper's encoder and cross-attention, float32 and bfloat16); the SSD
-    at mamba2's serving shape on route 0 (N 128 is wider than route 1
+    at mamba2's serving shape on route 2 (N 128 is wider than route 1
     takes).  Returns the max abs error of each serving shape (bf16)."""
     say("== phase 2c (ssm / encdec / mla): flash at (D, Dv) = (192, 128), "
         "Sq != Sk, 1500 frames; the SSD at mamba2's shape")
@@ -1385,9 +1406,9 @@ def phase_family_kernels(quick: bool) -> dict[str, float]:
     plan = sk.launch_plan(BH, xdt.shape[-1], Bv.shape[-1], shape[-1],
                           xdt.dtype, sms=torch.cuda.get_device_properties(
                               DEV).multi_processor_count)
-    if plan["route"] != 0:
+    if plan["route"] != 2:
         raise AssertionError(f"ssd at mamba2's shape {shape}: route "
-                             f"{plan['route']}, expected 0 (N 128)")
+                             f"{plan['route']}, expected 2 (N 128)")
     errs["ssd"] = hold_ssd(xdt, dA, Bv, Cv, shape[-1], f"mamba2 {shape}")
     del xdt, dA, Bv, Cv
     say(f"  ssd at mamba2's serving shape {shape} bf16: {errs['ssd']:.3e} "
@@ -1444,7 +1465,7 @@ def phase_rank_kernels(quick: bool) -> dict[str, dict]:
     rank of a ``model`` axis of 2 and 4 launches them in the prefills
     (granite-3-2b's 16 / 8 query heads, zamba2's site, deepseek's 32 heads
     of (192, 128), whisper's encoder at 1500 frames; the SSD at zamba2's
-    and mamba2's 40 / 20 SSD heads, mamba2's N 128 on route 0), bf16,
+    and mamba2's 40 / 20 SSD heads, mamba2's N 128 on route 2), bf16,
     against their plain versions.  Returns the max abs error at each."""
     say("== phase 2c (a rank's shapes): flash and the SSD as a rank of a "
         "model axis of " + " and ".join(map(str, RANK_TP)) + " launches "
@@ -1462,7 +1483,7 @@ def phase_rank_kernels(quick: bool) -> dict[str, dict]:
             xdt, dA, Bv, Cv = serve_ssd_inputs(seed=sum(shape), shape=shape)
             plan = sk.launch_plan(dA.shape[0], shape[3], shape[4],
                                   shape[-1], xdt.dtype, sms=sms)
-            if (plan["route"] == 0) != (shape[4] == 128):
+            if plan["route"] != (2 if shape[4] == 128 else 1):
                 raise AssertionError(f"ssd {arch} tp {tp} {shape}: route "
                                      f"{plan['route']}")
             errs["ssd_scan"][f"{arch} tp{tp} {shape} route "
@@ -2583,7 +2604,8 @@ def phase_serve_path(quick: bool) -> dict[str, int]:
     # once per Mamba layer; decode runs neither
     counts = serve_cli(SERVE_ARGV + (["--reduced"] if quick else []),
                        {"flash_attn": model.n_sites,
-                        "ssd_scan": cfg.n_layers})
+                        "ssd_scan": cfg.n_layers},
+                       {ssd_serve_route(cfg): cfg.n_layers})
 
     # in process, one parameter set and one prompt batch (serve's seeds):
     # the kernel route against the plain route
@@ -2789,11 +2811,27 @@ def note_offset_launches() -> None:
     MAIN_OFFSET_LAUNCHES["flash_attn"] += fa.offset_launch_counts["flash_attn"]
 
 
-def serve_cli(argv: list[str], want: dict[str, int]) -> dict[str, int]:
+#: ssd_scan's launches by route on each serving path ``serve_cli`` drove,
+#: by arch (the wrapper's ``route_launch_counts``, read just after it)
+SSD_ROUTE_LAUNCHES: dict[str, dict[int, int]] = {}
+
+
+def ssd_serve_route(cfg) -> int:
+    """The route ``launch_plan`` gives a ``serve`` prefill's SSD (SERVE_B
+    prompts of SERVE_P tokens, bf16) of an ssm or hybrid config."""
+    s = cfg.ssm
+    heads = s.expand * cfg.d_model // s.head_dim
+    return sk.launch_plan(SERVE_B * heads, s.head_dim, s.d_state,
+                          min(s.chunk_size, SERVE_P), torch.bfloat16)["route"]
+
+
+def serve_cli(argv: list[str], want: dict[str, int],
+              ssd_routes: dict[int, int] | None = None) -> dict[str, int]:
     """``python -m repro_torch.launch.serve`` in process, the launch
     counters set to 0 just before and read just after; raises unless it
     exits 0 with its four lines, launched exactly ``want`` and no membench
-    kernel.  Returns the launches."""
+    kernel, and (``ssd_routes``) the SSD exactly so many times on each
+    route.  Returns the launches."""
     for mod in (mb, fa, sk):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2803,17 +2841,22 @@ def serve_cli(argv: list[str], want: dict[str, int]) -> dict[str, int]:
     sync()
     lines = buf.getvalue().strip().splitlines()
     counts = {**fa.launch_counts, **sk.launch_counts}
+    routes = {r: n for r, n in sk.route_launch_counts.items() if n}
+    SSD_ROUTE_LAUNCHES[argv[argv.index("--arch") + 1]] = routes
     note_offset_launches()
     say(f"  serve: exit {rc}, {time.perf_counter() - t0:.1f} s")
     for line in lines:
         say("  | " + line)
-    say(f"  launches on the serving path: {counts}; membench "
-        f"{sum(mb.launch_counts.values())}")
+    say(f"  launches on the serving path: {counts}; ssd_scan by route "
+        f"{routes}; membench {sum(mb.launch_counts.values())}")
     if rc != 0 or len(lines) != 4:
         raise AssertionError(f"serve exited {rc} with {len(lines)} lines")
     if counts != want or any(mb.launch_counts.values()):
         raise AssertionError(f"serve launched {counts} and membench "
                              f"{mb.launch_counts}, expected {want} and none")
+    if ssd_routes is not None and routes != ssd_routes:
+        raise AssertionError(f"serve launched ssd_scan {routes} by route, "
+                             f"expected {ssd_routes}")
     return counts
 
 
@@ -2970,8 +3013,10 @@ def phase_family_serve_path(quick: bool) -> dict[str, dict[str, int]]:
                 if cfg.family == "ssm" else
                 {"flash_attn": cfg.n_encoder_layers + 2 * cfg.n_layers,
                  "ssd_scan": 0})
-        launches[arch] = serve_cli(argv + (["--reduced"] if quick else []),
-                                   want)
+        launches[arch] = serve_cli(
+            argv + (["--reduced"] if quick else []), want,
+            {ssd_serve_route(cfg): cfg.n_layers} if cfg.family == "ssm"
+            else {})
         params, prompt = serve_inputs(cfg, model, P)
         tol = SERVE_LOGITS_RMS_TOL
         with torch.inference_mode():
@@ -4407,7 +4452,8 @@ def model_kernel_entries(counts: dict[str, int], errs: dict,
         "library_device_ms": device_ms(sdpa, 20), "flops": nf, "bytes": nb}
     del q, k, v, qt, kt, vt
     entries.append(ssd_entry(SSD_SERVE, errs["ssd_scan"],
-                             counts.get("ssd_scan", 0)))
+                             counts.get("ssd_scan", 0),
+                             SSD_ROUTE_LAUNCHES["zamba2-2.7b"]))
     for e in entries:
         say_model_entry(e)
     d = entries[0]["dense"]
@@ -4430,21 +4476,29 @@ def say_model_entry(e: dict) -> None:
         f"plain {e['plain_ms']:.4f}  library {lib}  err "
         f"{e['max_abs_err']:.2e}  launches {e['launches']}"
         + (f"  device {e['device_ms']:.4f}" if "device_ms" in e else "")
+        + (f"  route {e['ssd_route']} ({e['ssd_plan']}), launches by route "
+           f"{e['launches_by_route']}" if "ssd_route" in e else "")
         + (f" vs library {e['library_device_ms']:.4f}"
            if e.get("library_device_ms") is not None else ""))
 
 
-def ssd_entry(shape: tuple, err: float, launches: int) -> dict:
+def ssd_entry(shape: tuple, err: float, launches: int,
+              by_route: dict[int, int]) -> dict:
     """The ``kernels`` entry of ssd_scan at a serving shape (B, H, S, P, N,
     chunk): kernel ms (CUDA events) and device ms, the token recurrence's
-    ms (``plain_ssd``), no library call, and the bound (operations per the
-    reference's ``flops`` at the bf16 tensor peak, against x, dA, B and C
-    read once and y and the state written once; B and C counted as the
-    storage their stride-0 views cover)."""
+    ms (``plain_ssd``), no library call, and the bound (the operations the
+    function needs, ``ssd_ops.work_flops`` with C B^T once a B/C group, at
+    the bf16 tensor peak, against x, dA, B and C read once and y and the
+    state written once; B and C counted, both ways, as the storage their
+    stride-0 views cover); the route and its plan, and the path's launches
+    by route (``by_route``)."""
     xdt, dA, Bv, Cv = serve_ssd_inputs(shape=shape)
     chunk = shape[-1]
     BH, S, P = xdt.shape
     N = Bv.shape[-1]
+    plan = sk.launch_plan(BH, P, N, chunk, xdt.dtype,
+                          sms=torch.cuda.get_device_properties(
+                              DEV).multi_processor_count)
     run = lambda: sk.ssd_scan(xdt, dA, Bv, Cv, chunk=chunk)  # noqa: E731
     ms, host_ms = time_both_ms(run, 20)
     B3, C3 = Bv.reshape(BH, S, N), Cv.reshape(BH, S, N)
@@ -4452,7 +4506,8 @@ def ssd_entry(shape: tuple, err: float, launches: int) -> dict:
     nb = (2 * xdt.numel() * xdt.element_size()                # x in, y out
           + dA.numel() * 4 + 2 * 2 * shape[0] * S * N         # dA, B, C
           + BH * N * P * 4)                                   # state out
-    nf = ssd_ops.flops(BH, S, P, N, chunk)
+    groups = Bv.shape[0] * (Bv.shape[1] if Bv.stride(1) else 1)
+    nf = ssd_ops.work_flops(BH, S, P, N, chunk, groups)
     return {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -4463,7 +4518,10 @@ def ssd_entry(shape: tuple, err: float, launches: int) -> dict:
                        nf / PEAK_FLOPS["bfloat16_tensor"]),
         "library_ms": None, "device_ms": device_ms(run, 20), "flops": nf,
         "bytes": nb, "shape": list(shape), "dtype": "bfloat16",
-        "ssd_route": sk.launch_plan(BH, P, N, chunk, xdt.dtype)["route"],
+        "launches_by_route": by_route, "ssd_route": plan["route"],
+        "ssd_plan": {k: plan[k] for k in ("grid", "smem_bytes",
+                                          "ctas_per_sm", "waves",
+                                          "last_wave")},
     }
 
 
@@ -4539,7 +4597,7 @@ def family_kernel_entries(errs: dict, launches: dict) -> list[dict]:
     """The ``kernels`` entries at the ssm / encdec / mla serving shapes:
     flash at deepseek's (192, 128) pair, whisper's encoder (1500 frames)
     and cross-attention (256 prompt tokens against them); the SSD at
-    mamba2's shape (route 0).  ``launches`` is the path's count of the
+    mamba2's shape (route 2).  ``launches`` is the path's count of the
     kernel in its phase 3d run."""
     shapes = family_shapes()
     entries = [
@@ -4550,7 +4608,8 @@ def family_kernel_entries(errs: dict, launches: dict) -> list[dict]:
         flash_entry(f"{ENCDEC_SERVE} cross-attention", *shapes["cross"],
                     errs["cross"], launches[ENCDEC_SERVE]["flash_attn"]),
         {**ssd_entry(shapes["ssd"], errs["ssd"],
-                     launches[SSM_SERVE]["ssd_scan"]), "path": SSM_SERVE},
+                     launches[SSM_SERVE]["ssd_scan"],
+                     SSD_ROUTE_LAUNCHES[SSM_SERVE]), "path": SSM_SERVE},
     ]
     for e in entries:
         say_model_entry(e)

@@ -3,17 +3,19 @@ C++ kernel for Hopper, its wrapper and its plain PyTorch version.
 
 Counterpart of ``repro.kernels.ssd_scan.ssd_scan`` (the Pallas kernel
 ``_ssd_kernel``).  The kernel is ``csrc/ssd_scan.cu`` (its header says what
-bounds it on an H100 and what the design does about it), with two routes
+bounds it on an H100 and what the design does about it), with three routes
 that ``launch_plan`` chooses between: bfloat16 products on the tensor cores
-(float32 operands split into two bf16 halves), and float32 FMAs (float32
-inputs, and the shapes the tensor-core route does not take).  It is compiled
+(float32 operands split into two bf16 halves) for state widths up to 64
+(route 1) and up to 128 (route 2), and float32 FMAs (float32 inputs, and
+the shapes the tensor-core routes do not take).  It is compiled
 with ``nvcc`` for ``sm_90a`` at first use into ``build/ssd_scan/`` at the
 checkout's root and loaded with ``ctypes`` (``repro_torch.kernels.build``).
 Nothing is built or loaded when this module is imported.
 
 The wrapper takes its plain version ONLY for tensors that lie on the CPU.
 For CUDA tensors it launches the kernel or raises: no fallback.  It adds one
-to ``launch_counts["ssd_scan"]`` where it launches, and nowhere else.
+to ``launch_counts["ssd_scan"]``, and to ``route_launch_counts`` at the route
+it launched, where it launches, and nowhere else.
 """
 from __future__ import annotations
 
@@ -35,17 +37,25 @@ _TILE = 64                  # rows per query / key tile of route 0
 #: built for (N padded up to one of them)
 TC_THREADS, TC_CTAS_PER_SM, TC_COLS, TC_PAD = 256, 2, 16, 8
 TC_WIDTHS = (16, 32, 64)
+#: route 2 (tensor cores at N up to 128): columns of P a CTA owns, CTAs an
+#: SM its launch bound cuts registers for (threads and row padding are route
+#: 1's), and the state widths it is built for (N padded up to one of them)
+WIDE_COLS, WIDE_CTAS_PER_SM = 32, 2
+WIDE_WIDTHS = (64, 128)
 #: shared memory of one SM on an H100 (228 KiB), and what the card keeps
 #: of it for each resident block (1 KiB)
 SM_SMEM_BYTES, SMEM_PER_BLOCK = 233_472, 1024
 
-#: launches of the kernel since the last ``reset_launch_counts``
+#: launches of the kernel since the last ``reset_launch_counts``, and the
+#: same launches by route
 launch_counts: dict[str, int] = {"ssd_scan": 0}
+route_launch_counts: dict[int, int] = {0: 0, 1: 0, 2: 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, route_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -83,32 +93,56 @@ def tc_smem_bytes(N: int, Q: int) -> int:
         + 4 * 3 * Q
 
 
+def wide_width(N: int) -> int | None:
+    """The state width route 2 is built for that holds N (N padded up with
+    zero columns), or None above the widest."""
+    return next((w for w in WIDE_WIDTHS if N <= w), None)
+
+
+def wide_smem_bytes(N: int, Q: int) -> int:
+    """Dynamic shared memory of one CTA of route 2 (``wide_smem_bytes`` in
+    the source): a chunk's B rows and its ``WIDE_COLS`` columns of x in bf16
+    (rows padded by ``TC_PAD``), one buffer of the state's hi and lo halves,
+    and three float32 rows.  C is not staged."""
+    row = wide_width(N) + TC_PAD
+    return 2 * (Q * row + Q * (WIDE_COLS + TC_PAD) + 2 * WIDE_COLS * row) \
+        + 4 * 3 * Q
+
+
 @functools.lru_cache(maxsize=256)
 def launch_plan(BH: int, P: int, N: int, Q: int, dtype, sms: int = 132,
                 aligned: bool = True) -> dict:
     """The route ``ssd_scan`` launches, its grid, its dynamic shared memory,
     the CTAs an SM holds at once and the waves of the grid on ``sms`` SMs.
 
-    Route 1 (tensor cores) takes bfloat16 with P and N multiples of 8, N up
-    to the widest of ``TC_WIDTHS``, Q a multiple of 16, 16-byte aligned rows
-    (``aligned``: x, B and C pointers and strides) and a chunk whose staging
-    fits a block; it owns ``TC_COLS`` columns of one row a CTA.  Route 0
+    The tensor-core routes take bfloat16 with P and N multiples of 8, Q a
+    multiple of 16, 16-byte aligned rows (``aligned``: x, B and C pointers
+    and strides) and a chunk whose staging fits a block: route 1 N up to
+    the widest of ``TC_WIDTHS``, ``TC_COLS`` columns of one row a CTA;
+    route 2, ``WIDE_COLS`` columns a CTA, the rest up to the widest of
+    ``WIDE_WIDTHS``: 64 < N <= 128, and at 32 < N <= 64 a chunk of 656
+    to 944 steps, too long for route 1 to stage, which route 2's narrower
+    staging at width 64 still holds.  Route 0
     (float32 FMAs) takes the rest, bfloat16 inputs widened to float32 by
     the wrapper: one CTA a row.  Cached: a serving prefill asks for the
     same plan once per layer (do not mutate the returned dict)."""
-    tc = (dtype == torch.bfloat16 and aligned and P % 8 == 0 and N % 8 == 0
-          and Q % 16 == 0 and tc_width(N) is not None
-          and tc_smem_bytes(N, Q) <= MAX_SMEM_BYTES)
-    if tc:
-        grid = -(-P // TC_COLS) * BH
-        smem = tc_smem_bytes(N, Q)
-        per_sm = min(TC_CTAS_PER_SM,
-                     SM_SMEM_BYTES // (smem + SMEM_PER_BLOCK))
+    split = (dtype == torch.bfloat16 and aligned and P % 8 == 0
+             and N % 8 == 0 and Q % 16 == 0)
+    if split and tc_width(N) is not None \
+            and tc_smem_bytes(N, Q) <= MAX_SMEM_BYTES:
+        route, cols, smem = 1, TC_COLS, tc_smem_bytes(N, Q)
+        bound = TC_CTAS_PER_SM
+    elif split and wide_width(N) is not None \
+            and wide_smem_bytes(N, Q) <= MAX_SMEM_BYTES:
+        route, cols, smem = 2, WIDE_COLS, wide_smem_bytes(N, Q)
+        bound = WIDE_CTAS_PER_SM
     else:
-        grid, smem = BH, smem_bytes(P, N, Q)
-        per_sm = min(2048 // 256, SM_SMEM_BYTES // (smem + SMEM_PER_BLOCK))
+        route, cols, smem = 0, P, smem_bytes(P, N, Q)
+        bound = 2048 // 256
+    grid = -(-P // cols) * BH
+    per_sm = min(bound, SM_SMEM_BYTES // (smem + SMEM_PER_BLOCK))
     slots = per_sm * sms                 # 0: route 0 cannot launch (raises)
-    return {"route": int(tc), "grid": grid, "smem_bytes": smem,
+    return {"route": route, "grid": grid, "smem_bytes": smem,
             "ctas_per_sm": per_sm, "slots": slots,
             "waves": grid / slots if slots else float("inf"),
             "last_wave": (grid - 1) % slots + 1 if slots else 0}
@@ -216,5 +250,6 @@ def ssd_scan(xdt, dA, Bm, Cm, *, chunk: int = 256):
                  bss, Cm.data_ptr(), ch_, cso, csi, css, y.data_ptr(),
                  st.data_ptr(), BH, S, P, N, Q, route)
     launch_counts["ssd_scan"] += 1
+    route_launch_counts[route] += 1
     raise_on(err, "ssd_scan")
     return y.to(out_dtype), st

@@ -144,3 +144,56 @@ def test_flops_match_the_reference():
     assert ops.flops(320, 512, 64, 64, 256) == j_flops(320, 512, 64, 64, 256)
     # the serving shape's count (PERF.md): 13.4 GFLOP per call
     assert ops.flops(320, 512, 64, 64, 256) == 13_421_772_800.0
+
+
+def _ssd_doing_the_needed_work(x, dA, B, C, Q: int, heads: int):
+    """The SSD computed with only the products ``ops.work_flops`` counts,
+    each a 2-d matmul: per chunk C B^T over the causal half of the pairs
+    once a group of ``heads`` rows (which share B and C), then per row
+    (C B^T o L) x over the same half, C state after the first chunk, and
+    the state update.  x (BH, S, P), dA (BH, S), B and C (BH, S, N)."""
+    BH, S, P = x.shape
+    y = torch.zeros(BH, S, P)
+    st = torch.zeros(BH, B.shape[-1], P)
+    for c0 in range(0, S, Q):
+        cum = torch.cumsum(dA[:, c0:c0 + Q], 1)
+        for g in range(0, BH, heads):
+            Bc, Cc = B[g, c0:c0 + Q], C[g, c0:c0 + Q]
+            cb = [Cc[i:i + 1] @ Bc[:i + 1].T for i in range(Q)]
+            for h in range(g, g + heads):
+                for i in range(Q):
+                    L = torch.exp(cum[h, i] - cum[h, :i + 1])
+                    y[h, c0 + i] = ((cb[i] * L) @ x[h, c0:c0 + i + 1])[0]
+                if c0:
+                    y[h, c0:c0 + Q] += torch.exp(cum[h])[:, None] * (
+                        Cc @ st[h])
+                w = torch.exp(cum[h, -1] - cum[h])
+                st[h] = torch.exp(cum[h, -1]) * st[h] + Bc.T @ (
+                    w[:, None] * x[h, c0:c0 + Q])
+    return y, st
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_work_flops_is_what_a_computation_of_the_function_needs(heads):
+    """``ops.work_flops`` (the bound's count) equals the matmul FLOPs that
+    ``FlopCounterMode`` counts in a computation doing only the products it
+    names, and that computation is the SSD: it agrees with the recurrence
+    oracle within the reference's tolerance.  B and C per row (``heads``
+    1) or one matrix for each pair of rows (2 heads a group)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    BH, S, P, N, Q = 4, 24, 4, 8, 8
+    rng = np.random.default_rng(heads)
+    x = rng.standard_normal((BH, S, P)).astype(np.float32) * 0.5
+    dA = -np.abs(rng.standard_normal((BH, S))).astype(np.float32) * 0.3
+    B, C = (np.repeat(rng.standard_normal((BH // heads, S, N)).astype(
+        np.float32) * 0.5, heads, axis=0) for _ in range(2))
+    with FlopCounterMode(display=False) as fc:
+        y, st = _ssd_doing_the_needed_work(T(x), T(dA), T(B), T(C), Q, heads)
+    assert fc.get_total_flops() == ops.work_flops(BH, S, P, N, Q,
+                                                  BH // heads)
+    assert ops.work_flops(BH, S, P, N, Q, BH // heads) \
+        < ops.flops(BH, S, P, N, Q)
+    ry, rst = j_ref(x, dA, B, C)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(rst), rtol=TOL,
+                               atol=TOL)
