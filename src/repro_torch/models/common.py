@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (NO_TP, TP_AXIS, gather_tree,
                                               tp_plan)
+from repro_torch.obs import metrics, trace
 
 
 @dataclass(frozen=True)
@@ -152,7 +153,15 @@ def init_params(specs, generator: torch.Generator):
 # ---------------------------------------------------------------------------
 
 def cast_compute(x, dtype=torch.bfloat16):
-    return x.to(dtype)
+    """``x`` in ``dtype``.  While spans are on (``obs.trace.on``), a cast
+    that changes the dtype is a ``cast`` span and counts the bytes it reads
+    in ``cast_bytes``; where the dtype is already right ``.to`` launches
+    nothing, and nothing is recorded."""
+    if not trace.on() or x.dtype == dtype:
+        return x.to(dtype)
+    with trace.span("cast", cat="model"):
+        metrics.REGISTRY.inc("cast_bytes", x.numel() * x.element_size())
+        return x.to(dtype)
 
 
 def rms_norm(x, weight, eps: float):

@@ -56,6 +56,7 @@ from repro_torch.models.common import (apply_mlp, apply_norm,
                                        mlp_specs, norm_specs, stack_specs,
                                        tree_index, tree_stack, tree_unbind)
 from repro_torch.models.variant import BASELINE, Variant, remat_wrap
+from repro_torch.obs import trace
 
 
 class DecoderLM:
@@ -192,7 +193,15 @@ class DecoderLM:
         """tokens (B, S) -> (logits of the last position (B, V_padded) f32,
         cache {"k"/"v": (L, B, S, KV, hd)} or, mla, {"c": (L, B, S,
         kv_lora), "k_rope": (L, B, S, rope)}, bf16; on a mesh the rank's
-        KV heads)."""
+        KV heads).  Spans (``obs.trace``, on while tracing or a torch
+        profiler records): ``prefill`` around the call, and a layer's
+        ``prefill.attn`` and ``prefill.mlp``, each holding its norm, its
+        sublayer and its residual add, so that every operation of a layer
+        falls under exactly one of the two."""
+        with trace.span("prefill", cat="model"):
+            return self._prefill(params, tokens, ctx, variant)
+
+    def _prefill(self, params, tokens, ctx, variant: Variant):
         cfg = self.cfg
         B, S = tokens.shape
         tp = tp_plan(ctx, S)
@@ -205,29 +214,31 @@ class DecoderLM:
         caches = []
         for layer in range(cfg.n_layers):
             p = self._layer(ctx, tree_index(params["blocks"], layer))
-            h = apply_norm(cfg, p["ln1"], x)
-            if self.is_mla:
-                q, k, v, c, kr = mla_mod.mla_expand(cfg, p["attn"],
-                                                    tp.gather_seq(h),
-                                                    positions, inv_freq)
-                entry = {"c": c.to(torch.bfloat16),
-                         "k_rope": kr.to(torch.bfloat16)}
-                if variant.use_pallas:
-                    o = fa_ops.flash(q, k, v, causal=True)
+            with trace.span("prefill.attn", cat="model"):
+                h = apply_norm(cfg, p["ln1"], x)
+                if self.is_mla:
+                    q, k, v, c, kr = mla_mod.mla_expand(cfg, p["attn"],
+                                                        tp.gather_seq(h),
+                                                        positions, inv_freq)
+                    entry = {"c": c.to(torch.bfloat16),
+                             "k_rope": kr.to(torch.bfloat16)}
+                    if variant.use_pallas:
+                        o = fa_ops.flash(q, k, v, causal=True)
+                    else:
+                        o = attn.chunked_attention(
+                            q, k, v, causal=True,
+                            kv_block=min(variant.kv_block, S))
+                    a = attn.out_proj(o, p["attn"]["wo"], tp,
+                                      q.shape[2] < cfg.n_heads, x.dtype)
                 else:
-                    o = attn.chunked_attention(
-                        q, k, v, causal=True,
-                        kv_block=min(variant.kv_block, S))
-                a = attn.out_proj(o, p["attn"]["wo"], tp,
-                                  q.shape[2] < cfg.n_heads, x.dtype)
-            else:
-                a, entry = attn.gqa_prefill(
-                    cfg, p["attn"], h, positions, inv_freq, tp=tp,
-                    use_pallas=variant.use_pallas, kv_block=variant.kv_block,
-                    dtype=x.dtype)
-            x = x + a
-            x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant, ctx,
-                              tp)
+                    a, entry = attn.gqa_prefill(
+                        cfg, p["attn"], h, positions, inv_freq, tp=tp,
+                        use_pallas=variant.use_pallas,
+                        kv_block=variant.kv_block, dtype=x.dtype)
+                x = x + a
+            with trace.span("prefill.mlp", cat="model"):
+                x = x + self._ffn(p, apply_norm(cfg, p["ln2"], x), variant,
+                                  ctx, tp)
             caches.append(entry)
         x = apply_norm(cfg, self._ln_f(ctx, params),
                        tp.gather_seq(x)[:, -1:, :])

@@ -6,14 +6,18 @@ ways, each consumable on its own:
 
 * ``trace``   — a zero-dependency span tracer (stdlib only).  Off by
   default; enabled via ``--trace`` on the CLI, ``REPRO_TRACE=1`` in the
-  environment, or ``trace.configure(enabled=True)`` in code.  The Runner,
-  the backends and the timing loop are instrumented; spans export as JSON-lines or Chrome trace-event JSON
+  environment, or ``trace.configure(enabled=True)`` in code, and on while
+  a torch profiler records, its spans then also in the profiler's trace.
+  The Runner, the backends and the timing loop are instrumented, and the
+  model's prefill (``prefill`` > ``prefill.attn`` / ``prefill.mlp`` >
+  ``cast``); spans export as JSON-lines or Chrome trace-event JSON
   (loadable in Perfetto / ``chrome://tracing``).
 * ``metrics`` — a counter/gauge registry (cache hits/misses, buffers
   built/released, peak resident working-set bytes, audit waivers,
-  straggler kills, adaptive rounds).  Always on (increments are dict ops
-  outside the timed path); every ``Runner.run`` snapshots its delta into
-  ``BenchResult.meta["obs"]`` (result schema v6).
+  straggler kills, adaptive rounds; ``cast_bytes`` while spans are on).
+  Always on (increments are dict ops outside the timed path); every
+  ``Runner.run`` snapshots its delta into ``BenchResult.meta["obs"]``
+  (result schema v6).
 * ``ledger``  — a persistent on-disk run history (``BENCH_history/``):
   every CLI ``run`` invocation appends one compact record (spec digest,
   machine identity, per-mix bandwidth curves with noise statistics,

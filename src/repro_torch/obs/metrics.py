@@ -3,7 +3,8 @@
 Stdlib-only and always on: increments are dict operations under one lock,
 all of them on setup/teardown paths (plan, buffer build/release, cache
 lookup, launcher supervision) — never inside the timed repetition loop, so
-the measurement discipline is untouched.
+the measurement discipline is untouched.  The one in a model's call
+(``cast_bytes``) counts only while spans are on, in a traced run.
 
 Canonical counter names (what ``BenchResult.meta["obs"]`` carries — the
 set is open, these are the ones the built-in instrumentation emits):
@@ -14,6 +15,11 @@ set is open, these are the ones the built-in instrumentation emits):
     straggler_kills                launcher processes killed after a peer
                                    failure or timeout
     adaptive_rounds                characterize refinement rounds driven
+    cast_bytes                     bytes ``models.common.cast_compute``
+                                   read from its source where it changed
+                                   the dtype, while spans are on
+                                   (``trace.on``: tracing enabled or a
+                                   torch profiler recording)
 
 Gauges:
 
@@ -33,7 +39,7 @@ from contextlib import contextmanager
 
 
 class MetricsRegistry:
-    """Named monotonically increasing counters + last/high-water gauges."""
+    """Named monotonically increasing counters + high-water gauges."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -44,10 +50,6 @@ class MetricsRegistry:
     def inc(self, name: str, n: float = 1) -> None:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + n
-
-    def gauge_set(self, name: str, value: float) -> None:
-        with self._lock:
-            self._gauges[name] = value
 
     def gauge_max(self, name: str, value: float) -> None:
         """High-water gauge: keeps the max ever seen (e.g. peak bytes)."""

@@ -5,12 +5,19 @@ warmup vs timed reps vs buffer churn) invites exactly the unlabeled-number
 mistakes the paper warns against.  This tracer is deliberately tiny:
 
 * stdlib only — importable from anywhere (``core.timing`` uses it inside
-  the repetition loop) without dragging torch/numpy in;
+  the repetition loop) without dragging torch/numpy in; torch is imported
+  only once a span is asked for with torch already loaded;
 * **off by default** and cheap when off: ``Tracer.span`` returns a shared
   no-op context manager without allocating, and the hot timed path in
   ``core.timing.time_fn`` checks ``enabled`` ONCE and runs the original
   untraced loop when tracing is off (zero per-rep overhead — guarded by a
   test);
+* on while a torch profiler records, too (``on``): each span is then
+  also a ``torch._C._profiler._RecordFunctionFast`` of its name, so it
+  exports into the profiler's trace as a ``cpu_op`` on the profiler's
+  clock, beside the device operations it launched.  ``enabled`` alone
+  still chooses ``time_fn``'s loop: a profiler around a membench run does
+  not change how it is timed;
 * thread-safe (one lock around the event list, a thread-local span stack
   for depth/nesting) and process-aware (every event records its OS pid;
   ``merge_process_traces`` re-stamps per-process event streams for the
@@ -19,13 +26,19 @@ mistakes the paper warns against.  This tracer is deliberately tiny:
   the body raises (the event gains an ``error`` arg), so traces from
   failed runs still load.
 
-Span taxonomy (the instrumented subset of the reference package's map):
-``runner.run`` > ``runner.plan`` / ``runner.size`` > ``case.build`` /
-``buffers.build`` / ``runner.case`` > ``timing.warmup`` / ``timing.rep``;
-``backend.<name>.make_case`` under the plan; ``launch.child`` and
-``characterize.round`` at top level in their own processes.  Instant
-events: ``cache`` (hit/miss), ``buffers.release``,
-``launch.straggler_kill``, ``characterize.bisect``.
+Span taxonomy: the bench (the instrumented subset of the reference
+package's map): ``runner.run`` > ``runner.plan`` / ``runner.size`` >
+``case.build`` / ``buffers.build`` / ``runner.case`` > ``timing.warmup``
+/ ``timing.rep``; ``backend.<name>.make_case`` under the plan;
+``launch.child`` and ``characterize.round`` at top level in their own
+processes.  Instant events: ``cache`` (hit/miss), ``buffers.release``,
+``launch.straggler_kill``, ``characterize.bisect``.  The model's prefill
+(``models.transformer.DecoderLM.prefill``, category ``model``):
+``prefill`` > ``prefill.attn`` / ``prefill.mlp`` once a layer (the norm,
+the sublayer and its residual add), and ``cast`` (``common.cast_compute``
+where the dtype changes; its source's bytes count in
+``metrics.REGISTRY``'s ``cast_bytes``) under either, or under ``prefill``
+for the embedding and the head.
 
 Export formats:
 
@@ -43,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from pathlib import Path
@@ -55,7 +69,7 @@ TRACE_ENV = "REPRO_TRACE"
 
 
 class _NullSpan:
-    """Shared no-op context manager returned while tracing is disabled."""
+    """Shared no-op context manager returned while spans are off."""
     __slots__ = ()
 
     def __enter__(self):
@@ -69,8 +83,9 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """One live span: records a single ``"X"`` complete event on exit."""
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_depth")
+    """One live span: records a single ``"X"`` complete event on exit, and
+    is a profiler span of its name while a torch profiler records."""
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_depth", "_mark")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict):
         self._tracer = tracer
@@ -79,6 +94,9 @@ class _Span:
         self.args = args
 
     def __enter__(self):
+        self._mark = _MARK(self.name) if _profiling() else None
+        if self._mark is not None:
+            self._mark.__enter__()
         stack = self._tracer._stack()
         self._depth = len(stack)
         stack.append(self)
@@ -87,6 +105,8 @@ class _Span:
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter_ns()
+        if self._mark is not None:
+            self._mark.__exit__(exc_type, exc, tb)
         stack = self._tracer._stack()
         # balance even if an inner span leaked (never happens with `with`,
         # but a trace must not corrupt on someone's manual __enter__)
@@ -135,11 +155,11 @@ class Tracer:
 
     # -- recording API ------------------------------------------------------
     def span(self, name: str, cat: str = "bench", **args):
-        """Context manager timing a phase; no-op (and allocation-free)
-        while disabled."""
-        if not self.enabled:
-            return _NULL_SPAN
-        return _Span(self, name, cat, args)
+        """Context manager timing a phase while the tracer is enabled or a
+        torch profiler records; otherwise a no-op (and allocation-free)."""
+        if self.enabled or _profiling():
+            return _Span(self, name, cat, args)
+        return _NULL_SPAN
 
     def event(self, name: str, cat: str = "bench", **args) -> None:
         """Instant event (Chrome ``"i"``, thread scope)."""
@@ -200,6 +220,35 @@ class Tracer:
 
 
 # ---------------------------------------------------------------------------
+# the torch profiler
+# ---------------------------------------------------------------------------
+
+def _watch_profiler() -> bool:
+    """Install the profiler hook once torch is loaded (this module never
+    imports torch first: without it no profiler can record): ``_profiling``
+    then reads ``torch.autograd.profiler._is_profiler_enabled``, which the
+    profiler sets on ``start`` and clears on ``stop``, and ``_MARK`` is the
+    profiler's span class (``_RecordFunctionFast`` exports as ``cpu_op``;
+    where it is missing, ``record_function``, which exports as
+    ``user_annotation``)."""
+    global _profiling, _MARK
+    if "torch" not in sys.modules:
+        return False
+    import torch
+    import torch.autograd.profiler as prof
+    _MARK = getattr(torch._C._profiler, "_RecordFunctionFast",
+                    prof.record_function)
+    _profiling = lambda: prof._is_profiler_enabled  # noqa: E731
+    return _profiling()
+
+
+#: whether a torch profiler records now (``_watch_profiler`` until torch is
+#: loaded and the hook installed)
+_profiling = _watch_profiler
+_MARK = None
+
+
+# ---------------------------------------------------------------------------
 # the default (per-process) tracer
 # ---------------------------------------------------------------------------
 
@@ -220,8 +269,17 @@ def configure(enabled: bool | None = None, clear: bool = False) -> Tracer:
 
 
 def span(name: str, cat: str = "bench", **args):
-    """Module-level convenience on the default tracer."""
-    return _TRACER.span(name, cat=cat, **args)
+    """``Tracer.span`` on the default tracer (the check inlined: the
+    model's prefill asks for hundreds of spans a call, off)."""
+    if _TRACER.enabled or _profiling():
+        return _Span(_TRACER, name, cat, args)
+    return _NULL_SPAN
+
+
+def on() -> bool:
+    """Whether a span of the default tracer records now: the tracer is
+    enabled, or a torch profiler records."""
+    return _TRACER.enabled or _profiling()
 
 
 def event(name: str, cat: str = "bench", **args) -> None:
@@ -229,7 +287,7 @@ def event(name: str, cat: str = "bench", **args) -> None:
 
 
 # ---------------------------------------------------------------------------
-# multi-process merge + trace analysis helpers
+# multi-process merge
 # ---------------------------------------------------------------------------
 
 def merge_process_traces(per_process: list[list[dict]]) -> list[dict]:
@@ -252,59 +310,3 @@ def merge_process_traces(per_process: list[list[dict]]) -> list[dict]:
     merged.sort(key=lambda e: (e.get("ts", 0.0), e.get("pid", 0)))
     return merged
 
-
-def validate_chrome(doc: dict) -> list[str]:
-    """Structural checks on a Chrome trace-event document; returns a list
-    of problems (empty = valid).  This is the schema the obs CI gate and
-    the trace tests assert — Perfetto is lenient, the gate is not."""
-    problems = []
-    evs = doc.get("traceEvents")
-    if not isinstance(evs, list):
-        return ["traceEvents missing or not a list"]
-    for i, e in enumerate(evs):
-        for k in ("name", "ph", "ts", "pid", "tid"):
-            if k not in e:
-                problems.append(f"event {i} missing {k!r}: {e}")
-                break
-        else:
-            if e["ph"] not in ("X", "i", "M", "C"):
-                problems.append(f"event {i} has unknown phase {e['ph']!r}")
-            if e["ph"] == "X" and not (isinstance(e.get("dur"), (int, float))
-                                       and e["dur"] >= 0):
-                problems.append(f"event {i} ('{e['name']}') bad dur: "
-                                f"{e.get('dur')!r}")
-    return problems
-
-
-def span_tree(events: list[dict]) -> dict:
-    """Group complete-span events into per-(pid, tid) lists sorted by start
-    time — nesting is recoverable from interval containment + ``depth``."""
-    by_track: dict[tuple, list[dict]] = {}
-    for e in events:
-        if e.get("ph") == "X":
-            by_track.setdefault((e["pid"], e["tid"]), []).append(e)
-    for track in by_track.values():
-        track.sort(key=lambda e: e["ts"])
-    return by_track
-
-
-def span_coverage(events: list[dict], root: str = "runner.run") -> float:
-    """Fraction of the (longest) ``root`` span's duration covered by its
-    direct children — the ≥95% wall-clock accounting check.  Returns 0.0
-    when no root span is present."""
-    roots = [e for e in events if e.get("ph") == "X" and e["name"] == root]
-    if not roots:
-        return 0.0
-    r = max(roots, key=lambda e: e["dur"])
-    if r["dur"] <= 0:
-        return 0.0
-    depth = r.get("args", {}).get("depth", 0)
-    lo, hi = r["ts"], r["ts"] + r["dur"]
-    covered = 0.0
-    for e in events:
-        if (e.get("ph") == "X" and e is not r
-                and e.get("pid") == r["pid"] and e.get("tid") == r["tid"]
-                and e.get("args", {}).get("depth") == depth + 1
-                and e["ts"] >= lo - 1e-6 and e["ts"] + e["dur"] <= hi + 1e-6):
-            covered += e["dur"]
-    return covered / r["dur"]
